@@ -1,0 +1,531 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py                 # every phase, one card
+    python3 chip_smoke.py --phases build,kernels
+    python3 chip_smoke.py --phases build,profile      # opt-in breakdown
+
+Phases, in order; any failure raises and the script exits nonzero:
+
+1. build    — compile every ``src/repro_torch/csrc/*.cu`` with nvcc (one
+              process per source, all at once) and print the seconds.
+2. kernels  — each hand-written kernel against its plain torch version on
+              the card, at the shapes the main path gives it: ``binarize``
+              (D in {100, 384, 768, 1536, 3072}, ragged N; sign words exact,
+              strong bits only within 4 ulp of tau), ``bq_dist_rows`` and
+              ``bq_pairwise`` (exactly equal).  Then each kernel's and
+              plain version's time on those main-path inputs: device time
+              and stream time (see ``time_ms``).
+3. parity   — the same N = 4000 build and search on ``device="cpu"`` and on
+              the card: identical adjacency, medoid and beam ids.
+4. main     — the main path at deployment size: cohere-surrogate (768-d),
+              N = 100 000, 1 000 queries, ``BuildParams()`` defaults;
+              build, search at k = 10, ef = 64, recall@10 against exact
+              search (gate 0.80), save, load, search again (identical
+              ids).  Launch counts are reset just before this phase and
+              read just after; every kernel must have launched.
+An opt-in fifth phase, ``profile``, is not run by default: it profiles a
+few build chunks at the main path's size with ``torch.profiler`` and
+prints the device's busy share and device time by kernel.
+
+The last three lines of standard output are the card's name and power
+limit (``nvidia-smi``), one JSON line of per-kernel numbers, and
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+repository beside it, the script exits nonzero and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from functools import partial
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+PHASES = ("build", "kernels", "parity", "main")
+OPT_IN = ("profile",)
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the float32
+# CUDA-core rate, used as the rate of the kernels' integer and logic
+# operations (Hopper issues int32 at no more than that rate, so the bound
+# derived from it is a lower bound)
+HBM_BYTES_PER_S = 3.35e12
+CORE_OPS_PER_S = 67e12
+# integer operations per word pair of the Table-1 similarity: 8 to form
+# the planes, 6 ANDs, 6 popcounts, 6 adds
+OPS_PER_WORD_PAIR = 26
+# per float of binarize: abs, add, two compares
+OPS_PER_ELEMENT = 4
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi(fields: str) -> str:
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip()
+
+
+def clocks() -> str:
+    """SM clock (now / max), power draw and temperature: a run whose
+    compute-bound kernels slow down shows it here."""
+    return nvidia_smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu")
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / CORE_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> tuple:
+    """(device ms, stream ms) of one call of ``fn``.
+
+    Stream ms: CUDA events around ``reps`` back-to-back calls, over
+    ``reps``; where the host enqueues slower than the card runs, this
+    measures the host.  Device ms: the same, but behind a spin kernel
+    (``torch.cuda._sleep``) long enough for the host to enqueue every call
+    first, so the card runs them back to back and the host's launch
+    overhead drops out.
+    """
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def run() -> float:
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    stream_ms = run()
+    # ~2e6 cycles a millisecond at the H100's 1.98 GHz: spin for twice the
+    # stream-timed run, plus 5 ms
+    torch.cuda._sleep(int(2e6 * (2 * stream_ms * reps + 5)))
+    return run(), stream_ms
+
+
+def random_table(torch, n: int, dim: int, seed: int):
+    """(n, 2W) int32 signatures of seeded random vectors, on the card."""
+    from repro_torch.kernels.binarize import binarize_plain
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((n, dim), generator=g, device="cuda")
+    return binarize_plain(x)
+
+
+def phase_kernels(torch) -> dict:
+    """Every kernel against its plain version; numbers at main-path shapes."""
+    from repro_torch.core import bq
+    from repro_torch.kernels import binarize as kb
+    from repro_torch.kernels import bq_distance as kd
+
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(11)
+    flips_total = 0
+    for dim in (100, 384, 768, 1536, 3072):
+        x = torch.randn((4099, dim), generator=g, device="cuda")
+        got = kb.binarize_cuda(x)
+        want = kb.binarize_plain(x)
+        torch.cuda.synchronize()
+        flips = kb.strong_bit_flips(got.cpu().numpy(), want.cpu().numpy(),
+                                    x.cpu().numpy())
+        flips_total += flips
+        log(f"  binarize D={dim} N=4099: sign words exact, "
+            f"{flips} strong-bit flips within 4 ulp of tau, "
+            f"exact={bool(torch.equal(got, want))}")
+
+    # binarize at the main path's encode shape: N = 100 000, D = 768
+    x = torch.randn((100_000, 768), generator=g, device="cuda")
+    got, want = kb.binarize_cuda(x), kb.binarize_plain(x)
+    flips = kb.strong_bit_flips(got.cpu().numpy(), want.cpu().numpy(),
+                                x.cpu().numpy())
+    flips_total += flips
+    bits = bq.unpack_bits(got, got.shape[1] * 32).int()
+    ref_bits = bq.unpack_bits(want, want.shape[1] * 32).int()
+    nb, ops = x.numel() * 4 + got.numel() * 4, OPS_PER_ELEMENT * x.numel()
+    b_ms, b_by = bound(nb, ops)
+    out["binarize"] = {
+        "name": "binarize", "route": "cuda",
+        "source": "src/repro_torch/csrc/binarize.cu",
+        "replaces": "src/repro/kernels/binarize.py:21",
+        "max_abs_err": float((bits - ref_bits).abs().max()),
+        "fns": (partial(kb.binarize_cuda, x), partial(kb.binarize_plain, x)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": [100_000, 768], "strong_bit_flips": flips_total,
+    }
+    log(f"  binarize: {flips_total} strong-bit flips in all, none outside "
+        "the band")
+
+    n_table = 100_000
+    for dim in (384, 768, 1536):
+        table = random_table(torch, n_table, dim, seed=dim)
+        mask = bq.valid_mask(dim, device="cuda")
+        w = mask.shape[0]
+        for k in (72, 4 * 72):
+            ids = torch.randint(0, n_table, (256, k), generator=g,
+                                device="cuda", dtype=torch.int32)
+            q = table[torch.randint(0, n_table, (256,), generator=g,
+                                    device="cuda")]
+            got = kd.dist_rows(q, ids, table, mask)
+            want = kd.dist_rows_plain(q, ids, table, mask)
+            if not torch.equal(got, want):
+                raise AssertionError(f"bq_dist_rows differs at D={dim} K={k}")
+            log(f"  bq_dist_rows B=256 K={k} D={dim}: exact")
+            if dim == 768 and k == 72:
+                uniq = torch.unique(ids).numel()
+                nb = uniq * 8 * w + ids.numel() * 4 + q.numel() * 4 \
+                    + w * 4 + got.numel() * 4
+                b_ms, b_by = bound(nb, OPS_PER_WORD_PAIR * ids.numel() * w)
+                out["bq_dist_rows"] = {
+                    "name": "bq_dist_rows", "route": "cuda",
+                    "source": "src/repro_torch/csrc/bq_distance.cu",
+                    "replaces": "src/repro/kernels/bq_distance.py:25",
+                    "max_abs_err": float((got - want).abs().max()),
+                    # partial binds these tensors now; the loop rebinds
+                    # the names for the next shapes
+                    "fns": (partial(kd.dist_rows, q, ids, table, mask),
+                            partial(kd.dist_rows_plain, q, ids, table, mask)),
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    "shape": [256, k, dim],
+                }
+        for c in (72, 128):
+            ids = torch.randint(0, n_table, (256, c), generator=g,
+                                device="cuda", dtype=torch.int32)
+            got = kd.pairwise(ids, table, mask)
+            want = kd.pairwise_plain(ids, table, mask)
+            if not torch.equal(got, want):
+                raise AssertionError(f"bq_pairwise differs at D={dim} C={c}")
+            log(f"  bq_pairwise B=256 C={c} D={dim}: exact")
+            if dim == 768 and c == 128:
+                uniq = torch.unique(ids).numel()
+                nb = uniq * 8 * w + ids.numel() * 4 + w * 4 + got.numel() * 4
+                b_ms, b_by = bound(nb, OPS_PER_WORD_PAIR * got.numel() * w)
+                out["bq_pairwise"] = {
+                    "name": "bq_pairwise", "route": "cuda",
+                    "source": "src/repro_torch/csrc/bq_distance.cu",
+                    "replaces": "src/repro/kernels/bq_distance.py:25",
+                    "max_abs_err": float((got - want).abs().max()),
+                    "fns": (partial(kd.pairwise, ids, table, mask),
+                            partial(kd.pairwise_plain, ids, table, mask)),
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    "shape": [256, c, dim],
+                }
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_times(torch, kernels: dict) -> None:
+    """Time each kernel and its plain version on the inputs phase 2 kept
+    (the main path's shapes)."""
+    for rec in kernels.values():
+        kernel, plain = rec.pop("fns")
+        rec["ms"], rec["stream_ms"] = time_ms(torch, kernel)
+        rec["plain_ms"], rec["plain_stream_ms"] = time_ms(torch, plain,
+                                                          reps=3)
+        log(f"  {rec['name']} at {rec['shape']}: device {rec['ms']:.4f} ms "
+            f"(stream-timed {rec['stream_ms']:.4f}), plain device "
+            f"{rec['plain_ms']:.4f} ms (stream-timed "
+            f"{rec['plain_stream_ms']:.4f}), bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']})")
+    log(f"  clocks right after: {clocks()}")
+
+
+def ids_match(a, b, scores_a, scores_b, tol: float = 1e-6) -> int:
+    """Two (Q, k) reranked id lists agree where their scores separate them:
+    a position may hold different ids only where the two scores there lie
+    within ``tol`` (a tie that float rounding may break either way).
+    Returns the number of rows with such a tie."""
+    import numpy as np
+
+    diff = a != b
+    if (np.abs(scores_a - scores_b)[diff] > tol).any():
+        bad = int(np.nonzero(diff.any(axis=1))[0][0])
+        raise AssertionError(
+            f"query {bad}: ids {a[bad].tolist()} vs {b[bad].tolist()}")
+    return int(diff.any(axis=1).sum())
+
+
+def phase_parity(torch) -> None:
+    """The N = 4000 build on the CPU and on the card must agree."""
+    import numpy as np
+
+    from repro_torch.core.index import QuIVerIndex
+    from repro_torch.core.vamana import BuildParams
+    from repro_torch.data.datasets import make_dataset
+
+    base, queries = make_dataset("cohere-surrogate", 4000, queries=100)
+    params = BuildParams(m=16, ef_construction=64, prune_pool=64)
+    built = {}
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        idx = QuIVerIndex.build(base, params, device=dev)
+        beam_ids, _ = idx.search(queries, k=10, ef=64, rerank=False)
+        ids, scores = idx.search(queries, k=10, ef=64)
+        built[dev] = (idx, beam_ids, ids, scores)
+        log(f"  {dev}: build + search {time.perf_counter() - t0:.1f} s, "
+            f"medoid {idx.medoid}")
+    cpu, gpu = built["cpu"], built["cuda"]
+    if not torch.equal(cpu[0].sigs.words, gpu[0].sigs.words.cpu()):
+        raise AssertionError("signatures differ between CPU and card")
+    if not torch.equal(cpu[0].adjacency, gpu[0].adjacency.cpu()):
+        raise AssertionError("adjacency differs between CPU and card")
+    if cpu[0].medoid != gpu[0].medoid:
+        raise AssertionError("medoid differs between CPU and card")
+    if not np.array_equal(cpu[1], gpu[1]):
+        raise AssertionError("beam ids differ between CPU and card")
+    if not np.allclose(cpu[3], gpu[3], rtol=1e-5, atol=1e-6):
+        raise AssertionError("rerank scores differ between CPU and card")
+    tied = ids_match(cpu[2], gpu[2], cpu[3], gpu[3])
+    log(f"  signatures, adjacency, medoid and beam ids identical; reranked "
+        f"ids identical up to {tied} rows of scores within 1e-6")
+
+
+def phase_main(torch) -> dict:
+    """The main path at deployment size; returns launch counts and stats."""
+    import numpy as np
+
+    from repro_torch.core.baselines import flat_search, recall_at_k
+    from repro_torch.core.index import QuIVerIndex
+    from repro_torch.core.vamana import BuildParams
+    from repro_torch.data.datasets import make_dataset
+    from repro_torch.kernels import build as kbuild
+
+    n, n_queries = 100_000, 1000
+    base, queries = make_dataset("cohere-surrogate", n, queries=n_queries)
+    truth, _ = flat_search(base, queries, 10, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    index = QuIVerIndex.build(base, BuildParams(), device="cuda")
+    torch.cuda.synchronize()
+    build_wall = time.perf_counter() - t0
+    stats = index.build_stats
+    t0 = time.perf_counter()
+    ids, scores = index.search(queries, k=10, ef=64)
+    search_s = time.perf_counter() - t0
+    save_dir = ROOT / "build" / "smoke"
+    save_dir.mkdir(parents=True, exist_ok=True)
+    path = save_dir / "index.npz"
+    index.save(str(path))
+    loaded = QuIVerIndex.load(str(path), device="cuda")
+    ids2, scores2 = loaded.search(queries, k=10, ef=64)
+    torch.cuda.synchronize()
+    launches = dict(kbuild.LAUNCHES)
+
+    recall = recall_at_k(ids, truth)
+    log(f"  encode (normalize + binarize) {build_wall - stats.seconds:.3f} s, "
+        f"build {stats.seconds:.1f} s ({stats.chunks} chunks, mean hops "
+        f"{stats.mean_hops:.1f}, {stats.consolidations} consolidations)")
+    log(f"  search {n_queries} queries at k=10 ef=64: {search_s:.3f} s, "
+        f"{n_queries / search_s:.1f} QPS, recall@10 {recall:.4f}")
+    log(f"  memory_breakdown {json.dumps(index.memory_breakdown())}")
+    log(f"  max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+    log(f"  launches on the main path: {launches}")
+    if ids.shape != (n_queries, 10) or not np.isfinite(scores).all():
+        raise AssertionError("search output malformed")
+    if ids.min() < 0 or ids.max() >= n:
+        raise AssertionError("search returned ids out of range")
+    if recall < 0.80:
+        raise AssertionError(f"recall@10 {recall:.4f} is below 0.80")
+    if not (np.array_equal(ids, ids2) and np.array_equal(scores, scores2)):
+        raise AssertionError("save/load changed the search results")
+    for name in ("binarize", "bq_dist_rows", "bq_pairwise"):
+        if launches.get(name, 0) == 0:
+            raise AssertionError(f"{name} never launched on the main path")
+    return {"launches": launches, "recall": recall,
+            "build_s": stats.seconds, "qps": n_queries / search_s}
+
+
+def phase_profile(torch, chunks: int = 8) -> None:
+    """Where a build's time goes at the main path's size (N = 100 000,
+    D = 768, ``BuildParams()``): ``chunks`` chunks and the consolidation
+    that follows them, from the random initial graph.  Host-clock stage
+    times (each stage synchronised), then the device's busy share and
+    device time by kernel under ``torch.profiler``."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import beam, bq, linking, metric, vamana
+    from repro_torch.core.index import as_float32, normalize
+    from repro_torch.data.datasets import make_dataset
+    from repro_torch.kernels import build as kbuild
+
+    n = 100_000
+    base, _ = make_dataset("cohere-surrogate", n, queries=0)
+    p = vamana.BuildParams()
+    backend = metric.make_backend("bq2", metric.MetricArrays(
+        sigs=bq.encode(normalize(as_float32(base, "cuda")))))
+    medoid = int(linking.medoid_scan(backend, vamana._centroid_repr(backend),
+                                     chunk=4096))
+    order = torch.from_numpy(
+        np.random.default_rng(p.seed).permutation(n).astype(np.int32)).cuda()
+    init = vamana._init_graph(n, p, p.seed, "cuda")
+
+    def sync_time(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def window(adj, split: bool):
+        """``chunks`` chunks, then one consolidation; returns stage secs."""
+        deg = (adj >= 0).sum(dim=1, dtype=torch.int32)
+        secs = dict.fromkeys(("beam", "hops", "chunk_forward", "edges",
+                              "consolidate"), 0.0)
+        for ci in range(chunks):
+            ids = order[ci * p.chunk:(ci + 1) * p.chunk]
+            if split:
+                before = kbuild.LAUNCHES["bq_dist_rows"]
+                _, t = sync_time(lambda: beam.beam_search(
+                    backend.query_repr(ids), adj, medoid,
+                    dist_fn=backend.dist_many, ef=p.ef_construction, n=n))
+                secs["beam"] += t
+                # one distance launch for the entry point, one a hop
+                secs["hops"] += kbuild.LAUNCHES["bq_dist_rows"] - before - 1
+            fwd, t = sync_time(lambda: linking.chunk_forward(
+                backend, adj, ids, medoid, ef=p.ef_construction,
+                pool=p.prune_pool, r=p.r, alpha=p.alpha, n=n)[0])
+            secs["chunk_forward"] += t
+
+            def edges():
+                a, d = linking.apply_forward(adj, deg, ids, fwd,
+                                             r_total=p.r_total)
+                return linking.reverse_append(a, d, ids, fwd,
+                                              r_total=p.r_total)[:2]
+            (adj, deg), t = sync_time(edges)
+            secs["edges"] += t
+        over = int((deg > p.r).sum())
+        (adj, deg, _), t = sync_time(lambda: vamana._consolidate_overflow(
+            adj, deg, backend, p, p.chunk))
+        secs["consolidate"] = t
+        return secs, over
+
+    window(init, split=False)                                 # warm-up
+    secs, over = window(init, split=True)
+    beam_hops = secs["hops"] / chunks
+    total = secs["chunk_forward"] + secs["edges"] + secs["consolidate"]
+    log(f"  {chunks} chunks + 1 consolidation: {total:.3f} s; per chunk: "
+        f"beam {secs['beam'] / chunks * 1e3:.1f} ms "
+        f"({beam_hops:.0f} hops, "
+        f"{secs['beam'] / chunks / max(beam_hops, 1) * 1e3:.3f} ms a hop), "
+        f"prune + pairwise "
+        f"{(secs['chunk_forward'] - secs['beam']) / chunks * 1e3:.1f} ms, "
+        f"edges {secs['edges'] / chunks * 1e3:.1f} ms; consolidation "
+        f"{secs['consolidate'] * 1e3:.1f} ms over {over} rows")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        window(init, split=False)
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_s = sum(dev_us(e) for e in kernels) / 1e6
+    log(f"  device busy {device_s:.3f} s of {total:.3f} s unprofiled wall "
+        f"({device_s / total:.1%}); profiled wall {wall:.3f} s")
+    log("  device time by kernel:")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
+        log(f"    {dev_us(e) / 1e3:9.2f} ms {e.count:7d} launches  "
+            f"{e.key[:80]}")
+    ops = [e for e in events if e.device_type == DeviceType.CPU
+           and e.key.startswith("aten::")]
+    log("  host time by operator (self CPU):")
+    for e in sorted(ops, key=lambda e: e.self_cpu_time_total,
+                    reverse=True)[:10]:
+        log(f"    {e.self_cpu_time_total / 1e3:9.2f} ms {e.count:7d} calls  "
+            f"{e.key}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of "
+                    + ",".join(PHASES + OPT_IN))
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+    unknown = set(phases) - set(PHASES) - set(OPT_IN)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = nvidia_smi("name,power.limit")
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"clocks: {clocks()}")
+
+    from repro_torch.kernels import build as kbuild
+
+    kernels = {}
+    t_all = time.perf_counter()
+    if "build" in phases:
+        log("phase 1: build")
+        seconds = kbuild.build()
+        log(f"  nvcc {json.dumps({k: round(v, 2) for k, v in seconds.items()})}"
+            f" s (parallel)")
+    if "kernels" in phases:
+        log("phase 2: kernels against their plain versions, on the card")
+        kernels = phase_kernels(torch)
+        phase_times(torch, kernels)
+    if "parity" in phases:
+        log("phase 3: the N=4000 build on the CPU and on the card")
+        phase_parity(torch)
+    main_out = None
+    if "main" in phases:
+        log("phase 4: main path, cohere-surrogate N=100000, 1000 queries")
+        main_out = phase_main(torch)
+    if "profile" in phases:
+        log("phase 5: profile of build chunks at N=100000")
+        phase_profile(torch)
+    log(f"all phases {time.perf_counter() - t_all:.1f} s")
+
+    for rec in kernels.values():
+        rec["launches"] = main_out["launches"].get(rec["name"], 0) \
+            if main_out else 0
+    print(card)
+    print(json.dumps({"kernels": [
+        {key: rec[key] for key in (
+            "name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}
+        for rec in kernels.values()
+    ]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,155 @@
+"""Symmetric BQ beam search over a fixed-degree graph (QuIVer §3.3, stage 1).
+
+Counterpart of ``repro/core/beam.py``.  The reference is a ``vmap`` of a
+``lax.while_loop``; here it is one batched loop over a ``(B, ef)`` beam
+with **per-query termination**: a query whose condition is false keeps its
+state frozen while the others go on, so ``hops`` and ``evals`` are per
+query, exactly as under ``vmap``.  The loop ends when no query can go on,
+which costs one host sync (``any``) per hop.
+
+Each hop expands the ``expand`` nearest unexpanded beam entries of every
+live query and folds their <= ``expand * R`` neighbours into the beam with
+one batched distance call.  Ties are broken as the reference breaks them:
+frontier picks and the ``[beam | new]`` merge use stable sorts, and a
+neighbour that appears twice in one hop counts only at its first slot.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+INF = 3.0e38
+
+# dist_fn(queries (B, ...), ids (B, K) int32) -> (B, K) float32
+DistFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def batch_bucket(n: int, query_batch: int) -> int:
+    """Padded size for a (possibly partial) query batch: the ladder 8, 32,
+    128, ... capped at ``query_batch``."""
+    b = 8
+    while b < n and b < query_batch:
+        b *= 4
+    return min(b, query_batch)
+
+
+def pad_rows(arr: torch.Tensor, size: int) -> torch.Tensor:
+    """Pad axis 0 to ``size`` rows by repeating the last row."""
+    pad = size - arr.shape[0]
+    if pad <= 0:
+        return arr
+    return torch.cat([arr, arr[-1:].expand(pad, *arr.shape[1:])], dim=0)
+
+
+def beam_margin(dists: torch.Tensor, k: int, neutral: float) -> torch.Tensor:
+    """Per-query top-k score margin ``(neutral - d[k-1]) / neutral`` of a
+    ``(Q, ef)`` sorted distance list; -1 where fewer than k were found."""
+    dk = dists[..., k - 1]
+    # multiply by the float32 reciprocal, as XLA compiles the reference's
+    # division by a constant (the two round differently)
+    margin = (neutral - dk) * float(np.float32(1) / np.float32(neutral))
+    return torch.where(dk < INF / 2, margin, torch.full_like(margin, -1.0))
+
+
+class BeamResult(NamedTuple):
+    ids: torch.Tensor         # (B, ef) int32, -1 padded, sorted by distance
+    dists: torch.Tensor       # (B, ef) float32, INF padded
+    hops: torch.Tensor        # (B,) int32 expansion rounds performed
+    evals: torch.Tensor       # (B,) int32 fresh distance evaluations
+    descent: torch.Tensor     # (B,) float32 entry dist - best dist
+    stalls: torch.Tensor      # (B,) int32 rounds without beam-best gain
+    entry_rank: torch.Tensor  # (B,) int32 beam dists beating the entry
+
+
+def beam_search(
+    queries: torch.Tensor,
+    adjacency: torch.Tensor,   # (N, R) int32, -1 padded
+    start: int,
+    *,
+    dist_fn: DistFn,
+    ef: int,
+    n: int,
+    max_hops: int = 0,
+    expand: int = 1,
+    max_evals: int = 0,
+) -> BeamResult:
+    """Batched best-first beam search from ``start`` toward each query.
+
+    ``queries`` is whatever ``dist_fn`` consumes, batched on axis 0.
+    ``expand`` (the expansion width L) picks how many unexpanded entries
+    each query expands per hop; ``max_evals`` (0 = unlimited) stops a
+    query once it has spent that many fresh distance evaluations.
+    """
+    dev = adjacency.device
+    b, r = queries.shape[0], adjacency.shape[1]
+    max_hops = max_hops or (4 * ef + 128)
+    if not 1 <= expand <= ef:
+        raise ValueError(f"expand must lie in [1, ef], got {expand}, {ef}")
+    lr = expand * r
+
+    d0 = dist_fn(queries, torch.full((b, 1), start, dtype=torch.int32,
+                                     device=dev))[:, 0]
+    ids = torch.full((b, ef), -1, dtype=torch.int32, device=dev)
+    ids[:, 0] = start
+    dists = torch.full((b, ef), INF, dtype=torch.float32, device=dev)
+    dists[:, 0] = d0
+    # padding entries are marked expanded so they are never picked
+    expanded = torch.ones((b, ef), dtype=torch.bool, device=dev)
+    expanded[:, 0] = False
+    # column n is a trash column for invalid neighbour slots
+    visited = torch.zeros((b, n + 1), dtype=torch.bool, device=dev)
+    visited[:, start] = True
+    hops = torch.zeros(b, dtype=torch.int32, device=dev)
+    evals = torch.ones(b, dtype=torch.int32, device=dev)
+    stalls = torch.zeros(b, dtype=torch.int32, device=dev)
+    # earlier[i, j]: slot j comes before slot i within one hop's batch
+    earlier = torch.ones((lr, lr), dtype=torch.bool, device=dev).tril(-1)
+    inf = torch.tensor(INF, dtype=torch.float32, device=dev)
+
+    while True:
+        frontier = ~expanded & (ids >= 0)
+        go = frontier.any(dim=1) & (hops < max_hops)
+        if max_evals:
+            go &= evals < max_evals
+        if not bool(go.any()):
+            break
+        prev_best = dists[:, 0]
+        # stable sort => tie-break by beam position, as argmin at L=1
+        picks = torch.sort(torch.where(frontier, dists, inf), dim=1,
+                           stable=True).indices[:, :expand]
+        valid_pick = frontier.gather(1, picks) & go[:, None]
+        nodes = torch.where(valid_pick, ids.gather(1, picks), 0)
+        expanded.scatter_(1, picks, expanded.gather(1, picks) | valid_pick)
+
+        nbrs = adjacency.index_select(0, nodes.reshape(-1)).reshape(b, lr)
+        valid = (nbrs >= 0) & valid_pick.repeat_interleave(r, dim=1)
+        nbrs_safe = torch.where(valid, nbrs, 0)
+        slots = torch.where(valid, nbrs, n).long()
+        fresh = valid & ~visited.gather(1, slots)
+        # duplicate neighbours within one batch: keep first occurrence only
+        dup = (nbrs_safe[:, :, None] == nbrs_safe[:, None, :]) \
+            & earlier & valid[:, None, :]
+        fresh &= ~dup.any(dim=2)
+        visited.scatter_(1, slots, True)
+
+        nd = torch.where(fresh, dist_fn(queries, nbrs_safe), inf)
+        new_ids = torch.where(fresh, nbrs_safe, -1)
+        cat_d = torch.cat([dists, nd], dim=1)
+        order = torch.sort(cat_d, dim=1, stable=True).indices[:, :ef]
+        ids = torch.cat([ids, new_ids], dim=1).gather(1, order)
+        dists = cat_d.gather(1, order)
+        expanded = torch.cat([expanded, torch.zeros_like(fresh)],
+                             dim=1).gather(1, order)
+        evals += fresh.sum(dim=1, dtype=torch.int32)
+        # a round that fails to improve the beam best is a stall
+        stalls += (~(dists[:, 0] < prev_best) & go).to(torch.int32)
+        hops += go.to(torch.int32)
+
+    return BeamResult(
+        ids=ids, dists=dists, hops=hops, evals=evals,
+        descent=d0 - dists[:, 0], stalls=stalls,
+        entry_rank=(dists < d0[:, None]).sum(dim=1, dtype=torch.int32),
+    )

@@ -1,0 +1,139 @@
+"""bq_distance: gather-fused symmetric 2-bit Sign-Magnitude similarity.
+
+The CUDA kernels in ``csrc/bq_distance.cu`` replace the Pallas TPU kernel
+``repro/kernels/bq_distance.py::_bq_distance_kernel``.  Unlike it, they take
+row *ids* into the ``(N, 2W)`` signature table and read the rows themselves
+(no gathered copy), and they return the Table-1 **similarity** as int32 (the
+Pallas kernel emits its negation, which ``repro.kernels.dispatch`` undoes).
+
+* :func:`dist_rows` — ``q (B, 2W)``, ``ids (B, K)`` -> ``(B, K)``
+* :func:`pairwise`  — ``ids (B, C)`` -> ``(B, C, C)``
+
+Words are int32 bit views of the reference's uint32 words; ``mask`` is the
+``(W,)`` valid-bit mask (``repro_torch.core.bq.valid_mask``); ids are int32
+and must lie in ``[0, N)``.  Each entry point follows the table's device: a
+CPU tensor takes the plain version (``*_plain``: Table 1's popcount formula
+for ``dist_rows``, a matmul of decoded +-1/+-2 levels for ``pairwise``), a
+CUDA tensor launches the kernel.  Results are integers, so kernel and plain
+version agree exactly.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core import bq
+from repro_torch.kernels import build
+
+# one block's shared memory on an H100 (bytes), for the pairwise pool
+_MAX_SMEM = 232_448
+# dist_rows_plain: elements per int64 temporary (2 MiB, cache-sized)
+_BLOCK_ELEMS = 1 << 18
+
+
+def dist_rows_plain(q, ids, table, mask) -> torch.Tensor:
+    """Table 1's popcount formula over the gathered rows, in blocks of
+    words that keep each int64 temporary near ``_BLOCK_ELEMS``."""
+    rows = table[ids.long()]                          # (B, K, 2W)
+    a = q[:, None, :]
+    w = mask.shape[0]
+    step = max(1, _BLOCK_ELEMS // max(1, rows.shape[0] * rows.shape[1]))
+    out = None
+    for i in range(0, w, step):
+        j = min(i + step, w)
+        s = bq.symmetric_similarity_words(
+            a[..., i:j], a[..., w + i:w + j],
+            rows[..., i:j], rows[..., w + i:w + j], mask[i:j],
+        )
+        out = s if out is None else out + s
+    return out
+
+
+def pairwise_plain(ids, table, mask) -> torch.Tensor:
+    """Table 1's weights are the products of the +-1/+-2 reconstruction
+    levels, so a pool's similarity matrix is L @ L^T of its decoded rows:
+    whole numbers below 2**24, exact in float32 in any order."""
+    rows = table[ids.long()]                          # (B, C, 2W)
+    dim = mask.shape[0] * bq.WORD_BITS
+    # padding dims decode to -1; the mask zeroes them
+    keep = bq.unpack_bits(mask, dim).to(torch.float32)
+    levels = bq.decode_levels(bq.Signature(rows, dim)) * keep
+    return torch.bmm(levels, levels.transpose(1, 2)).to(torch.int32)
+
+
+def _check(table, mask, **named):
+    w = mask.shape[0]
+    if table.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no bq_distance route for {table.device}")
+    if table.dtype != torch.int32 or table.ndim != 2 \
+            or table.shape[1] != 2 * w:
+        raise ValueError(
+            f"table must be (N, {2 * w}) int32, got "
+            f"{tuple(table.shape)} {table.dtype}"
+        )
+    for name, t in (("table", table), ("mask", mask), *named.items()):
+        if t.device != table.device:
+            raise ValueError(f"{name} is on {t.device}, table on "
+                             f"{table.device}")
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, got {t.dtype}")
+        if t.is_cuda and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("bq_distance")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.quiver_bq_dist_rows.argtypes = [p, p, p, p, p, i, i, i, ll, p]
+    lib.quiver_bq_dist_rows.restype = i
+    lib.quiver_bq_pairwise.argtypes = [p, p, p, p, i, i, i, ll, p]
+    lib.quiver_bq_pairwise.restype = i
+    return lib
+
+
+def dist_rows(q: torch.Tensor, ids: torch.Tensor, table: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+    """Similarity of query ``b`` to rows ``ids[b]``: (B, 2W) x (B, K) ->
+    (B, K) int32."""
+    _check(table, mask, q=q, ids=ids)
+    b, k = ids.shape
+    if q.shape != (b, table.shape[1]):
+        raise ValueError(f"q must be {(b, table.shape[1])}, got "
+                         f"{tuple(q.shape)}")
+    if table.device.type == "cpu":
+        return dist_rows_plain(q, ids, table, mask)
+    out = torch.empty((b, k), dtype=torch.int32, device=table.device)
+    lib = _lib()
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    status = lib.quiver_bq_dist_rows(
+        q.data_ptr(), ids.data_ptr(), table.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), b, k, mask.shape[0], table.shape[0], stream,
+    )
+    build.LAUNCHES["bq_dist_rows"] += 1
+    build.check(status, "bq_dist_rows")
+    return out
+
+
+def pairwise(ids: torch.Tensor, table: torch.Tensor,
+             mask: torch.Tensor) -> torch.Tensor:
+    """All-pairs similarity within each pool: (B, C) ids -> (B, C, C) int32."""
+    _check(table, mask, ids=ids)
+    b, c = ids.shape
+    if table.device.type == "cpu":
+        return pairwise_plain(ids, table, mask)
+    w = mask.shape[0]
+    if c > 1024 or (c * (2 * w + 1) + w) * 4 > _MAX_SMEM:
+        raise ValueError(f"pool of {c} rows x {2 * w} words does not fit "
+                         "one block")
+    out = torch.empty((b, c, c), dtype=torch.int32, device=table.device)
+    lib = _lib()
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    status = lib.quiver_bq_pairwise(
+        ids.data_ptr(), table.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        b, c, w, table.shape[0], stream,
+    )
+    build.LAUNCHES["bq_pairwise"] += 1
+    build.check(status, "bq_pairwise")
+    return out

@@ -1,0 +1,42 @@
+"""Kernel dispatch: one owner for every bq2 distance evaluation.
+
+Counterpart of ``repro/kernels/dispatch.py``.  The metric backend in
+``repro_torch.core.metric`` binds its primitives here once, at
+construction.  There is no route switch and no fallback: each primitive
+follows the device of the signature table it is given — CUDA tensors
+launch the hand-written kernels of ``repro_torch.kernels.bq_distance``,
+CPU tensors take their plain versions.
+
+Both primitives are gather-fused (they take row ids into the ``(N, 2W)``
+table) and return **int32 similarities**; the backend applies its own
+non-negative distance calibration on top:
+
+* ``dist_rows(q (B, 2W), ids (B, K), table)`` -> ``(B, K)``
+* ``pairwise(ids (B, C), table)``            -> ``(B, C, C)``
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from repro_torch.core import bq
+from repro_torch.kernels import bq_distance
+
+
+class MetricOps(NamedTuple):
+    """Distance primitives bound to one signature dimensionality."""
+
+    dist_rows: Callable  # (B, 2W) x (B, K) ids -> (B, K) int32 sim
+    pairwise: Callable   # (B, C) ids -> (B, C, C) int32 sim
+
+
+def bq2_ops(dim: int, device: torch.device | str) -> MetricOps:
+    """Bind the symmetric 2-bit SM similarity primitives for ``dim``."""
+    mask = bq.valid_mask(dim, device=device)
+    return MetricOps(
+        dist_rows=lambda q, ids, table: bq_distance.dist_rows(
+            q, ids, table, mask),
+        pairwise=lambda ids, table: bq_distance.pairwise(ids, table, mask),
+    )

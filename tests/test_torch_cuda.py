@@ -1,0 +1,106 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here is marked ``cuda`` and skips where there is no CUDA
+device.  The file imports torch and the port only (no jax), so that it
+runs on a machine with a card and no JAX:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+
+The kernels are built from ``src/repro_torch/csrc`` on first launch.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import bq
+from repro_torch.core.index import QuIVerIndex
+from repro_torch.core.vamana import BuildParams
+from repro_torch.data.datasets import make_dataset
+from repro_torch.kernels import binarize as kb
+from repro_torch.kernels import bq_distance as kd
+from repro_torch.kernels import build
+
+pytestmark = pytest.mark.cuda
+# the suite runs in parallel worker processes: one thread each
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _table(n, dim, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    return kb.binarize_plain(torch.randn((n, dim), generator=g)).to(device)
+
+
+@pytest.mark.parametrize("dim", [100, 384, 768, 1536, 3072])
+def test_binarize_matches_plain(cuda, dim):
+    x = torch.randn((4099, dim),
+                    generator=torch.Generator().manual_seed(dim)).to(cuda)
+    build.reset_launches()
+    got = kb.binarize(x)
+    assert build.LAUNCHES["binarize"] == 1
+    want = kb.binarize_plain(x)
+    kb.strong_bit_flips(got.cpu().numpy(), want.cpu().numpy(),
+                        x.cpu().numpy())
+    # the plain version sums in the kernel's order: bit-identical
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dim", [384, 768, 1536])
+@pytest.mark.parametrize("k", [72, 288])
+def test_dist_rows_matches_plain(cuda, dim, k):
+    table = _table(5000, dim, dim + k, cuda)
+    g = torch.Generator().manual_seed(k)
+    ids = torch.randint(0, 5000, (256, k), generator=g,
+                        dtype=torch.int32).to(cuda)
+    q = table[torch.randint(0, 5000, (256,), generator=g).to(cuda)]
+    mask = bq.valid_mask(dim, device=cuda)
+    build.reset_launches()
+    got = kd.dist_rows(q, ids, table, mask)
+    assert build.LAUNCHES["bq_dist_rows"] == 1
+    assert torch.equal(got, kd.dist_rows_plain(q, ids, table, mask))
+
+
+@pytest.mark.parametrize("dim", [384, 768, 1536, 3072])
+@pytest.mark.parametrize("c", [72, 128])
+def test_pairwise_matches_plain(cuda, dim, c):
+    table = _table(5000, dim, dim + c, cuda)
+    ids = torch.randint(0, 5000, (64, c),
+                        generator=torch.Generator().manual_seed(c),
+                        dtype=torch.int32).to(cuda)
+    mask = bq.valid_mask(dim, device=cuda)
+    build.reset_launches()
+    got = kd.pairwise(ids, table, mask)
+    assert build.LAUNCHES["bq_pairwise"] == 1
+    assert torch.equal(got, kd.pairwise_plain(ids, table, mask))
+
+
+def test_empty_batches_launch_cleanly(cuda):
+    table = _table(10, 100, 0, cuda)
+    mask = bq.valid_mask(100, device=cuda)
+    ids = torch.zeros((0, 5), dtype=torch.int32, device=cuda)
+    assert kd.dist_rows(table[:0], ids, table, mask).shape == (0, 5)
+    assert kd.pairwise(ids, table, mask).shape == (0, 5, 5)
+    assert kb.binarize(torch.zeros((0, 100), device=cuda)).shape == (0, 8)
+
+
+def test_card_build_equals_cpu_build(cuda):
+    base, queries = make_dataset("minilm-surrogate", 1500, queries=50)
+    params = BuildParams(m=8, ef_construction=48, prune_pool=48, chunk=128)
+    build.reset_launches()
+    gpu = QuIVerIndex.build(base, params, device=cuda)
+    g_ids, _ = gpu.search(queries, k=10, ef=64, rerank=False)
+    assert all(build.LAUNCHES[k] > 0
+               for k in ("binarize", "bq_dist_rows", "bq_pairwise"))
+    cpu = QuIVerIndex.build(base, params, device="cpu")
+    c_ids, _ = cpu.search(queries, k=10, ef=64, rerank=False)
+    assert torch.equal(gpu.sigs.words.cpu(), cpu.sigs.words)
+    assert torch.equal(gpu.adjacency.cpu(), cpu.adjacency)
+    assert gpu.medoid == cpu.medoid
+    np.testing.assert_array_equal(g_ids, c_ids)
