@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --phases build,kernels
+    python3 chip_smoke.py --phases build,kernels,ivf
     python3 chip_smoke.py --phases build,profile      # opt-in breakdown
 
 Phases, in order; any failure raises and the script exits nonzero:
@@ -12,24 +13,37 @@ Phases, in order; any failure raises and the script exits nonzero:
 2. kernels  — each hand-written kernel against its plain torch version on
               the card, at the shapes the main path gives it: ``binarize``
               (D in {100, 384, 768, 1536, 3072}, ragged N; sign words exact,
-              strong bits only within 4 ulp of tau), ``bq_dist_rows`` and
-              ``bq_pairwise`` (exactly equal).  Then each kernel's and
-              plain version's time on those main-path inputs: device time
-              and stream time (see ``time_ms``).
-3. parity   — the same N = 4000 build and search on ``device="cpu"`` and on
-              the card: identical adjacency, medoid and beam ids.
+              strong bits only within 4 ulp of tau), ``bq_dist_rows``
+              (K from the IVF build's top-up of 32 to a search batch's
+              50 880 gathered list members), ``bq_pairwise`` and
+              ``list_scan`` (D in {100, 384, 768, 1536, 3072}, L in {45,
+              316, 1000}, Q in {256, 8193}; all exactly equal).  Then each kernel's, its plain version's and (for the
+              distance kernels) one PyTorch matmul's time on those
+              main-path inputs: device time and stream time (see
+              ``time_ms``).
+3. parity   — the same N = 4000 builds and searches on ``device="cpu"`` and
+              on the card, beam-searched and IVF-seeded: identical
+              partition, adjacency, medoid and candidate ids.
 4. main     — the main path at deployment size: cohere-surrogate (768-d),
               N = 100 000, 1 000 queries, ``BuildParams()`` defaults;
               build, search at k = 10, ef = 64, recall@10 against exact
               search (gate 0.80), save, load, search again (identical
               ids).  Launch counts are reset just before this phase and
               read just after; every kernel must have launched.
-An opt-in fifth phase, ``profile``, is not run by default: it profiles a
+5. ivf      — the IVF path at the same size: ``BuildParams(
+              ivf_candidates=True)``, partition and linking timed apart;
+              search ``nav="bq2"`` at ef = 64 (recall gate 0.80) and
+              ``nav="ivf"`` at ef = 128 with default probes and with
+              ceil(3L/4) probes (gate: graph recall - 0.02); save, load,
+              ``nav="ivf"`` again (identical ids).  Launch counts as in 4;
+              all four kernels must have launched.
+An opt-in sixth phase, ``profile``, is not run by default: it profiles a
 few build chunks at the main path's size with ``torch.profiler`` and
 prints the device's busy share and device time by kernel.
 
 The last three lines of standard output are the card's name and power
-limit (``nvidia-smi``), one JSON line of per-kernel numbers, and
+limit (``nvidia-smi``), one JSON line of per-kernel numbers (``launches``
+sums phases 4 and 5), and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits nonzero and prints no result.
 """
@@ -45,7 +59,7 @@ from functools import partial
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "parity", "main")
+PHASES = ("build", "kernels", "parity", "main", "ivf")
 OPT_IN = ("profile",)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the float32
@@ -130,6 +144,7 @@ def phase_kernels(torch) -> dict:
     from repro_torch.core import bq
     from repro_torch.kernels import binarize as kb
     from repro_torch.kernels import bq_distance as kd
+    from repro_torch.kernels import list_scan as kl
 
     out = {}
     g = torch.Generator(device="cuda").manual_seed(11)
@@ -161,8 +176,9 @@ def phase_kernels(torch) -> dict:
         "source": "src/repro_torch/csrc/binarize.cu",
         "replaces": "src/repro/kernels/binarize.py:21",
         "max_abs_err": float((bits - ref_bits).abs().max()),
-        "fns": (partial(kb.binarize_cuda, x), partial(kb.binarize_plain, x)),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "fns": (partial(kb.binarize_cuda, x), partial(kb.binarize_plain, x),
+                None),
+        "bound_ms": b_ms, "bound_by": b_by,
         "shape": [100_000, 768], "strong_bit_flips": flips_total,
     }
     log(f"  binarize: {flips_total} strong-bit flips in all, none outside "
@@ -173,7 +189,10 @@ def phase_kernels(torch) -> dict:
         table = random_table(torch, n_table, dim, seed=dim)
         mask = bq.valid_mask(dim, device="cuda")
         w = mask.shape[0]
-        for k in (72, 4 * 72):
+        # the beam hop (72, 288), the IVF-seeded build's random top-up (32),
+        # its chunk's gathered list members at N = 100 000 (71 lists x cap
+        # 480) and a search batch's at the default 106 probes
+        for k in (32, 72, 4 * 72, 71 * 480, 106 * 480):
             ids = torch.randint(0, n_table, (256, k), generator=g,
                                 device="cuda", dtype=torch.int32)
             q = table[torch.randint(0, n_table, (256,), generator=g,
@@ -183,12 +202,18 @@ def phase_kernels(torch) -> dict:
             if not torch.equal(got, want):
                 raise AssertionError(f"bq_dist_rows differs at D={dim} K={k}")
             log(f"  bq_dist_rows B=256 K={k} D={dim}: exact")
-            if dim == 768 and k == 72:
+            if dim == 768 and k in (72, 71 * 480):
                 uniq = torch.unique(ids).numel()
                 nb = uniq * 8 * w + ids.numel() * 4 + q.numel() * 4 \
                     + w * 4 + got.numel() * 4
                 b_ms, b_by = bound(nb, OPS_PER_WORD_PAIR * ids.numel() * w)
-                out["bq_dist_rows"] = {
+                # the library call: one bmm of the decoded levels (gather
+                # and decode outside the timed call)
+                lr = kd.masked_levels(table, mask)[ids.long()]
+                lq = kd.masked_levels(q, mask)[:, :, None]
+                check_library("bq_dist_rows", torch.bmm(lr, lq)[..., 0], got)
+                key = "bq_dist_rows" if k == 72 else f"bq_dist_rows_k{k}"
+                out[key] = {
                     "name": "bq_dist_rows", "route": "cuda",
                     "source": "src/repro_torch/csrc/bq_distance.cu",
                     "replaces": "src/repro/kernels/bq_distance.py:25",
@@ -196,9 +221,13 @@ def phase_kernels(torch) -> dict:
                     # partial binds these tensors now; the loop rebinds
                     # the names for the next shapes
                     "fns": (partial(kd.dist_rows, q, ids, table, mask),
-                            partial(kd.dist_rows_plain, q, ids, table, mask)),
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                            partial(kd.dist_rows_plain, q, ids, table, mask),
+                            partial(torch.bmm, lr, lq)),
+                    "bound_ms": b_ms, "bound_by": b_by,
                     "shape": [256, k, dim],
+                    # the IVF build chunk's shape: logged, not in the
+                    # kernels line
+                    "log_only": k != 72,
                 }
         for c in (72, 128):
             ids = torch.randint(0, n_table, (256, c), generator=g,
@@ -212,33 +241,89 @@ def phase_kernels(torch) -> dict:
                 uniq = torch.unique(ids).numel()
                 nb = uniq * 8 * w + ids.numel() * 4 + w * 4 + got.numel() * 4
                 b_ms, b_by = bound(nb, OPS_PER_WORD_PAIR * got.numel() * w)
+                lp = kd.masked_levels(table[ids.long()], mask)
+                lpt = lp.transpose(1, 2)
+                check_library("bq_pairwise", torch.bmm(lp, lpt), got)
                 out["bq_pairwise"] = {
                     "name": "bq_pairwise", "route": "cuda",
                     "source": "src/repro_torch/csrc/bq_distance.cu",
                     "replaces": "src/repro/kernels/bq_distance.py:25",
                     "max_abs_err": float((got - want).abs().max()),
                     "fns": (partial(kd.pairwise, ids, table, mask),
-                            partial(kd.pairwise_plain, ids, table, mask)),
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                            partial(kd.pairwise_plain, ids, table, mask),
+                            partial(torch.bmm, lp, lpt)),
+                    "bound_ms": b_ms, "bound_by": b_by,
                     "shape": [256, c, dim],
                 }
+
+    # list_scan: ragged Q and L, and L * 8W bytes of centroids up to 768 KB
+    # (D = 3072, L = 1000), above a block's 227 KB of shared memory
+    for dim in (100, 384, 768, 1536, 3072):
+        mask = bq.valid_mask(dim, device="cuda")
+        for n_lists in (45, 316, 1000):
+            for n_q in (256, 8193):
+                table = random_table(torch, n_q + n_lists, dim,
+                                     seed=dim + n_lists + n_q)
+                q, cent = table[:n_q], table[n_q:]
+                got = kl.scan(q, cent, mask)
+                want = kl.scan_plain(q, cent, mask)
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"list_scan differs at D={dim} L={n_lists} Q={n_q}")
+        log(f"  list_scan D={dim} L in (45, 316, 1000) Q in (256, 8193): "
+            "exact")
+    # the most-launched shape (a search batch or build chunk against the
+    # centroids at N = 100 000), and the partition's assignment chunk
+    for key, n_q in (("list_scan", 256), ("list_scan_q8192", 8192)):
+        dim, n_lists = 768, 316
+        mask = bq.valid_mask(dim, device="cuda")
+        w = mask.shape[0]
+        table = random_table(torch, n_q + n_lists, dim, seed=n_q)
+        q, cent = table[:n_q], table[n_q:]
+        got, want = kl.scan(q, cent, mask), kl.scan_plain(q, cent, mask)
+        lq, lct = kd.masked_levels(q, mask), kd.masked_levels(cent, mask).T
+        check_library("list_scan", torch.matmul(lq, lct), got)
+        nb = (n_q + n_lists) * 8 * w + w * 4 + got.numel() * 4
+        b_ms, b_by = bound(nb, OPS_PER_WORD_PAIR * got.numel() * w)
+        out[key] = {
+            "name": "list_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/list_scan.cu",
+            "replaces": "src/repro/kernels/list_scan.py:30",
+            "max_abs_err": float((got - want).abs().max()),
+            "fns": (partial(kl.scan, q, cent, mask),
+                    partial(kl.scan_plain, q, cent, mask),
+                    partial(torch.matmul, lq, lct)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": [n_q, n_lists, dim],
+            # logged, not in the kernels line
+            "log_only": key != "list_scan",
+        }
     torch.cuda.synchronize()
     return out
+
+
+def check_library(name: str, result, kernel_out) -> None:
+    """The library call computes the kernel's function: the same integers."""
+    if not bool((result.round().int() == kernel_out).all()):
+        raise AssertionError(f"the matmul yardstick of {name} disagrees")
 
 
 def phase_times(torch, kernels: dict) -> None:
     """Time each kernel and its plain version on the inputs phase 2 kept
     (the main path's shapes)."""
     for rec in kernels.values():
-        kernel, plain = rec.pop("fns")
+        kernel, plain, library = rec.pop("fns")
         rec["ms"], rec["stream_ms"] = time_ms(torch, kernel)
         rec["plain_ms"], rec["plain_stream_ms"] = time_ms(torch, plain,
                                                           reps=3)
+        rec["library_ms"] = time_ms(torch, library)[0] if library else None
+        lib = (f", library (one matmul) device {rec['library_ms']:.4f} ms"
+               if library else "")
         log(f"  {rec['name']} at {rec['shape']}: device {rec['ms']:.4f} ms "
             f"(stream-timed {rec['stream_ms']:.4f}), plain device "
             f"{rec['plain_ms']:.4f} ms (stream-timed "
-            f"{rec['plain_stream_ms']:.4f}), bound {rec['bound_ms']:.4f} ms "
-            f"({rec['bound_by']})")
+            f"{rec['plain_stream_ms']:.4f}){lib}, bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
     log(f"  clocks right after: {clocks()}")
 
 
@@ -258,7 +343,9 @@ def ids_match(a, b, scores_a, scores_b, tol: float = 1e-6) -> int:
 
 
 def phase_parity(torch) -> None:
-    """The N = 4000 build on the CPU and on the card must agree."""
+    """The N = 4000 builds on the CPU and on the card must agree."""
+    import dataclasses
+
     import numpy as np
 
     from repro_torch.core.index import QuIVerIndex
@@ -267,6 +354,8 @@ def phase_parity(torch) -> None:
 
     base, queries = make_dataset("cohere-surrogate", 4000, queries=100)
     params = BuildParams(m=16, ef_construction=64, prune_pool=64)
+    parity_ivf(torch, base, queries,
+               dataclasses.replace(params, ivf_candidates=True))
     built = {}
     for dev in ("cpu", "cuda"):
         t0 = time.perf_counter()
@@ -290,6 +379,40 @@ def phase_parity(torch) -> None:
     tied = ids_match(cpu[2], gpu[2], cpu[3], gpu[3])
     log(f"  signatures, adjacency, medoid and beam ids identical; reranked "
         f"ids identical up to {tied} rows of scores within 1e-6")
+
+
+def parity_ivf(torch, base, queries, params) -> None:
+    """The IVF-seeded build and ``nav="ivf"`` search on the CPU and on the
+    card: identical partition, adjacency, medoid and candidate ids."""
+    import numpy as np
+
+    from repro_torch.core.index import QuIVerIndex
+
+    built = {}
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        idx = QuIVerIndex.build(base, params, device=dev)
+        ids, _ = idx.search(queries, k=10, ef=128, nav="ivf", rerank=False)
+        built[dev] = (idx, ids)
+        log(f"  {dev}: IVF-seeded build + nav=ivf search "
+            f"{time.perf_counter() - t0:.1f} s, {idx.ivf.n_lists} lists, "
+            f"cap {idx.ivf.cap}")
+    (cpu, c_ids), (gpu, g_ids) = built["cpu"], built["cuda"]
+    for field in ("cent_words", "list_ids"):
+        if not torch.equal(getattr(cpu.ivf, field),
+                           getattr(gpu.ivf, field).cpu()):
+            raise AssertionError(f"partition {field} differs")
+    for field in ("assign", "member_ids", "offsets", "cent_ids"):
+        if not np.array_equal(getattr(cpu.ivf, field),
+                              getattr(gpu.ivf, field)):
+            raise AssertionError(f"partition {field} differs")
+    if not torch.equal(cpu.adjacency, gpu.adjacency.cpu()):
+        raise AssertionError("IVF-seeded adjacency differs")
+    if cpu.medoid != gpu.medoid:
+        raise AssertionError("IVF-seeded medoid differs")
+    if not np.array_equal(c_ids, g_ids):
+        raise AssertionError("nav=ivf candidate ids differ")
+    log("  IVF: partition, adjacency, medoid and nav=ivf ids identical")
 
 
 def phase_main(torch) -> dict:
@@ -348,6 +471,93 @@ def phase_main(torch) -> dict:
             raise AssertionError(f"{name} never launched on the main path")
     return {"launches": launches, "recall": recall,
             "build_s": stats.seconds, "qps": n_queries / search_s}
+
+
+def phase_ivf(torch) -> dict:
+    """The IVF path at deployment size; returns its launch counts."""
+    import numpy as np
+
+    from repro_torch.core.baselines import flat_search, recall_at_k
+    from repro_torch.core.index import QuIVerIndex
+    from repro_torch.core.vamana import BuildParams
+    from repro_torch.data.datasets import make_dataset
+    from repro_torch.ivf import build_partition
+    from repro_torch.kernels import build as kbuild
+
+    n, n_queries = 100_000, 1000
+    base, queries = make_dataset("cohere-surrogate", n, queries=n_queries)
+    truth, _ = flat_search(base, queries, 10, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    index = QuIVerIndex.build(base, BuildParams(ivf_candidates=True),
+                              device="cuda")
+    torch.cuda.synchronize()
+    build_wall = time.perf_counter() - t0
+    stats, part = index.build_stats, index.ivf
+    wide = -(-3 * part.n_lists // 4)
+    runs = []
+    for label, kw in (("bq2 ef=64", {"nav": "bq2", "ef": 64}),
+                      (f"ivf ef=128 probes={part.default_probes} (default)",
+                       {"nav": "ivf", "ef": 128}),
+                      (f"ivf ef=128 probes={wide}",
+                       {"nav": "ivf", "ef": 128, "probes": wide})):
+        t0 = time.perf_counter()
+        ids, scores = index.search(queries, k=10, **kw)
+        secs = time.perf_counter() - t0
+        recall = recall_at_k(ids, truth)
+        runs.append((ids, scores, recall))
+        log(f"  search {n_queries} queries nav={label}: {secs:.3f} s, "
+            f"{n_queries / secs:.1f} QPS, recall@10 {recall:.4f}")
+        if ids.shape != (n_queries, 10) or not np.isfinite(scores).all():
+            raise AssertionError(f"nav={label}: search output malformed")
+        if ids.min() < 0 or ids.max() >= n:
+            raise AssertionError(f"nav={label}: ids out of range")
+    save_dir = ROOT / "build" / "smoke"
+    save_dir.mkdir(parents=True, exist_ok=True)
+    path = save_dir / "ivf_index.npz"
+    index.save(str(path))
+    loaded = QuIVerIndex.load(str(path), device="cuda")
+    ids2, scores2 = loaded.search(queries, k=10, ef=128, nav="ivf")
+    torch.cuda.synchronize()
+    launches = dict(kbuild.LAUNCHES)
+
+    # the partition alone, timed again on the index's signatures (after
+    # the launches were read): the same seed gives the same lists
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = build_partition(index.sigs,
+                            n_lists=index.params.ivf_lists or None,
+                            seed=index.params.seed)
+    torch.cuda.synchronize()
+    partition_s = time.perf_counter() - t0
+    if not (torch.equal(again.cent_words, part.cent_words)
+            and np.array_equal(again.member_ids, part.member_ids)):
+        raise AssertionError("the partition is not deterministic")
+    log(f"  encode + partition {build_wall - stats.seconds:.3f} s, partition "
+        f"alone {partition_s:.3f} s ({part.n_lists} lists, cap {part.cap}, "
+        f"build probes {part.build_probes}), linking {stats.seconds:.1f} s "
+        f"({stats.chunks} chunks, {stats.consolidations} consolidations)")
+    log(f"  hot_ivf_bytes {index.memory_breakdown()['hot_ivf_bytes']}, "
+        f"memory_breakdown {json.dumps(index.memory_breakdown())}")
+    log(f"  max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+    log(f"  launches on the IVF path: {launches}")
+    (_, _, r_graph), (default_ids, default_scores, _), (_, _, r_wide) = runs
+    if r_graph < 0.80:
+        raise AssertionError(f"IVF-seeded graph recall@10 {r_graph:.4f} is "
+                             "below 0.80")
+    if r_wide < r_graph - 0.02:
+        raise AssertionError(f"widened nav=ivf recall@10 {r_wide:.4f} is "
+                             f"below the graph's {r_graph:.4f} - 0.02")
+    if not (np.array_equal(default_ids, ids2)
+            and np.array_equal(default_scores, scores2)):
+        raise AssertionError("save/load changed the nav=ivf results")
+    for name in ("binarize", "bq_dist_rows", "bq_pairwise", "list_scan"):
+        if launches.get(name, 0) == 0:
+            raise AssertionError(f"{name} never launched on the IVF path")
+    return {"launches": launches}
 
 
 def phase_profile(torch, chunks: int = 8) -> None:
@@ -498,27 +708,30 @@ def main(argv=None) -> int:
         kernels = phase_kernels(torch)
         phase_times(torch, kernels)
     if "parity" in phases:
-        log("phase 3: the N=4000 build on the CPU and on the card")
+        log("phase 3: the N=4000 builds on the CPU and on the card")
         phase_parity(torch)
-    main_out = None
+    paths = []
     if "main" in phases:
         log("phase 4: main path, cohere-surrogate N=100000, 1000 queries")
-        main_out = phase_main(torch)
+        paths.append(phase_main(torch))
+    if "ivf" in phases:
+        log("phase 5: IVF path, cohere-surrogate N=100000, 1000 queries")
+        paths.append(phase_ivf(torch))
     if "profile" in phases:
-        log("phase 5: profile of build chunks at N=100000")
+        log("phase 6: profile of build chunks at N=100000")
         phase_profile(torch)
     log(f"all phases {time.perf_counter() - t_all:.1f} s")
 
     for rec in kernels.values():
-        rec["launches"] = main_out["launches"].get(rec["name"], 0) \
-            if main_out else 0
+        rec["launches"] = sum(p["launches"].get(rec["name"], 0)
+                              for p in paths)
     print(card)
     print(json.dumps({"kernels": [
         {key: rec[key] for key in (
             "name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")}
-        for rec in kernels.values()
+        for rec in kernels.values() if not rec.get("log_only")
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,10 @@ The dict keys are the npz field names of ``repro/core/index.py``'s
 wrappers over :func:`index_to_numpy` / :func:`index_from_numpy`, and an
 archive written by either package loads in the other.
 
-Fields of parts not ported yet (labels, IVF partitions, probe policies
-and reports, graph-health reports, streaming archives) are refused with an
-error rather than dropped.
+An IVF partition travels as the reference's ``ivf_*`` fields.  Fields of
+parts not ported yet (labels, probe policies and reports, graph-health
+reports, streaming archives) are refused with an error rather than
+dropped.
 """
 
 from __future__ import annotations
@@ -23,10 +24,11 @@ from repro_torch.core import bq
 from repro_torch.core.index import QuIVerIndex
 from repro_torch.core.vamana import BuildParams
 from repro_torch.device import resolve_device
+from repro_torch.ivf import IVFPartition
 
 _PARAM_PREFIX = "param_"
 # npz field prefixes of state this part of the port cannot honour
-_UNPORTED_PREFIXES = ("label_", "ivf_", "policy_", "probe_", "graph_")
+_UNPORTED_PREFIXES = ("label_", "policy_", "probe_", "graph_")
 
 
 def params_to_npz(params: BuildParams) -> dict:
@@ -56,6 +58,7 @@ def index_to_numpy(index: QuIVerIndex) -> dict:
     def host(t):
         return t.detach().cpu().numpy() if t is not None else np.zeros((0,))
 
+    ivf = index.ivf.to_npz_fields() if index.ivf is not None else {}
     return {
         "words": host(index.sigs.words).view(np.uint32),
         "dim": np.asarray(index.sigs.dim),
@@ -65,6 +68,7 @@ def index_to_numpy(index: QuIVerIndex) -> dict:
         "rotation": host(index.rotation),
         "metric_kind": np.array(index.metric_kind),
         **params_to_npz(index.params),
+        **ivf,
     }
 
 
@@ -98,4 +102,5 @@ def index_from_numpy(fields: dict, device=None) -> QuIVerIndex:
         vectors=dev(fields["vectors"], torch.float32),
         rotation=dev(fields["rotation"], torch.float32),
         metric_kind=metric_kind,
+        ivf=IVFPartition.from_npz(fields, device),
     )

@@ -12,10 +12,11 @@ Counterpart of ``repro/core/index.py``::
 
 The reference lowers ``search`` through compiled query plans
 (``repro.plan``); for an index with no probe policy and no filter that
-plan is exactly beam search, then :func:`rerank`, which is what ``search``
-runs here.  Navigation families other than bq2, filters, adaptive
-escalation and IVF probes wait for their parts of the port and raise
-``NotImplementedError``.
+plan is beam search, then :func:`rerank`, and for ``nav="ivf"`` it is the
+IVF list scan (``repro_torch.ivf.scan_search``), then :func:`rerank`:
+that is what ``search`` runs here.  Other navigation families, filters,
+adaptive escalation and the plan cache wait for their parts of the port
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ from repro_torch.core.beam import beam_search
 from repro_torch.core.metric import MetricArrays, MetricSpace, make_backend
 from repro_torch.core.vamana import BuildParams, BuildStats, build_graph
 from repro_torch.device import resolve_device
+from repro_torch.ivf import IVFPartition, build_partition, scan_search
+from repro_torch.kernels import dispatch
 
 
 def as_float32(x, device) -> torch.Tensor:
@@ -56,6 +59,9 @@ class QuIVerIndex:
     rotation: torch.Tensor | None = None
     build_stats: BuildStats | None = None
     metric_kind: str = "bq2"
+    # the coarse partition, present when built with ``ivf_candidates`` or
+    # attached by ``build_ivf``; enables ``nav="ivf"``
+    ivf: IVFPartition | None = None
     _backends: dict = dataclasses.field(
         default_factory=dict, repr=False, compare=False
     )
@@ -105,9 +111,14 @@ class QuIVerIndex:
             rotation = as_float32(rotation, device)
             encoded = vectors @ rotation
         sigs = bq.encode(encoded)
+        ivf = None
+        if params.ivf_candidates:
+            ivf = build_partition(sigs, n_lists=params.ivf_lists or None,
+                                  seed=params.seed)
         backend = make_backend(metric, MetricArrays(sigs=sigs,
                                                     vectors=vectors))
-        adj, medoid, stats = build_graph(backend, params, verbose=verbose)
+        adj, medoid, stats = build_graph(backend, params, ivf=ivf,
+                                         verbose=verbose)
         index = cls(
             sigs=sigs,
             adjacency=adj,
@@ -117,9 +128,21 @@ class QuIVerIndex:
             rotation=rotation,
             build_stats=stats,
             metric_kind=metric,
+            ivf=ivf,
         )
         index._backends[metric] = backend
         return index
+
+    def build_ivf(self, *, n_lists: int | None = None,
+                  seed: int | None = None) -> IVFPartition:
+        """Attach a coarse partition to a built index (enables
+        ``nav="ivf"``); deterministic under the build seed unless ``seed``
+        overrides it."""
+        self.ivf = build_partition(
+            self.sigs, n_lists=n_lists,
+            seed=self.params.seed if seed is None else seed,
+        )
+        return self.ivf
 
     # -- search ------------------------------------------------------------
 
@@ -142,15 +165,29 @@ class QuIVerIndex:
         With ``rerank=True`` (and cold vectors present) scores are float32
         cosine similarity; otherwise they are negated navigation
         distances (``sim - 4D`` for bq2), as in the reference.
+
+        ``nav="ivf"`` scans the centroid signatures, gathers the members
+        of the ``probes`` nearest lists (default: the partition's
+        ``default_probes``), keeps the best ``ef`` in bq2 space and
+        reranks: no graph traversal.
         """
-        if nav not in (None, self.metric_kind):
+        ivf = nav == "ivf"
+        if ivf and self.ivf is None:
+            raise ValueError(
+                "nav='ivf' needs a coarse partition: build with "
+                "BuildParams(ivf_candidates=True) or call build_ivf()"
+            )
+        if not ivf and nav not in (None, self.metric_kind):
             raise NotImplementedError(f"nav={nav!r} is not ported yet")
         if filter is not None:
             raise NotImplementedError("filtered search is not ported yet")
         if adaptive:
             raise NotImplementedError("adaptive escalation is not ported yet")
-        if probes is not None:
-            raise NotImplementedError("IVF probes are not ported yet")
+        if probes is not None and not ivf:
+            # the reference reads probes without nav="ivf" only from an
+            # ivf navigation policy, which is not ported
+            raise NotImplementedError("probes without nav='ivf' (a navigation "
+                                      "policy) is not ported yet")
         if k > ef:
             raise ValueError(f"k={k} exceeds ef={ef}")
         backend = self.backend()
@@ -161,13 +198,24 @@ class QuIVerIndex:
         reprs = backend.encode_queries(enc_in)
         vectors = self.vectors if rerank else None
         n = self.sigs.words.shape[0]
+        if ivf:
+            p_eff = ivf_probes(self.ivf, k, probes)
+            scan = dispatch.list_scan_ops(self.sigs.dim, self.device).scan
         out_ids, out_scores = [], []
         for s in range(0, queries.shape[0], query_batch):
-            res = beam_search(
-                reprs[s:s + query_batch], self.adjacency, self.medoid,
-                dist_fn=backend.dist_many, ef=ef, n=n, expand=expand,
-            )
-            ids, scores = _rerank(res.ids, res.dists,
+            if ivf:
+                cand_ids, cand_dists = scan_search(
+                    backend, scan, reprs[s:s + query_batch],
+                    self.ivf.cent_words, self.ivf.list_ids,
+                    probes=p_eff, ef=ef,
+                )
+            else:
+                res = beam_search(
+                    reprs[s:s + query_batch], self.adjacency, self.medoid,
+                    dist_fn=backend.dist_many, ef=ef, n=n, expand=expand,
+                )
+                cand_ids, cand_dists = res.ids, res.dists
+            ids, scores = _rerank(cand_ids, cand_dists,
                                   queries[s:s + query_batch], vectors, k)
             out_ids.append(ids.cpu().numpy())
             out_scores.append(scores.cpu().numpy())
@@ -179,13 +227,15 @@ class QuIVerIndex:
         n = self.sigs.words.shape[0]
         sig_bytes = self.sigs.words.numel() * 4
         adj_bytes = self.adjacency.numel() * 4 + n * 4  # + degree counters
+        # the IVF tier rides the hot path: every ivf search gathers from it
+        ivf_bytes = self.ivf.memory_bytes() if self.ivf is not None else 0
         cold = self.vectors.numel() * 4 if self.vectors is not None else 0
-        hot = sig_bytes + adj_bytes
+        hot = sig_bytes + adj_bytes + ivf_bytes
         return {
             "hot_signature_bytes": int(sig_bytes),
             "hot_adjacency_bytes": int(adj_bytes),
             "hot_label_bytes": 0,
-            "hot_ivf_bytes": 0,
+            "hot_ivf_bytes": int(ivf_bytes),
             "hot_total_bytes": int(hot),
             "cold_vector_bytes": int(cold),
             "host_shadow_bytes": 0,
@@ -205,6 +255,16 @@ class QuIVerIndex:
         from repro_torch.convert import index_from_numpy
         with np.load(path) as z:
             return index_from_numpy(dict(z), device)
+
+
+def ivf_probes(part: IVFPartition, k: int, probes: int | None) -> int:
+    """Lists a ``nav="ivf"`` search probes: ``probes`` (default: the
+    partition's ``default_probes``) clamped to the partition, but never
+    below the fan-in that can fill k.  The reference resolves this in its
+    planner and clamps again in its plan cache; the clamp is idempotent."""
+    probes = probes or part.default_probes
+    return max(min(probes, part.n_lists),
+               min(part.n_lists, -(-k // part.cap)))
 
 
 def rerank_f32(beam_ids, queries, vectors, k):

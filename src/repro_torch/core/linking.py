@@ -2,9 +2,10 @@
 
 Counterpart of ``repro/core/linking.py`` for the batch build: beam-search
 a chunk of nodes, alpha-prune their candidate pools, install forward
-edges, scatter-append reverse edges, re-prune overflowing rows, and scan
-for the medoid.  ``chunk_ids`` / ``row_ids`` may hold ``-1`` padding;
-padded entries scatter into a trash row and leave the graph untouched.
+edges, scatter-append reverse edges, re-prune overflowing rows, scan for
+the medoid, and pick each IVF list's medoid.  ``chunk_ids`` / ``row_ids``
+may hold ``-1`` padding; padded entries scatter into a trash row and leave
+the graph untouched.
 
 Every function returns new tensors and leaves its inputs as they were, as
 the reference's do.
@@ -137,6 +138,18 @@ def consolidate_rows(backend: MetricSpace, adj, deg, row_ids, *,
     pw = backend.pairwise(safe)
     new_ids, _ = alpha_prune_batch(rows, dists, pw, r=r, alpha=alpha)
     return scatter_rows(adj, deg, row_ids, new_ids, r_total=r_total)
+
+
+def shard_medoids(backend: MetricSpace, cent_reprs: torch.Tensor,
+                  shard_ids: torch.Tensor) -> torch.Tensor:
+    """For each of L shards (``shard_ids`` (L, S) int32, -1 padded), the
+    member nearest its representation ``cent_reprs[l]``: the first minimum
+    in slot order, as ``jnp.argmin`` picks it.  One ``dist_many`` call
+    scores all members.  Returns (L,) int32 node ids."""
+    d = backend.dist_many(cent_reprs, shard_ids.clamp_min(0))
+    d = torch.where(shard_ids >= 0, d, BIG)
+    best = d.argmin(dim=1)          # documented: the first minimal value
+    return shard_ids.gather(1, best[:, None])[:, 0]
 
 
 def medoid_scan(backend: MetricSpace, centroid_repr: torch.Tensor, *,

@@ -5,7 +5,10 @@ linking.  Nodes are inserted in chunks of ``BuildParams.chunk``; each
 chunk beam-searches the current graph, alpha-prunes its candidate pools
 in bq2 space, writes forward edges and scatter-appends reverse edges, and
 every ``consolidate_every`` chunks the rows that overflowed R are
-re-pruned.  The host drives the loop; the device does the work.
+re-pruned.  The host drives the loop; the device does the work.  With
+``BuildParams(ivf_candidates=True)`` each chunk's candidate pool comes from
+the node's nearest coarse lists (``repro_torch.ivf``) instead of a beam
+search, as in the reference.
 
 The starting graph differs from the reference's, which draws it with
 ``jax.random``: :func:`_init_graph` draws it from ``numpy``'s
@@ -25,6 +28,10 @@ import torch
 
 from repro_torch.core import bq, linking
 from repro_torch.core.metric import MetricSpace
+from repro_torch.core.prune import alpha_prune_stats_batch
+from repro_torch.ivf import build_partition
+from repro_torch.ivf import search as ivf_search
+from repro_torch.kernels import dispatch
 from repro_torch.obs.metrics import get_default_registry
 
 
@@ -40,7 +47,9 @@ class BuildParams:
     passes: int = 1              # full insertion passes over the data
     seed: int = 0
     beam_expand: int = 1         # beam expansion width L during build
-    # IVF-seeded construction waits for the port of repro.ivf
+    # IVF-seeded construction: seed each chunk's prune pool from the
+    # node's top-p coarse lists instead of a full-graph beam search;
+    # ``ivf_lists=0`` means the partition's own sqrt(N) default
     ivf_candidates: bool = False
     ivf_lists: int = 0
 
@@ -79,27 +88,64 @@ def _init_graph(n: int, params: BuildParams, seed: int, device):
     return torch.from_numpy(adj).to(device)
 
 
+def _chunk_forward_ivf(backend, scan, chunk_ids, rand_ids, cent_words,
+                       list_ids, *, pool, r, alpha, probes):
+    """IVF-seeded chunk linking: top-p lists feed the prune pool.
+
+    Replaces the beam search of ``linking.chunk_forward``: each chunk
+    node's candidates are the members of its ``probes`` nearest coarse
+    lists, topped up with ``rand_ids``, random far candidates whose long
+    edges the alpha-criterion can keep.  A duplicate between the two pools
+    dies in the prune (it is at distance 0 from its selected twin).  Hops
+    are 0: there is no traversal.
+    """
+    pad_row = (chunk_ids < 0)[:, None]
+    reprs = backend.query_repr(chunk_ids.clamp_min(0))
+    top = ivf_search.top_lists(scan, reprs, cent_words, probes)
+    mem, d = ivf_search.list_candidates(backend, reprs, list_ids, top)
+    drop = (mem == chunk_ids[:, None]) | pad_row
+    mem = torch.where(drop, -1, mem)
+    d = torch.where(drop, linking.BIG, d)
+    n_local = max(pool - rand_ids.shape[1], 1)
+    local_dists, pos = torch.sort(d, dim=1, stable=True)
+    local_dists = local_dists[:, :n_local]
+    local_ids = mem.gather(1, pos[:, :n_local])
+
+    rand_ok = (rand_ids >= 0) & (rand_ids != chunk_ids[:, None]) & ~pad_row
+    rd = backend.dist_many(reprs, rand_ids.clamp_min(0))
+    cids = torch.cat([local_ids, torch.where(rand_ok, rand_ids, -1)], dim=1)
+    cdists = torch.cat([local_dists, torch.where(rand_ok, rd, linking.BIG)],
+                       dim=1)
+    pw = backend.pairwise(cids.clamp_min(0))
+    fwd_ids, fwd_dists, pool_sizes, occluded = alpha_prune_stats_batch(
+        cids, cdists, pw, r=r, alpha=alpha
+    )
+    hops = torch.zeros(chunk_ids.shape, dtype=torch.int32,
+                       device=chunk_ids.device)
+    return fwd_ids, fwd_dists, hops, pool_sizes, occluded
+
+
 def build_graph(
     backend: MetricSpace,
     params: BuildParams,
     *,
     medoid: int | None = None,
+    ivf=None,
     init_adjacency: torch.Tensor | None = None,
     verbose: bool = False,
 ) -> tuple[torch.Tensor, int, BuildStats]:
     """Construct a Vamana graph in ``backend``'s metric space.
 
-    ``init_adjacency`` (optional, ``(N, r_total)`` int32, -1 padded)
-    replaces the random starting graph; ``medoid`` (optional) replaces
-    the centroid-nearest entry point.  Build stats accumulate on the
-    device and are read once at the end.
+    With ``params.ivf_candidates`` each chunk's prune pool is seeded from
+    the node's top-p coarse lists; ``ivf`` is the
+    :class:`~repro_torch.ivf.IVFPartition` to seed from, built here from
+    the backend's signatures when None.  ``init_adjacency`` (optional,
+    ``(N, r_total)`` int32, -1 padded) replaces the random starting graph;
+    ``medoid`` (optional) replaces the centroid-nearest entry point.  Build
+    stats accumulate on the device and are read once at the end.
 
     Returns (adjacency (N, r_total) int32, medoid id, stats).
     """
-    if params.ivf_candidates:
-        raise NotImplementedError(
-            "IVF-seeded construction (ivf_candidates=True) is not ported yet"
-        )
     t0 = time.perf_counter()
     n = backend.n
     dev = backend.sigs.words.device
@@ -116,6 +162,14 @@ def build_graph(
     if medoid is None:
         medoid = int(linking.medoid_scan(
             backend, _centroid_repr(backend), chunk=4096))
+
+    if params.ivf_candidates:
+        if ivf is None:
+            ivf = build_partition(backend.sigs,
+                                  n_lists=params.ivf_lists or None,
+                                  seed=params.seed)
+        scan = dispatch.list_scan_ops(backend.sigs.dim, dev).scan
+        n_rand = max(1, min(params.prune_pool // 4, params.r))
 
     rng = np.random.default_rng(params.seed)
     chunk = params.chunk
@@ -138,15 +192,28 @@ def build_graph(
 
         for ci in range(n_chunks):
             chunk_ids = order_dev[ci * chunk:(ci + 1) * chunk]
-            fwd_ids, _, hops, pool_sizes, occluded = linking.chunk_forward(
-                backend, adj, chunk_ids, medoid,
-                ef=params.ef_construction,
-                pool=params.prune_pool,
-                r=params.r,
-                alpha=params.alpha,
-                n=n,
-                expand=params.beam_expand,
-            )
+            if params.ivf_candidates:
+                rand_ids = torch.from_numpy(rng.integers(
+                    0, n, size=(chunk, n_rand), dtype=np.int32)).to(dev)
+                fwd_ids, _, hops, pool_sizes, occluded = _chunk_forward_ivf(
+                    backend, scan, chunk_ids, rand_ids, ivf.cent_words,
+                    ivf.list_ids,
+                    pool=params.prune_pool,
+                    r=params.r,
+                    alpha=params.alpha,
+                    probes=ivf.build_probes,
+                )
+            else:
+                fwd_ids, _, hops, pool_sizes, occluded = \
+                    linking.chunk_forward(
+                        backend, adj, chunk_ids, medoid,
+                        ef=params.ef_construction,
+                        pool=params.prune_pool,
+                        r=params.r,
+                        alpha=params.alpha,
+                        n=n,
+                        expand=params.beam_expand,
+                    )
             adj, deg = linking.apply_forward(
                 adj, deg, chunk_ids, fwd_ids, r_total=params.r_total
             )

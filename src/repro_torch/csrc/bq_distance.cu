@@ -39,21 +39,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bq_sim.cuh"
+
 namespace {
 
 constexpr int kRowsThreads = 128;
-
-__device__ __forceinline__ int sim_word(uint32_t pa, uint32_t sa, uint32_t pb,
-                                        uint32_t sb, uint32_t m) {
-  const uint32_t diff = pa ^ pb;  // padding bits are 0 in both planes
-  const uint32_t same = ~diff & m;
-  const uint32_t both_strong = sa & sb;
-  const uint32_t one_strong = sa ^ sb;
-  const uint32_t both_weak = ~(sa | sb) & m;
-  return 4 * __popc(same & both_strong) + 2 * __popc(same & one_strong) +
-         __popc(same & both_weak) - 4 * __popc(diff & both_strong) -
-         2 * __popc(diff & one_strong) - __popc(diff & both_weak);
-}
 
 __global__ void dist_rows_kernel(const uint32_t* __restrict__ q,
                                  const int32_t* __restrict__ ids,

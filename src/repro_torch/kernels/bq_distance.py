@@ -51,15 +51,20 @@ def dist_rows_plain(q, ids, table, mask) -> torch.Tensor:
     return out
 
 
-def pairwise_plain(ids, table, mask) -> torch.Tensor:
-    """Table 1's weights are the products of the +-1/+-2 reconstruction
-    levels, so a pool's similarity matrix is L @ L^T of its decoded rows:
-    whole numbers below 2**24, exact in float32 in any order."""
-    rows = table[ids.long()]                          # (B, C, 2W)
+def masked_levels(words, mask) -> torch.Tensor:
+    """(..., 2W) words -> (..., 32W) float32 +-1/+-2 levels, 0 past the
+    valid bits.  Table 1's weights are the products of these levels, so a
+    similarity is their dot product: a whole number below 2**24, exact in
+    float32 in any order."""
     dim = mask.shape[0] * bq.WORD_BITS
     # padding dims decode to -1; the mask zeroes them
     keep = bq.unpack_bits(mask, dim).to(torch.float32)
-    levels = bq.decode_levels(bq.Signature(rows, dim)) * keep
+    return bq.decode_levels(bq.Signature(words, dim)) * keep
+
+
+def pairwise_plain(ids, table, mask) -> torch.Tensor:
+    """A pool's similarity matrix is L @ L^T of its rows' levels."""
+    levels = masked_levels(table[ids.long()], mask)   # (B, C, 32W)
     return torch.bmm(levels, levels.transpose(1, 2)).to(torch.int32)
 
 

@@ -7,9 +7,11 @@ stream as ``void*``) and is compiled on first use, for Hopper only::
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
 into ``build/kernels/`` at the repository root (listed in ``.gitignore``).
-The file name carries a hash of the source, so an edited source is rebuilt
-and a stale library is never loaded.  Nothing here runs at import time: the
-CPU tests import every module of the package on a machine with no ``nvcc``.
+The sources share device code through ``csrc/*.cuh`` headers.  The file
+name carries a hash of the source and of every header, so an edited source
+or header is rebuilt and a stale library is never loaded.  Nothing here
+runs at import time: the CPU tests import every module of the package on a
+machine with no ``nvcc``.
 
 Launch counts live here too: each kernel wrapper adds one to its entry in
 :data:`LAUNCHES` where it launches its kernel, and nowhere else, so a run
@@ -57,8 +59,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -7,12 +7,17 @@ follows the device of the signature table it is given — CUDA tensors
 launch the hand-written kernels of ``repro_torch.kernels.bq_distance``,
 CPU tensors take their plain versions.
 
-Both primitives are gather-fused (they take row ids into the ``(N, 2W)``
-table) and return **int32 similarities**; the backend applies its own
-non-negative distance calibration on top:
+Both metric primitives are gather-fused (they take row ids into the
+``(N, 2W)`` table) and return **int32 similarities**; the backend applies
+its own non-negative distance calibration on top:
 
 * ``dist_rows(q (B, 2W), ids (B, K), table)`` -> ``(B, K)``
 * ``pairwise(ids (B, C), table)``            -> ``(B, C, C)``
+
+The IVF layer's coarse routing has its own primitive, bound by
+:func:`list_scan_ops` to ``repro_torch.kernels.list_scan``:
+
+* ``scan(q (Q, 2W), cent_words (L, 2W))``    -> ``(Q, L)``
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.core import bq
-from repro_torch.kernels import bq_distance
+from repro_torch.kernels import bq_distance, list_scan
 
 
 class MetricOps(NamedTuple):
@@ -32,6 +37,12 @@ class MetricOps(NamedTuple):
     pairwise: Callable   # (B, C) ids -> (B, C, C) int32 sim
 
 
+class ListScanOps(NamedTuple):
+    """IVF coarse-routing primitive bound to one signature dimensionality."""
+
+    scan: Callable       # (Q, 2W) x (L, 2W) -> (Q, L) int32 sim
+
+
 def bq2_ops(dim: int, device: torch.device | str) -> MetricOps:
     """Bind the symmetric 2-bit SM similarity primitives for ``dim``."""
     mask = bq.valid_mask(dim, device=device)
@@ -39,4 +50,13 @@ def bq2_ops(dim: int, device: torch.device | str) -> MetricOps:
         dist_rows=lambda q, ids, table: bq_distance.dist_rows(
             q, ids, table, mask),
         pairwise=lambda ids, table: bq_distance.pairwise(ids, table, mask),
+    )
+
+
+def list_scan_ops(dim: int, device: torch.device | str) -> ListScanOps:
+    """Bind the centroid scan for ``dim``: a top-p over its (Q, L) result
+    is the IVF layer's list routing decision."""
+    mask = bq.valid_mask(dim, device=device)
+    return ListScanOps(
+        scan=lambda q, cent_words: list_scan.scan(q, cent_words, mask),
     )

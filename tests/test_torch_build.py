@@ -220,10 +220,25 @@ def test_port_init_graph_is_seeded_and_loop_free():
     assert not (rand == torch.arange(500)[:, None]).any()
 
 
-def test_ivf_seeded_build_is_not_ported(built):
-    with pytest.raises(NotImplementedError):
-        vamana.build_graph(built["pb"],
-                           dataclasses.replace(PARAMS, ivf_candidates=True))
+def test_ivf_seeded_build_matches_reference(built):
+    from repro.ivf import build_partition as jax_build_partition
+    from repro_torch.ivf import IVFPartition
+
+    jparams = dataclasses.replace(JAX_PARAMS, ivf_candidates=True)
+    part = jax_build_partition(built["index"].sigs, seed=jparams.seed,
+                               route="ref")
+    want_adj, medoid, want = jvamana.build_graph(built["jb"], jparams,
+                                                 ivf=part)
+    adj, got_medoid, stats = vamana.build_graph(
+        built["pb"], dataclasses.replace(PARAMS, ivf_candidates=True),
+        ivf=IVFPartition.from_npz(part.to_npz_fields(), "cpu"),
+        init_adjacency=_t(built["init_adj"]), medoid=medoid)
+    assert got_medoid == medoid
+    np.testing.assert_array_equal(adj.numpy(), np.asarray(want_adj))
+    for field in ("chunks", "consolidations", "reverse_edges_added",
+                  "occluded_total"):
+        assert getattr(stats, field) == getattr(want, field), field
+    assert stats.mean_hops == want.mean_hops == 0.0
 
 
 def test_injected_adjacency_shape_is_checked(built):

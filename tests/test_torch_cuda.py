@@ -20,6 +20,7 @@ from repro_torch.data.datasets import make_dataset
 from repro_torch.kernels import binarize as kb
 from repro_torch.kernels import bq_distance as kd
 from repro_torch.kernels import build
+from repro_torch.kernels import list_scan as kl
 
 pytestmark = pytest.mark.cuda
 # the suite runs in parallel worker processes: one thread each
@@ -81,6 +82,20 @@ def test_pairwise_matches_plain(cuda, dim, c):
     assert torch.equal(got, kd.pairwise_plain(ids, table, mask))
 
 
+@pytest.mark.parametrize("dim", [100, 384, 768, 1536, 3072])
+@pytest.mark.parametrize("n_lists", [45, 316, 1000])
+@pytest.mark.parametrize("n_q", [256, 8193])
+def test_list_scan_matches_plain(cuda, dim, n_lists, n_q):
+    # L * 8W bytes of centroids exceed a block's shared memory at D = 3072
+    table = _table(n_q + n_lists, dim, dim + n_lists + n_q, cuda)
+    q, cent = table[:n_q], table[n_q:]
+    mask = bq.valid_mask(dim, device=cuda)
+    build.reset_launches()
+    got = kl.scan(q, cent, mask)
+    assert build.LAUNCHES["list_scan"] == 1
+    assert torch.equal(got, kl.scan_plain(q, cent, mask))
+
+
 def test_empty_batches_launch_cleanly(cuda):
     table = _table(10, 100, 0, cuda)
     mask = bq.valid_mask(100, device=cuda)
@@ -88,6 +103,8 @@ def test_empty_batches_launch_cleanly(cuda):
     assert kd.dist_rows(table[:0], ids, table, mask).shape == (0, 5)
     assert kd.pairwise(ids, table, mask).shape == (0, 5, 5)
     assert kb.binarize(torch.zeros((0, 100), device=cuda)).shape == (0, 8)
+    assert kl.scan(table[:0], table, mask).shape == (0, 10)
+    assert kl.scan(table, table[:0], mask).shape == (10, 0)
 
 
 def test_card_build_equals_cpu_build(cuda):
@@ -101,6 +118,28 @@ def test_card_build_equals_cpu_build(cuda):
     cpu = QuIVerIndex.build(base, params, device="cpu")
     c_ids, _ = cpu.search(queries, k=10, ef=64, rerank=False)
     assert torch.equal(gpu.sigs.words.cpu(), cpu.sigs.words)
+    assert torch.equal(gpu.adjacency.cpu(), cpu.adjacency)
+    assert gpu.medoid == cpu.medoid
+    np.testing.assert_array_equal(g_ids, c_ids)
+
+
+def test_card_ivf_build_equals_cpu_build(cuda):
+    base, queries = make_dataset("cohere-surrogate", 1500, queries=50)
+    params = BuildParams(m=6, ef_construction=32, prune_pool=32, chunk=128,
+                         ivf_candidates=True)
+    build.reset_launches()
+    gpu = QuIVerIndex.build(base, params, device=cuda)
+    g_ids, _ = gpu.search(queries, k=10, ef=128, nav="ivf", rerank=False)
+    assert all(build.LAUNCHES[k] > 0 for k in (
+        "binarize", "bq_dist_rows", "bq_pairwise", "list_scan"))
+    cpu = QuIVerIndex.build(base, params, device="cpu")
+    c_ids, _ = cpu.search(queries, k=10, ef=128, nav="ivf", rerank=False)
+    for field in ("cent_words", "list_ids"):
+        assert torch.equal(getattr(gpu.ivf, field).cpu(),
+                           getattr(cpu.ivf, field)), field
+    for field in ("cent_ids", "assign", "offsets", "member_ids"):
+        np.testing.assert_array_equal(getattr(gpu.ivf, field),
+                                      getattr(cpu.ivf, field), err_msg=field)
     assert torch.equal(gpu.adjacency.cpu(), cpu.adjacency)
     assert gpu.medoid == cpu.medoid
     np.testing.assert_array_equal(g_ids, c_ids)

@@ -38,6 +38,8 @@ def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert "repro_torch.core.index" in mods
     assert "repro_torch.kernels.bq_distance" in mods
+    assert "repro_torch.kernels.list_scan" in mods
+    assert {"repro_torch.ivf.partition", "repro_torch.ivf.search"} <= set(mods)
     _run_fresh(
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"

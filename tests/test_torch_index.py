@@ -124,7 +124,6 @@ def test_convert_round_trips_the_archive(ref):
 
 @pytest.mark.parametrize("extra", [
     {"label_words": np.zeros((N, 1), np.uint32)},
-    {"ivf_cent_words": np.zeros((4, 24), np.uint32)},
     {"policy_nav": np.array("bq2")},
     {"probe_cos_mean": np.float64(0.1)},
     {"graph_out_degree_mean": np.float64(4.0)},

@@ -18,7 +18,7 @@ from repro.kernels import ops
 from repro_torch.core import bq
 from repro_torch.kernels import binarize as kb
 from repro_torch.kernels import bq_distance as kd
-from repro_torch.kernels import build, dispatch
+from repro_torch.kernels import build, dispatch, list_scan
 
 jax.config.update("jax_platform_name", "cpu")
 # the suite runs in parallel worker processes: one thread each
@@ -100,6 +100,7 @@ def test_cpu_route_launches_nothing():
     kd.dist_rows(table[:2], ids, table, bq.valid_mask(100))
     kd.pairwise(ids, table, bq.valid_mask(100))
     kb.binarize(torch.zeros((2, 100)))
+    list_scan.scan(table[:2], table[:7], bq.valid_mask(100))
     assert sum(build.LAUNCHES.values()) == 0
 
 
@@ -121,7 +122,22 @@ def test_wrappers_check_inputs():
 
 def test_build_names_libraries_by_source_hash():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
-    for name in ("binarize", "bq_distance"):
+    for name in ("binarize", "bq_distance", "list_scan"):
         out = build._target(name)
         assert out.parent == build.BUILD_DIR
         assert out.name.startswith(name + "-") and out.suffix == ".so"
+
+
+def test_edited_header_renames_every_library(tmp_path, monkeypatch):
+    """A library's name hashes the shared headers too: editing one rebuilds
+    every kernel instead of loading a stale library."""
+    for src in (*build.CSRC.glob("*.cu"), *build.CSRC.glob("*.cuh")):
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    assert (tmp_path / "bq_sim.cuh").exists()
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    names = ("binarize", "bq_distance", "list_scan")
+    before = {name: build._target(name) for name in names}
+    header = tmp_path / "bq_sim.cuh"
+    header.write_text(header.read_text() + "\n")
+    for name in names:
+        assert build._target(name) != before[name]
