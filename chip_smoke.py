@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases build,kernels,ivf
+    python3 chip_smoke.py --phases build,kernels,ladder
     python3 chip_smoke.py --phases build,profile      # opt-in breakdown
 
 Phases, in order; any failure raises and the script exits nonzero:
@@ -17,13 +18,18 @@ Phases, in order; any failure raises and the script exits nonzero:
               (K from the IVF build's top-up of 32 to a search batch's
               50 880 gathered list members), ``bq_pairwise`` and
               ``list_scan`` (D in {100, 384, 768, 1536, 3072}, L in {45,
-              316, 1000}, Q in {256, 8193}; all exactly equal).  Then each kernel's, its plain version's and (for the
-              distance kernels) one PyTorch matmul's time on those
-              main-path inputs: device time and stream time (see
-              ``time_ms``).
+              316, 1000}, Q in {256, 8193}), ``hamming_dist_rows`` and
+              ``hamming_pairwise`` (D in {64, 100, 384, 768, 1536}, ragged
+              B, K and C); all exactly equal.  Then each kernel's, its plain
+              version's and (for the distance kernels) one PyTorch matmul's
+              time on those main-path inputs: device time and stream time
+              (see ``time_ms``).
 3. parity   — the same N = 4000 builds and searches on ``device="cpu"`` and
               on the card, beam-searched and IVF-seeded: identical
-              partition, adjacency, medoid and candidate ids.
+              partition, adjacency, medoid and candidate ids; and
+              ``build(nav="auto")`` on sift-like (red: float32 x4) and on
+              cohere-surrogate (green: bq2): equal policies, ids matched by
+              ``ids_match``.
 4. main     — the main path at deployment size: cohere-surrogate (768-d),
               N = 100 000, 1 000 queries, ``BuildParams()`` defaults;
               build, search at k = 10, ef = 64, recall@10 against exact
@@ -37,13 +43,25 @@ Phases, in order; any failure raises and the script exits nonzero:
               ceil(3L/4) probes (gate: graph recall - 0.02); save, load,
               ``nav="ivf"`` again (identical ids).  Launch counts as in 4;
               all four kernels must have launched.
-An opt-in sixth phase, ``profile``, is not run by default: it profiles a
+6. ladder   — the metric ladder at the same size (1 000 queries, k = 10,
+              ef = 64): a bq1 build (``BuildParams()``) searched with
+              ``nav="bq1"`` (recall gate 0.50); phase 4's bq2 graph (built
+              again when phase 4 did not run) searched with ``nav`` in
+              {bq2, bq1, adc, float32} (gate 0.50 each) and with bq2 +
+              ``adaptive=True`` (gate: plain bq2 recall - 0.005; the
+              escalated share is printed); then ``probe_corpus`` (sample
+              1024) on cohere-surrogate, sift-like and random-sphere at
+              N = 100 000, on the card and on the CPU: verdicts and
+              policies must agree, and must be green, red, red.  Launch
+              counts as in 4; both hamming entry points and ``list_scan``
+              must have launched.
+An opt-in seventh phase, ``profile``, is not run by default: it profiles a
 few build chunks at the main path's size with ``torch.profiler`` and
 prints the device's busy share and device time by kernel.
 
 The last three lines of standard output are the card's name and power
 limit (``nvidia-smi``), one JSON line of per-kernel numbers (``launches``
-sums phases 4 and 5), and
+sums phases 4, 5 and 6), and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits nonzero and prints no result.
 """
@@ -59,7 +77,7 @@ from functools import partial
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "parity", "main", "ivf")
+PHASES = ("build", "kernels", "parity", "main", "ivf", "ladder")
 OPT_IN = ("profile",)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the float32
@@ -73,6 +91,9 @@ CORE_OPS_PER_S = 67e12
 OPS_PER_WORD_PAIR = 26
 # per float of binarize: abs, add, two compares
 OPS_PER_ELEMENT = 4
+# integer operations per word pair of the 1-bit Hamming distance: xor,
+# popcount, add
+OPS_PER_SIGN_WORD_PAIR = 3
 
 
 def log(msg: str) -> None:
@@ -298,7 +319,96 @@ def phase_kernels(torch) -> dict:
             # logged, not in the kernels line
             "log_only": key != "list_scan",
         }
+    out.update(hamming_kernels(torch, g))
     torch.cuda.synchronize()
+    return out
+
+
+def sign_levels(torch, words, dim: int):
+    """(..., W) sign words -> (..., 32W) float32 +-1 levels, 0 past ``dim``:
+    the Hamming distance of two rows is (dim - their dot product) / 2."""
+    from repro_torch.core import bq
+
+    bits = bq.unpack_bits(words, words.shape[-1] * 32).to(torch.float32)
+    keep = (torch.arange(bits.shape[-1], device=bits.device) < dim)
+    return (2.0 * bits - 1.0) * keep
+
+
+def hamming_kernels(torch, g) -> dict:
+    """Both hamming entry points against their plain versions over ragged
+    shapes; the numbers at the bq1 path's shapes (D = 768: the beam hop's
+    B = 256, K = 72, and the prune pool's B = 256, C = 128)."""
+    from repro_torch.kernels import hamming as kh
+
+    out = {}
+    n_table = 100_000
+    for dim in (64, 100, 384, 768, 1536):
+        table = random_table(torch, n_table, dim, seed=dim + 1)
+        w = table.shape[1] // 2
+        for b, k in ((256, 72), (13, 777), (256, 288)):
+            ids = torch.randint(0, n_table, (b, k), generator=g,
+                                device="cuda", dtype=torch.int32)
+            q = table[torch.randint(0, n_table, (b,), generator=g,
+                                    device="cuda"), :w].contiguous()
+            got = kh.dist_rows(q, ids, table)
+            want = kh.dist_rows_plain(q, ids, table)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"hamming_dist_rows differs at D={dim} B={b} K={k}")
+            if dim == 768 and (b, k) == (256, 72):
+                uniq = torch.unique(ids).numel()
+                nb = uniq * 4 * w + ids.numel() * 4 + q.numel() * 4 \
+                    + got.numel() * 4
+                b_ms, b_by = bound(nb, OPS_PER_SIGN_WORD_PAIR * ids.numel()
+                                   * w)
+                # the library call: one bmm of the +-1 sign levels (gather
+                # and decode outside the timed call)
+                lr = sign_levels(torch, table[:, :w], dim)[ids.long()]
+                lq = sign_levels(torch, q, dim)[:, :, None]
+                check_library("hamming_dist_rows",
+                              (dim - torch.bmm(lr, lq)[..., 0]) / 2, got)
+                out["hamming_dist_rows"] = {
+                    "name": "hamming_dist_rows", "route": "cuda",
+                    "source": "src/repro_torch/csrc/hamming.cu",
+                    "replaces": "src/repro/kernels/hamming.py:17",
+                    "max_abs_err": float((got - want).abs().max()),
+                    "fns": (partial(kh.dist_rows, q, ids, table),
+                            partial(kh.dist_rows_plain, q, ids, table),
+                            partial(torch.bmm, lr, lq)),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "shape": [b, k, dim],
+                }
+        for b, c in ((256, 128), (7, 37), (64, 72)):
+            ids = torch.randint(0, n_table, (b, c), generator=g,
+                                device="cuda", dtype=torch.int32)
+            got = kh.pairwise(ids, table)
+            want = kh.pairwise_plain(ids, table)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"hamming_pairwise differs at D={dim} B={b} C={c}")
+            if dim == 768 and (b, c) == (256, 128):
+                uniq = torch.unique(ids).numel()
+                nb = uniq * 4 * w + ids.numel() * 4 + got.numel() * 4
+                b_ms, b_by = bound(nb, OPS_PER_SIGN_WORD_PAIR * got.numel()
+                                   * w)
+                lp = sign_levels(torch, table[ids.long(), :w], dim)
+                lpt = lp.transpose(1, 2)
+                check_library("hamming_pairwise",
+                              (dim - torch.bmm(lp, lpt)) / 2, got)
+                out["hamming_pairwise"] = {
+                    "name": "hamming_pairwise", "route": "cuda",
+                    "source": "src/repro_torch/csrc/hamming.cu",
+                    "replaces": "src/repro/kernels/hamming.py:17",
+                    "max_abs_err": float((got - want).abs().max()),
+                    "fns": (partial(kh.pairwise, ids, table),
+                            partial(kh.pairwise_plain, ids, table),
+                            partial(torch.bmm, lp, lpt)),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "shape": [b, c, dim],
+                }
+        log(f"  hamming_dist_rows (B, K) in ((256, 72), (13, 777), "
+            f"(256, 288)) and hamming_pairwise (B, C) in ((256, 128), "
+            f"(7, 37), (64, 72)), D={dim}: exact")
     return out
 
 
@@ -379,6 +489,41 @@ def phase_parity(torch) -> None:
     tied = ids_match(cpu[2], gpu[2], cpu[3], gpu[3])
     log(f"  signatures, adjacency, medoid and beam ids identical; reranked "
         f"ids identical up to {tied} rows of scores within 1e-6")
+    for name, want in (("sift-like", "float32"), ("cohere-surrogate", "bq2")):
+        parity_auto(torch, name, want, params)
+
+
+def parity_auto(torch, name: str, want: str, params) -> None:
+    """``build(nav="auto")`` on the CPU and on the card: the same report
+    verdict and policy, and ids matched by ``ids_match``."""
+    import dataclasses
+
+    from repro_torch.core.index import QuIVerIndex
+    from repro_torch.data.datasets import make_dataset
+
+    base, queries = make_dataset(name, 4000, queries=100)
+    built = {}
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        idx = QuIVerIndex.build(base, params, nav="auto", device=dev)
+        ids, scores = idx.search(queries, k=10, ef=64)
+        built[dev] = (idx, ids, scores)
+        log(f"  {dev}: {name} auto build + search "
+            f"{time.perf_counter() - t0:.1f} s: {idx.report.summary()} -> "
+            f"{idx.policy.describe()}")
+    (cpu, c_ids, c_scores), (gpu, g_ids, g_scores) = \
+        built["cpu"], built["cuda"]
+    if dataclasses.asdict(cpu.policy) != dataclasses.asdict(gpu.policy):
+        raise AssertionError(f"{name}: policies differ: "
+                             f"{cpu.policy} vs {gpu.policy}")
+    if gpu.policy.nav != want or gpu.metric_kind != want:
+        raise AssertionError(f"{name}: auto chose {gpu.policy.nav}, "
+                             f"expected {want}")
+    tied = ids_match(c_ids, g_ids, c_scores, g_scores)
+    same_graph = torch.equal(cpu.adjacency, gpu.adjacency.cpu())
+    log(f"  {name}: policies equal ({gpu.policy.describe()}); ids identical "
+        f"up to {tied} rows of scores within 1e-6; adjacency identical: "
+        f"{same_graph}")
 
 
 def parity_ivf(torch, base, queries, params) -> None:
@@ -470,7 +615,8 @@ def phase_main(torch) -> dict:
         if launches.get(name, 0) == 0:
             raise AssertionError(f"{name} never launched on the main path")
     return {"launches": launches, "recall": recall,
-            "build_s": stats.seconds, "qps": n_queries / search_s}
+            "build_s": stats.seconds, "qps": n_queries / search_s,
+            "index": index, "data": (base, queries, truth)}
 
 
 def phase_ivf(torch) -> dict:
@@ -557,6 +703,137 @@ def phase_ivf(torch) -> dict:
     for name in ("binarize", "bq_dist_rows", "bq_pairwise", "list_scan"):
         if launches.get(name, 0) == 0:
             raise AssertionError(f"{name} never launched on the IVF path")
+    return {"launches": launches}
+
+
+def escalated_total() -> float:
+    """Queries escalated so far (the port's process registry)."""
+    from repro_torch.obs.metrics import get_default_registry
+
+    counter = get_default_registry().counter(
+        "quiver_escalated_queries_total", labels=("plan",))
+    return float(sum(slot[0] for slot in counter.series().values()))
+
+
+def timed_search(index, queries, truth, label: str, **kw):
+    """One search of every query; logs and returns (ids, recall)."""
+    import numpy as np
+
+    from repro_torch.core.baselines import recall_at_k
+
+    t0 = time.perf_counter()
+    ids, scores = index.search(queries, k=10, ef=64, **kw)
+    secs = time.perf_counter() - t0
+    recall = recall_at_k(ids, truth)
+    log(f"  search {len(queries)} queries {label}: {secs:.3f} s, "
+        f"{len(queries) / secs:.1f} QPS, recall@10 {recall:.4f}")
+    if ids.shape != (len(queries), 10) or not np.isfinite(scores).all():
+        raise AssertionError(f"{label}: search output malformed")
+    if ids.min() < 0 or ids.max() >= index.adjacency.shape[0]:
+        raise AssertionError(f"{label}: ids out of range")
+    return ids, recall
+
+
+def phase_ladder(torch, main: dict | None) -> dict:
+    """The metric ladder at deployment size; returns its launch counts."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core.baselines import flat_search
+    from repro_torch.core.index import QuIVerIndex
+    from repro_torch.core.vamana import BuildParams
+    from repro_torch.data.datasets import make_dataset
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.probe import probe_corpus, select_policy
+
+    n, n_queries = 100_000, 1000
+    if main is not None:
+        base, queries, truth = main["data"]
+        graph = main["index"]
+    else:
+        base, queries = make_dataset("cohere-surrogate", n, queries=n_queries)
+        truth, _ = flat_search(base, queries, 10, device="cuda")
+        log("  (phase 4 did not run: building its bq2 graph first)")
+        graph = QuIVerIndex.build(base, BuildParams(), device="cuda")
+    torch.cuda.synchronize()
+
+    kbuild.reset_launches()
+    # 1. the bits ablation at full width: a bq1 graph
+    t0 = time.perf_counter()
+    bq1 = QuIVerIndex.build(base, BuildParams(), metric="bq1",
+                            device="cuda")
+    torch.cuda.synchronize()
+    build_wall = time.perf_counter() - t0
+    stats = bq1.build_stats
+    log(f"  bq1 build {stats.seconds:.1f} s (wall {build_wall:.1f} s; "
+        f"{stats.chunks} chunks, mean hops {stats.mean_hops:.1f}, "
+        f"{stats.consolidations} consolidations)")
+    _, r_bq1 = timed_search(bq1, queries, truth, 'nav="bq1" on the bq1 graph',
+                            nav="bq1")
+    bq1_launches = {k: v for k, v in kbuild.LAUNCHES.items()
+                    if k.startswith("hamming")}
+    log(f"  hamming launches of the bq1 build + search: {bq1_launches}")
+    del bq1
+
+    # 2. every nav kind on the bq2 graph, and adaptive escalation
+    recalls = {}
+    for nav in ("bq2", "bq1", "adc", "float32"):
+        _, recalls[nav] = timed_search(graph, queries, truth,
+                                       f'nav="{nav}" on the bq2 graph',
+                                       nav=nav)
+    before = escalated_total()
+    _, r_adaptive = timed_search(graph, queries, truth,
+                                 'nav="bq2" adaptive=True on the bq2 graph',
+                                 nav="bq2", adaptive=True)
+    escalated = escalated_total() - before
+    log(f"  adaptive: {int(escalated)} of {n_queries} queries escalated "
+        f"({escalated / n_queries:.1%}) at the default margin 0.15, ef x4")
+
+    # 3. the probe, on the card and on the CPU
+    verdicts = {}
+    for name in ("cohere-surrogate", "sift-like", "random-sphere"):
+        data = base if name == "cohere-surrogate" \
+            else make_dataset(name, n, queries=0)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        report = probe_corpus(data, sample=1024, device="cuda")
+        secs = time.perf_counter() - t0
+        cpu = probe_corpus(data, sample=1024, device="cpu")
+        policy, cpu_policy = select_policy(report), select_policy(cpu)
+        exact = {f.name: getattr(report, f.name) == getattr(cpu, f.name)
+                 for f in dataclasses.fields(report)}
+        log(f"  probe {name} N={n} sample 1024: {secs:.3f} s on the card; "
+            f"{report.summary()} margin_p30={report.margin_p30:.4f} "
+            f"cluster={report.cluster_concentration:.4f} -> "
+            f"{policy.describe()}; fields equal to the CPU port's: "
+            f"{sorted(k for k, v in exact.items() if v)}; differing: "
+            f"{ {k: (getattr(report, k), getattr(cpu, k)) for k, v in exact.items() if not v} }")
+        if report.verdict != cpu.verdict or policy != cpu_policy:
+            raise AssertionError(f"probe {name}: card and CPU disagree: "
+                                 f"{report.summary()} vs {cpu.summary()}")
+        verdicts[name] = report.verdict
+    torch.cuda.synchronize()
+    launches = dict(kbuild.LAUNCHES)
+    log(f"  launches on the ladder path: {launches}")
+
+    if r_bq1 < 0.50:
+        raise AssertionError(f"bq1 recall@10 {r_bq1:.4f} is below 0.50")
+    for nav, r in recalls.items():
+        if r < 0.50:
+            raise AssertionError(f"nav={nav} recall@10 {r:.4f} is below 0.50")
+    if main is not None and recalls["bq2"] != main["recall"]:
+        raise AssertionError("nav=bq2 on the main graph changed its recall")
+    if r_adaptive < recalls["bq2"] - 0.005:
+        raise AssertionError(f"adaptive recall@10 {r_adaptive:.4f} is below "
+                             f"plain bq2's {recalls['bq2']:.4f} - 0.005")
+    if verdicts != {"cohere-surrogate": "green", "sift-like": "red",
+                    "random-sphere": "red"}:
+        raise AssertionError(f"probe verdicts {verdicts}")
+    for name in ("binarize", "bq_dist_rows", "hamming_dist_rows",
+                 "hamming_pairwise", "list_scan"):
+        if launches.get(name, 0) == 0:
+            raise AssertionError(f"{name} never launched on the ladder path")
     return {"launches": launches}
 
 
@@ -711,14 +988,20 @@ def main(argv=None) -> int:
         log("phase 3: the N=4000 builds on the CPU and on the card")
         phase_parity(torch)
     paths = []
+    main_path = None
     if "main" in phases:
         log("phase 4: main path, cohere-surrogate N=100000, 1000 queries")
-        paths.append(phase_main(torch))
+        main_path = phase_main(torch)
+        paths.append(main_path)
     if "ivf" in phases:
         log("phase 5: IVF path, cohere-surrogate N=100000, 1000 queries")
         paths.append(phase_ivf(torch))
+    if "ladder" in phases:
+        log("phase 6: metric ladder, cohere-surrogate N=100000, 1000 "
+            "queries; probe of three corpora")
+        paths.append(phase_ladder(torch, main_path))
     if "profile" in phases:
-        log("phase 6: profile of build chunks at N=100000")
+        log("phase 7: profile of build chunks at N=100000")
         phase_profile(torch)
     log(f"all phases {time.perf_counter() - t_all:.1f} s")
 

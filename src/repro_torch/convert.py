@@ -7,10 +7,11 @@ The dict keys are the npz field names of ``repro/core/index.py``'s
 wrappers over :func:`index_to_numpy` / :func:`index_from_numpy`, and an
 archive written by either package loads in the other.
 
-An IVF partition travels as the reference's ``ivf_*`` fields.  Fields of
-parts not ported yet (labels, probe policies and reports, graph-health
-reports, streaming archives) are refused with an error rather than
-dropped.
+An IVF partition travels as the reference's ``ivf_*`` fields, a nav
+policy as its ``policy_*`` fields and a probe report as its ``probe_*``
+fields; ``metric_kind`` is any registered kind.  Fields of parts not
+ported yet (labels, graph-health reports, streaming archives) are refused
+with an error rather than dropped.
 """
 
 from __future__ import annotations
@@ -22,13 +23,15 @@ import torch
 
 from repro_torch.core import bq
 from repro_torch.core.index import QuIVerIndex
+from repro_torch.core.metric import registered_kinds
 from repro_torch.core.vamana import BuildParams
 from repro_torch.device import resolve_device
 from repro_torch.ivf import IVFPartition
+from repro_torch.probe import CompatibilityReport, NavPolicy
 
 _PARAM_PREFIX = "param_"
 # npz field prefixes of state this part of the port cannot honour
-_UNPORTED_PREFIXES = ("label_", "policy_", "probe_", "graph_")
+_UNPORTED_PREFIXES = ("label_", "graph_")
 
 
 def params_to_npz(params: BuildParams) -> dict:
@@ -58,7 +61,13 @@ def index_to_numpy(index: QuIVerIndex) -> dict:
     def host(t):
         return t.detach().cpu().numpy() if t is not None else np.zeros((0,))
 
-    ivf = index.ivf.to_npz_fields() if index.ivf is not None else {}
+    extra = {}
+    if index.policy is not None:
+        extra.update(index.policy.to_npz_fields())
+    if index.report is not None:
+        extra.update(index.report.to_npz_fields())
+    if index.ivf is not None:
+        extra.update(index.ivf.to_npz_fields())
     return {
         "words": host(index.sigs.words).view(np.uint32),
         "dim": np.asarray(index.sigs.dim),
@@ -68,7 +77,7 @@ def index_to_numpy(index: QuIVerIndex) -> dict:
         "rotation": host(index.rotation),
         "metric_kind": np.array(index.metric_kind),
         **params_to_npz(index.params),
-        **ivf,
+        **extra,
     }
 
 
@@ -83,9 +92,9 @@ def index_from_numpy(fields: dict, device=None) -> QuIVerIndex:
             f"archive carries state this port cannot honour yet: {unported}"
         )
     metric_kind = str(fields.get("metric_kind", "bq2"))
-    if metric_kind != "bq2":
-        raise NotImplementedError(f"metric_kind={metric_kind!r} is not "
-                                  "ported yet")
+    if metric_kind not in registered_kinds():
+        raise ValueError(f"unknown metric_kind {metric_kind!r}; "
+                         f"registered: {registered_kinds()}")
     device = resolve_device(device)
 
     def dev(a, dtype):
@@ -102,5 +111,7 @@ def index_from_numpy(fields: dict, device=None) -> QuIVerIndex:
         vectors=dev(fields["vectors"], torch.float32),
         rotation=dev(fields["rotation"], torch.float32),
         metric_kind=metric_kind,
+        policy=NavPolicy.from_npz(fields),
+        report=CompatibilityReport.from_npz(fields),
         ivf=IVFPartition.from_npz(fields, device),
     )

@@ -21,6 +21,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.obs.metrics import get_default_registry
+
 INF = 3.0e38
 
 # dist_fn(queries (B, ...), ids (B, K) int32) -> (B, K) float32
@@ -52,6 +54,44 @@ def beam_margin(dists: torch.Tensor, k: int, neutral: float) -> torch.Tensor:
     # division by a constant (the two round differently)
     margin = (neutral - dk) * float(np.float32(1) / np.float32(neutral))
     return torch.where(dk < INF / 2, margin, torch.full_like(margin, -1.0))
+
+
+def escalated_search(run, reprs, queries, ef: int, *,
+                     adaptive: bool, margin_thr: float, mult: int):
+    """Adaptive escalation around a base search (the reference's
+    ``repro.core.beam.escalated_search``; its plan cache applies the same
+    rule as the second stage of a plan).
+
+    ``run(reprs, queries, ef, want_margin) -> (ids, scores, margins)`` is
+    the caller's batched base search, returning host numpy arrays
+    (``margins``: float32 :func:`beam_margin` at the nav backend's own
+    ``neutral_dist``, or None when ``want_margin`` is False).  With
+    ``adaptive``, queries whose margin falls below ``margin_thr`` re-run
+    once at ``ef * mult`` and their rows are spliced back in place.  The
+    comparison is numpy's float32 one, as in the reference.
+    """
+    all_ids, all_scores, margins = run(reprs, queries, ef, adaptive)
+    if adaptive and margins is not None:
+        reg = get_default_registry()
+        reg.histogram(
+            "quiver_beam_margin",
+            "per-query normalized k-th-neighbor score margin",
+            buckets=(-1.0, 0.0, 0.05, 0.1, 0.15, 0.2, 0.3, 0.5, 1.0),
+            window=0,
+        ).observe_many(np.asarray(margins, dtype=np.float64))
+        esc = np.nonzero(margins < margin_thr)[0]
+        if esc.size:
+            reg.counter(
+                "quiver_escalated_queries_total",
+                "tight-margin queries re-run at the escalated stage",
+                labels=("plan",),
+            ).inc(int(esc.size), plan=f"ef{ef}x{mult}")
+            take = torch.from_numpy(esc).to(reprs.device)
+            esc_ids, esc_scores, _ = run(reprs[take], queries[take],
+                                         ef * mult, False)
+            all_ids[esc] = esc_ids
+            all_scores[esc] = esc_scores
+    return all_ids, all_scores
 
 
 class BeamResult(NamedTuple):

@@ -145,6 +145,31 @@ def pairwise_distance(queries: Signature, base: Signature) -> torch.Tensor:
     return -symmetric_similarity_words(qp, qs, bp, bs, mask)
 
 
+def hamming_distance_1bit(a: Signature, b: Signature) -> torch.Tensor:
+    """1-bit SimHash Hamming distance (sign plane only), int32; padding
+    bits are 0 in both planes, so they never count."""
+    if a.dim != b.dim:
+        raise ValueError(f"dims differ: {a.dim} vs {b.dim}")
+    return popcount(a.pos ^ b.pos).sum(dim=-1, dtype=torch.int32)
+
+
+def pairwise_hamming_1bit(queries: Signature, base: Signature) -> torch.Tensor:
+    """(Q, 2W) x (N, 2W) signatures -> (Q, N) int32 Hamming distances."""
+    x = queries.pos[..., :, None, :] ^ base.pos[..., None, :, :]
+    return popcount(x).sum(dim=-1, dtype=torch.int32)
+
+
+def adc_distance(query_f32: torch.Tensor, base: Signature) -> torch.Tensor:
+    """Asymmetric distance -<q, decode(sig)>: (Q, D) float32 queries x
+    (N, 2W) signatures -> (Q, N) float32 (the §3.3 ablation baseline)."""
+    return -(query_f32 @ decode_levels(base).T)
+
+
+def distance_upper_bound(dim: int) -> int:
+    """Max possible |distance| value: every dim both-strong mismatched."""
+    return 4 * dim
+
+
 def signature_bytes(n: int, dim: int) -> int:
     """Hot-path signature memory for n vectors (paper Table 2 accounting)."""
     return n * 2 * n_words(dim) * 4

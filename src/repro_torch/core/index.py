@@ -4,19 +4,27 @@ Counterpart of ``repro/core/index.py``::
 
     float32 vectors --binarize--> 2-bit SM signatures        (hot)
                                    |
-                         bq2 Vamana build                    (hot)
+                         BQ-native Vamana build              (hot)
                                    |
     query --encode--> symmetric bq2 beam search              (hot)
                                    | top-ef candidates
                       float32 cosine rerank                  (cold)
 
+The graph is built in any registered metric space (bq2, bq1, adc,
+float32), or in the one the applicability probe picks
+(``build(nav="auto")``, ``repro_torch.probe``), and searched in any of them
+(``search(nav=...)``), or through the IVF list scan (``nav="ivf"``).
+
 The reference lowers ``search`` through compiled query plans
-(``repro.plan``); for an index with no probe policy and no filter that
-plan is beam search, then :func:`rerank`, and for ``nav="ivf"`` it is the
-IVF list scan (``repro_torch.ivf.scan_search``), then :func:`rerank`:
-that is what ``search`` runs here.  Other navigation families, filters,
-adaptive escalation and the plan cache wait for their parts of the port
-and raise ``NotImplementedError``.
+(``repro.plan``).  For an unfiltered search a plan is: the policy's
+schedule (``resolve_schedule``), beam search (or the IVF list scan), then
+:func:`rerank`, with :func:`beam_margin` at the nav backend's
+``neutral_dist``; an adaptive plan re-runs the tight-margin queries at
+``ef * escalate_mult`` (and ``probes * escalate_mult`` on the ivf route).
+That is what ``search`` runs here, through
+:func:`~repro_torch.core.beam.escalated_search`, without plans.  Filters,
+``replan`` and the plan cache wait for their parts of the port; ``filter``
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,12 +35,25 @@ import numpy as np
 import torch
 
 from repro_torch.core import bq
-from repro_torch.core.beam import beam_search
-from repro_torch.core.metric import MetricArrays, MetricSpace, make_backend
+from repro_torch.core.beam import beam_margin, beam_search, escalated_search
+from repro_torch.core.metric import (
+    MetricArrays,
+    MetricSpace,
+    make_backend,
+    normalize,
+    registered_kinds,
+)
 from repro_torch.core.vamana import BuildParams, BuildStats, build_graph
 from repro_torch.device import resolve_device
 from repro_torch.ivf import IVFPartition, build_partition, scan_search
 from repro_torch.kernels import dispatch
+from repro_torch.probe import (
+    CompatibilityReport,
+    NavPolicy,
+    probe_corpus,
+    resolve_schedule,
+    select_policy,
+)
 
 
 def as_float32(x, device) -> torch.Tensor:
@@ -40,11 +61,6 @@ def as_float32(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32)
     return torch.tensor(np.asarray(x), dtype=torch.float32, device=device)
-
-
-def normalize(x: torch.Tensor) -> torch.Tensor:
-    norm = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
-    return x / norm.clamp_min(1e-12)
 
 
 @dataclasses.dataclass
@@ -59,9 +75,15 @@ class QuIVerIndex:
     rotation: torch.Tensor | None = None
     build_stats: BuildStats | None = None
     metric_kind: str = "bq2"
+    # the probe report and nav policy chosen by ``build(nav="auto")`` (or
+    # the manual ivf policy of ``build(nav="ivf")``); both persist through
+    # save/load, and the policy drives ``search`` defaults
+    policy: NavPolicy | None = None
+    report: CompatibilityReport | None = None
     # the coarse partition, present when built with ``ivf_candidates`` or
     # attached by ``build_ivf``; enables ``nav="ivf"``
     ivf: IVFPartition | None = None
+    # one backend per nav kind, built on first use
     _backends: dict = dataclasses.field(
         default_factory=dict, repr=False, compare=False
     )
@@ -88,19 +110,35 @@ class QuIVerIndex:
         params: BuildParams | None = None,
         *,
         metric: str = "bq2",
+        nav: str | None = None,
+        probe_sample: int = 1024,
+        probe_seed: int = 0,
         rotation=None,
         keep_vectors: bool = True,
         verbose: bool = False,
         device=None,
     ) -> "QuIVerIndex":
-        """Build the index from (N, D) float32 ``vectors`` in ``metric``
-        space (only ``"bq2"`` so far).  ``rotation`` (optional, (D, D)) is
-        applied before encoding, as the reference's ``rotate_seed`` does
-        with its own random rotation; pass that matrix for parity.
-        ``device=None`` means the CUDA card."""
-        if metric != "bq2":
-            raise NotImplementedError(
-                f"metric={metric!r}: only bq2 is ported so far")
+        """Build the index from (N, D) float32 ``vectors``; ``metric``
+        (alias ``nav``) picks the space: a registered kind, ``"ivf"`` (a
+        bq2 graph plus a partition, served by the list scan) or ``"auto"``.
+
+        ``"auto"`` runs the applicability probe (``repro_torch.probe``) on
+        a ``probe_sample``-row slice of the encoded vectors and takes the
+        rung the verdict selects: green -> bq2 (ivf with a partition and
+        clustered data), amber -> bq2 with a doubled beam and adaptive
+        escalation, red -> float32 (adc without cold vectors).  The
+        :class:`NavPolicy` and :class:`CompatibilityReport` ride the index
+        through save/load and drive ``search`` defaults.
+
+        ``rotation`` (optional, (D, D)) is applied before encoding, as the
+        reference's ``rotate_seed`` does with its own random rotation;
+        pass that matrix for parity.  ``device=None`` means the CUDA card.
+        """
+        if nav is not None:
+            metric = nav
+        if metric not in (*registered_kinds(), "ivf", "auto"):
+            raise ValueError(f"unknown metric {metric!r}; expected one of "
+                             f"{registered_kinds()}, 'ivf' or 'auto'")
         params = params or BuildParams()
         if params.prune_pool > params.ef_construction:
             raise ValueError("prune_pool must not exceed ef_construction")
@@ -110,16 +148,35 @@ class QuIVerIndex:
         if rotation is not None:
             rotation = as_float32(rotation, device)
             encoded = vectors @ rotation
+        policy = report = None
+        if metric == "auto":
+            # probe the encoding the index will serve: the bit-plane
+            # statistics and the BQ agreement belong to the (possibly
+            # rotated) signatures
+            report = probe_corpus(encoded, sample=probe_sample,
+                                  seed=probe_seed, device=device)
+            policy = select_policy(report, have_vectors=keep_vectors,
+                                   have_ivf=params.ivf_candidates)
+            metric = policy.nav
+            if verbose:
+                print(f"[probe] {report.summary()} -> {policy.describe()}")
+        if metric == "ivf":
+            # a nav family over a bq2 graph and a partition, not a build
+            # metric; the policy carries the default
+            if policy is None:
+                policy = NavPolicy(nav="ivf", source="manual")
+            metric = "bq2"
         sigs = bq.encode(encoded)
         ivf = None
-        if params.ivf_candidates:
+        if params.ivf_candidates or (policy is not None
+                                     and policy.nav == "ivf"):
             ivf = build_partition(sigs, n_lists=params.ivf_lists or None,
                                   seed=params.seed)
         backend = make_backend(metric, MetricArrays(sigs=sigs,
                                                     vectors=vectors))
         adj, medoid, stats = build_graph(backend, params, ivf=ivf,
                                          verbose=verbose)
-        index = cls(
+        return cls(
             sigs=sigs,
             adjacency=adj,
             medoid=medoid,
@@ -128,10 +185,10 @@ class QuIVerIndex:
             rotation=rotation,
             build_stats=stats,
             metric_kind=metric,
+            policy=policy,
+            report=report,
             ivf=ivf,
         )
-        index._backends[metric] = backend
-        return index
 
     def build_ivf(self, *, n_lists: int | None = None,
                   seed: int | None = None) -> IVFPartition:
@@ -164,62 +221,88 @@ class QuIVerIndex:
 
         With ``rerank=True`` (and cold vectors present) scores are float32
         cosine similarity; otherwise they are negated navigation
-        distances (``sim - 4D`` for bq2), as in the reference.
+        distances on the nav backend's own scale (``sim - 4D`` for bq2),
+        as in the reference.
 
-        ``nav="ivf"`` scans the centroid signatures, gathers the members
-        of the ``probes`` nearest lists (default: the partition's
-        ``default_probes``), keeps the best ``ef`` in bq2 space and
-        reranks: no graph traversal.
+        ``nav`` defaults to the index's policy, else its build metric; any
+        registered kind navigates the same graph (queries are rotated for
+        the signature kinds, never for float32).  ``nav="ivf"`` scans the
+        centroid signatures, gathers the members of the ``probes`` nearest
+        lists (default: the partition's ``default_probes``), keeps the
+        best ``ef`` in bq2 space and reranks: no graph traversal.
+        ``probes`` is read only on that route.
+
+        With ``nav`` left at its default, the policy's schedule applies:
+        ``ef`` is multiplied by ``policy.ef_scale`` and ``adaptive``
+        defaults to the policy's.  ``adaptive=True`` re-runs the queries
+        whose top-k margin (:func:`beam_margin`) is below the schedule's
+        ``escalate_margin`` at ``ef * escalate_mult`` (and, on the ivf
+        route, ``probes * escalate_mult``).
         """
-        ivf = nav == "ivf"
+        if filter is not None:
+            raise NotImplementedError("filtered search is not ported yet")
+        ef, adaptive, sched = resolve_schedule(self.policy, nav, ef,
+                                               adaptive)
+        kind = nav or (self.policy.nav if self.policy is not None
+                       else self.metric_kind)
+        ivf = kind == "ivf"
         if ivf and self.ivf is None:
             raise ValueError(
                 "nav='ivf' needs a coarse partition: build with "
                 "BuildParams(ivf_candidates=True) or call build_ivf()"
             )
-        if not ivf and nav not in (None, self.metric_kind):
-            raise NotImplementedError(f"nav={nav!r} is not ported yet")
-        if filter is not None:
-            raise NotImplementedError("filtered search is not ported yet")
-        if adaptive:
-            raise NotImplementedError("adaptive escalation is not ported yet")
-        if probes is not None and not ivf:
-            # the reference reads probes without nav="ivf" only from an
-            # ivf navigation policy, which is not ported
-            raise NotImplementedError("probes without nav='ivf' (a navigation "
-                                      "policy) is not ported yet")
         if k > ef:
             raise ValueError(f"k={k} exceeds ef={ef}")
-        backend = self.backend()
+        # the ivf family scores its candidates in bq2 space
+        backend = self.backend("bq2" if ivf else kind)
         queries = normalize(as_float32(queries, self.device))
         if queries.ndim == 1:
             queries = queries[None]
-        enc_in = queries if self.rotation is None else queries @ self.rotation
+        enc_in = queries
+        if self.rotation is not None and backend.kind != "float32":
+            enc_in = queries @ self.rotation
         reprs = backend.encode_queries(enc_in)
         vectors = self.vectors if rerank else None
         n = self.sigs.words.shape[0]
         if ivf:
-            p_eff = ivf_probes(self.ivf, k, probes)
+            probes = ivf_probes(self.ivf, k, probes)
             scan = dispatch.list_scan_ops(self.sigs.dim, self.device).scan
-        out_ids, out_scores = [], []
-        for s in range(0, queries.shape[0], query_batch):
+
+        def run(reprs, queries, ef_run, want_margin):
             if ivf:
-                cand_ids, cand_dists = scan_search(
-                    backend, scan, reprs[s:s + query_batch],
-                    self.ivf.cent_words, self.ivf.list_ids,
-                    probes=p_eff, ef=ef,
-                )
-            else:
-                res = beam_search(
-                    reprs[s:s + query_batch], self.adjacency, self.medoid,
-                    dist_fn=backend.dist_many, ef=ef, n=n, expand=expand,
-                )
-                cand_ids, cand_dists = res.ids, res.dists
-            ids, scores = _rerank(cand_ids, cand_dists,
-                                  queries[s:s + query_batch], vectors, k)
-            out_ids.append(ids.cpu().numpy())
-            out_scores.append(scores.cpu().numpy())
-        return np.concatenate(out_ids), np.concatenate(out_scores)
+                # the escalated stage widens the list fan-in by the same
+                # multiple as the pool
+                p_run = ivf_probes(self.ivf, k, probes * (ef_run // ef))
+            out_ids, out_scores, out_margins = [], [], []
+            for s in range(0, queries.shape[0], query_batch):
+                if ivf:
+                    cand_ids, cand_dists = scan_search(
+                        backend, scan, reprs[s:s + query_batch],
+                        self.ivf.cent_words, self.ivf.list_ids,
+                        probes=p_run, ef=ef_run,
+                    )
+                else:
+                    res = beam_search(
+                        reprs[s:s + query_batch], self.adjacency,
+                        self.medoid, dist_fn=backend.dist_many, ef=ef_run,
+                        n=n, expand=expand,
+                    )
+                    cand_ids, cand_dists = res.ids, res.dists
+                ids, scores = _rerank(cand_ids, cand_dists,
+                                      queries[s:s + query_batch], vectors, k)
+                out_ids.append(ids.cpu().numpy())
+                out_scores.append(scores.cpu().numpy())
+                if want_margin:
+                    out_margins.append(beam_margin(
+                        cand_dists, k, backend.neutral_dist).cpu().numpy())
+            margins = np.concatenate(out_margins) if want_margin else None
+            return (np.concatenate(out_ids), np.concatenate(out_scores),
+                    margins)
+
+        return escalated_search(
+            run, reprs, queries, ef, adaptive=adaptive,
+            margin_thr=sched.escalate_margin, mult=sched.escalate_mult,
+        )
 
     # -- accounting (paper Table 2) -----------------------------------------
 
@@ -231,7 +314,7 @@ class QuIVerIndex:
         ivf_bytes = self.ivf.memory_bytes() if self.ivf is not None else 0
         cold = self.vectors.numel() * 4 if self.vectors is not None else 0
         hot = sig_bytes + adj_bytes + ivf_bytes
-        return {
+        out = {
             "hot_signature_bytes": int(sig_bytes),
             "hot_adjacency_bytes": int(adj_bytes),
             "hot_label_bytes": 0,
@@ -241,6 +324,14 @@ class QuIVerIndex:
             "host_shadow_bytes": 0,
             "total_bytes": int(hot + cold),
         }
+        if self.policy is not None:
+            # the serving policy beside the bytes it costs: a red-zone
+            # float32 ladder puts the "cold" tier on the hot path
+            out["nav_policy"] = self.policy.describe()
+            out["probe_verdict"] = (
+                self.report.verdict if self.report is not None else "n/a"
+            )
+        return out
 
     # -- persistence ---------------------------------------------------------
 

@@ -148,7 +148,7 @@ def build_graph(
     """
     t0 = time.perf_counter()
     n = backend.n
-    dev = backend.sigs.words.device
+    dev = backend.device
     stats = BuildStats()
     if init_adjacency is None:
         adj = _init_graph(n, params, params.seed, dev)
@@ -164,6 +164,11 @@ def build_graph(
             backend, _centroid_repr(backend), chunk=4096))
 
     if params.ivf_candidates:
+        if not hasattr(backend, "sigs"):
+            raise ValueError(
+                "ivf_candidates needs a signature-bearing build metric "
+                "(bq2/bq1/adc); float32 builds must beam-search"
+            )
         if ivf is None:
             ivf = build_partition(backend.sigs,
                                   n_lists=params.ivf_lists or None,
@@ -275,13 +280,15 @@ def build_graph(
 
 
 def _centroid_repr(backend) -> torch.Tensor:
-    """Centroid query representation for medoid selection: decode the
+    """Centroid query representation for medoid selection: the encoded
+    mean of the cold vectors for a float32 backend; otherwise decode the
     signatures to +-1/+-2 levels, average, re-encode.  The level sums are
-    whole numbers below 2**24, so they are exact in any order; the mean
+    whole numbers below 2**24, so they are exact in any order; either mean
     multiplies by the float32 reciprocal of N, as ``jnp.mean`` does."""
-    levels = bq.decode_levels(backend.sigs)
-    inv_n = float(np.float32(1) / np.float32(levels.shape[0]))
-    c = levels.sum(dim=0, keepdim=True) * inv_n
+    rows = backend.vectors if backend.kind == "float32" \
+        else bq.decode_levels(backend.sigs)
+    inv_n = float(np.float32(1) / np.float32(rows.shape[0]))
+    c = rows.sum(dim=0, keepdim=True) * inv_n
     return backend.encode_queries(c)[0]
 
 

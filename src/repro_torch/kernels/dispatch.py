@@ -1,4 +1,4 @@
-"""Kernel dispatch: one owner for every bq2 distance evaluation.
+"""Kernel dispatch: one owner for every BQ distance evaluation.
 
 Counterpart of ``repro/kernels/dispatch.py``.  The metric backend in
 ``repro_torch.core.metric`` binds its primitives here once, at
@@ -8,11 +8,16 @@ launch the hand-written kernels of ``repro_torch.kernels.bq_distance``,
 CPU tensors take their plain versions.
 
 Both metric primitives are gather-fused (they take row ids into the
-``(N, 2W)`` table) and return **int32 similarities**; the backend applies
-its own non-negative distance calibration on top:
+``(N, 2W)`` table) and return **int32 similarities** (Table-1 weighted sums
+for bq2, negated Hamming for bq1); the backend applies its own
+non-negative distance calibration on top:
 
 * ``dist_rows(q (B, 2W), ids (B, K), table)`` -> ``(B, K)``
+  (bq1: ``q (B, W)``, the query's sign plane)
 * ``pairwise(ids (B, C), table)``            -> ``(B, C, C)``
+
+:func:`bq2_ops` binds ``repro_torch.kernels.bq_distance``, :func:`bq1_ops`
+``repro_torch.kernels.hamming``.
 
 The IVF layer's coarse routing has its own primitive, bound by
 :func:`list_scan_ops` to ``repro_torch.kernels.list_scan``:
@@ -27,13 +32,13 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.core import bq
-from repro_torch.kernels import bq_distance, list_scan
+from repro_torch.kernels import bq_distance, hamming, list_scan
 
 
 class MetricOps(NamedTuple):
     """Distance primitives bound to one signature dimensionality."""
 
-    dist_rows: Callable  # (B, 2W) x (B, K) ids -> (B, K) int32 sim
+    dist_rows: Callable  # (B, 2W | W) x (B, K) ids -> (B, K) int32 sim
     pairwise: Callable   # (B, C) ids -> (B, C, C) int32 sim
 
 
@@ -59,4 +64,16 @@ def list_scan_ops(dim: int, device: torch.device | str) -> ListScanOps:
     mask = bq.valid_mask(dim, device=device)
     return ListScanOps(
         scan=lambda q, cent_words: list_scan.scan(q, cent_words, mask),
+    )
+
+
+def bq1_ops(dim: int, device: torch.device | str) -> MetricOps:
+    """Bind the 1-bit Hamming primitives for ``dim``, as negated-distance
+    similarities.  ``dim`` and ``device`` are taken for symmetry with
+    :func:`bq2_ops`: the sign plane needs no valid-bit mask, and each
+    primitive follows its table's device."""
+    del dim, device
+    return MetricOps(
+        dist_rows=lambda q, ids, table: -hamming.dist_rows(q, ids, table),
+        pairwise=lambda ids, table: -hamming.pairwise(ids, table),
     )

@@ -20,7 +20,9 @@ from repro_torch.data.datasets import make_dataset
 from repro_torch.kernels import binarize as kb
 from repro_torch.kernels import bq_distance as kd
 from repro_torch.kernels import build
+from repro_torch.kernels import hamming as kh
 from repro_torch.kernels import list_scan as kl
+from repro_torch.probe import probe_corpus
 
 pytestmark = pytest.mark.cuda
 # the suite runs in parallel worker processes: one thread each
@@ -96,6 +98,61 @@ def test_list_scan_matches_plain(cuda, dim, n_lists, n_q):
     assert torch.equal(got, kl.scan_plain(q, cent, mask))
 
 
+@pytest.mark.parametrize("dim", [64, 100, 384, 768, 1536])
+@pytest.mark.parametrize("b,k", [(256, 72), (13, 777)])
+def test_hamming_dist_rows_matches_plain(cuda, dim, b, k):
+    table = _table(5000, dim, dim + k, cuda)
+    g = torch.Generator().manual_seed(k)
+    ids = torch.randint(0, 5000, (b, k), generator=g,
+                        dtype=torch.int32).to(cuda)
+    w = table.shape[1] // 2
+    q = table[torch.randint(0, 5000, (b,), generator=g).to(cuda), :w]
+    q = q.contiguous()
+    build.reset_launches()
+    got = kh.dist_rows(q, ids, table)
+    assert build.LAUNCHES["hamming_dist_rows"] == 1
+    assert torch.equal(got, kh.dist_rows_plain(q, ids, table))
+
+
+@pytest.mark.parametrize("dim", [64, 100, 768, 1536, 3072])
+@pytest.mark.parametrize("c", [37, 128])
+def test_hamming_pairwise_matches_plain(cuda, dim, c):
+    table = _table(5000, dim, dim + c, cuda)
+    ids = torch.randint(0, 5000, (64, c),
+                        generator=torch.Generator().manual_seed(c),
+                        dtype=torch.int32).to(cuda)
+    build.reset_launches()
+    got = kh.pairwise(ids, table)
+    assert build.LAUNCHES["hamming_pairwise"] == 1
+    assert torch.equal(got, kh.pairwise_plain(ids, table))
+
+
+def test_card_bq1_build_equals_cpu_build(cuda):
+    base, queries = make_dataset("minilm-surrogate", 1500, queries=50)
+    params = BuildParams(m=8, ef_construction=48, prune_pool=48, chunk=128)
+    build.reset_launches()
+    gpu = QuIVerIndex.build(base, params, metric="bq1", device=cuda)
+    g_ids, _ = gpu.search(queries, k=10, ef=64, rerank=False)
+    assert build.LAUNCHES["hamming_dist_rows"] > 0
+    assert build.LAUNCHES["hamming_pairwise"] > 0
+    cpu = QuIVerIndex.build(base, params, metric="bq1", device="cpu")
+    c_ids, _ = cpu.search(queries, k=10, ef=64, rerank=False)
+    assert torch.equal(gpu.adjacency.cpu(), cpu.adjacency)
+    assert gpu.medoid == cpu.medoid
+    np.testing.assert_array_equal(g_ids, c_ids)
+
+
+def test_card_probe_equals_cpu_probe(cuda):
+    base, _ = make_dataset("glove-like", 3000, queries=0)
+    build.reset_launches()
+    gpu = probe_corpus(base, device=cuda)
+    assert build.LAUNCHES["list_scan"] == 1
+    cpu = probe_corpus(base, device="cpu")
+    assert gpu.verdict == cpu.verdict
+    assert gpu.bq_agreement == cpu.bq_agreement
+    assert gpu.margin_p30 == cpu.margin_p30
+
+
 def test_empty_batches_launch_cleanly(cuda):
     table = _table(10, 100, 0, cuda)
     mask = bq.valid_mask(100, device=cuda)
@@ -105,6 +162,8 @@ def test_empty_batches_launch_cleanly(cuda):
     assert kb.binarize(torch.zeros((0, 100), device=cuda)).shape == (0, 8)
     assert kl.scan(table[:0], table, mask).shape == (0, 10)
     assert kl.scan(table, table[:0], mask).shape == (10, 0)
+    assert kh.dist_rows(table[:0, :4], ids, table).shape == (0, 5)
+    assert kh.pairwise(ids, table).shape == (0, 5, 5)
 
 
 def test_card_build_equals_cpu_build(cuda):

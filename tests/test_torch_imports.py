@@ -40,6 +40,9 @@ def test_every_module_imports_without_jax_or_repro():
     assert "repro_torch.kernels.bq_distance" in mods
     assert "repro_torch.kernels.list_scan" in mods
     assert {"repro_torch.ivf.partition", "repro_torch.ivf.search"} <= set(mods)
+    assert {"repro_torch.kernels.hamming", "repro_torch.probe.diagnostics",
+            "repro_torch.probe.incremental", "repro_torch.probe.policy",
+            "repro_torch.probe.report"} <= set(mods)
     _run_fresh(
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -55,7 +58,9 @@ def test_importing_builds_no_kernel():
 
 
 def test_no_source_imports_jax_or_repro():
-    for path in SRC.rglob("*.py"):
+    smoke = SRC.parents[1] / "chip_smoke.py"
+    assert smoke.is_file()
+    for path in [*SRC.rglob("*.py"), smoke]:
         text = path.read_text()
         for needle in ("import jax", "from jax", "from repro.",
                        "import repro."):

@@ -124,15 +124,47 @@ def test_convert_round_trips_the_archive(ref):
 
 @pytest.mark.parametrize("extra", [
     {"label_words": np.zeros((N, 1), np.uint32)},
-    {"policy_nav": np.array("bq2")},
-    {"probe_cos_mean": np.float64(0.1)},
     {"graph_out_degree_mean": np.float64(4.0)},
     {"stream_format": np.int64(1)},
-    {"metric_kind": np.array("float32")},
 ], ids=lambda e: next(iter(e)))
 def test_unported_archive_state_is_refused(ref, extra):
     with pytest.raises(NotImplementedError):
         convert.index_from_numpy({**ref["fields"], **extra}, "cpu")
+
+
+def _policy_fields():
+    from repro.probe import NavPolicy as JaxPolicy
+    return JaxPolicy(nav="bq2", ef_scale=2, adaptive=True,
+                     escalate_margin=0.2, source="probe").to_npz_fields()
+
+
+def _report_fields(base):
+    from repro.probe import probe_corpus as jax_probe_corpus
+    return jax_probe_corpus(base, sample=256).to_npz_fields()
+
+
+# archive state the ladder slice ported: each loads, round-trips and
+# searches as the reference's load of the same fields does
+@pytest.mark.parametrize("extra", [
+    "policy_nav", "probe_cos_mean", "metric_kind",
+])
+def test_ladder_archive_state_loads_as_in_reference(ref, extra, tmp_path):
+    extra = {"policy_nav": _policy_fields,
+             "probe_cos_mean": lambda: _report_fields(ref["base"]),
+             "metric_kind": lambda: {"metric_kind": np.array("float32")},
+             }[extra]()
+    fields = {**ref["fields"], **extra}
+    index = convert.index_from_numpy(fields, "cpu")
+    back = convert.index_to_numpy(index)
+    assert set(back) == set(fields)
+    for key, value in fields.items():
+        np.testing.assert_array_equal(back[key], value, err_msg=key)
+    path = tmp_path / "jax.npz"
+    np.savez_compressed(path, **fields)
+    jindex = JaxIndex.load(str(path))
+    jids, jscores = jindex.search(jnp.asarray(ref["queries"]), k=10, ef=32)
+    ids, scores = index.search(ref["queries"], k=10, ef=32)
+    assert_ids_match(ids, np.asarray(jids), scores, np.asarray(jscores))
 
 
 def test_entry_points_need_a_card_unless_told_cpu(ref, monkeypatch):
@@ -145,13 +177,25 @@ def test_entry_points_need_a_card_unless_told_cpu(ref, monkeypatch):
         flat_search(ref["base"], ref["queries"], 10)
 
 
-@pytest.mark.parametrize("kw", [
-    {"nav": "bq1"}, {"filter": 3}, {"adaptive": True}, {"probes": 4},
-], ids=lambda kw: next(iter(kw)))
+@pytest.mark.parametrize("kw", [{"filter": 3}],
+                         ids=lambda kw: next(iter(kw)))
 def test_unported_search_options_raise(ref, kw):
     index = convert.index_from_numpy(ref["fields"], "cpu")
     with pytest.raises(NotImplementedError):
         index.search(ref["queries"][:2], **kw)
+
+
+# search options the ladder slice ported (they raised before): the same
+# kwargs on the same JAX-built index in both packages
+@pytest.mark.parametrize("kw", [
+    {"nav": "bq1"}, {"adaptive": True}, {"probes": 4},
+], ids=lambda kw: next(iter(kw)))
+def test_ladder_search_options_match_reference(ref, kw):
+    index = convert.index_from_numpy(ref["fields"], "cpu")
+    jids, jscores = ref["index"].search(jnp.asarray(ref["queries"]), k=10,
+                                        ef=64, **kw)
+    ids, scores = index.search(ref["queries"], k=10, ef=64, **kw)
+    assert_ids_match(ids, np.asarray(jids), scores, np.asarray(jscores))
 
 
 def test_k_above_ef_raises(ref):

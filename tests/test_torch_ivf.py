@@ -35,6 +35,7 @@ from repro_torch.core.baselines import flat_search, recall_at_k
 from repro_torch.core.index import QuIVerIndex, ivf_probes
 from repro_torch.data.datasets import make_dataset
 from repro_torch.ivf import IVFPartition, build_partition
+from repro_torch.ivf.partition import majority_words
 from repro_torch.ivf import search as psearch
 from repro_torch.kernels import build, dispatch, list_scan
 from repro_torch.obs.metrics import MetricsRegistry
@@ -149,6 +150,38 @@ def test_partition_matches_reference(ref, seed, balance):
         == (want.cap, want.n_lists, want.dim, want.seed)
     assert (got.default_probes, got.build_probes) \
         == (want.default_probes, want.build_probes)
+
+
+# glove-like cases where the port's encode of the majority centroids (the
+# binarize kernel's order) set other strong bits than the reference
+@pytest.mark.parametrize("n,seed", [(1500, 0), (3000, 1)])
+def test_partition_matches_reference_at_threshold_ties(n, seed):
+    """A majority centroid's mean |x| can equal one of its entries exactly
+    (a mean of levels is made of multiples of 1/count): its strong bits
+    then follow the reference's summation order of tau."""
+    base, _ = make_dataset("glove-like", n)
+    base = base / np.linalg.norm(base, axis=1, keepdims=True)
+    words = jbq.encode(jnp.asarray(base)).words
+    want = jax_build_partition(jbq.Signature(words, base.shape[1]),
+                               seed=seed, route="ref")
+    got = build_partition(bq.Signature(_t(words), base.shape[1]), seed=seed)
+    np.testing.assert_array_equal(got.cent_words.numpy(),
+                                  np.asarray(want.cent_words).view(np.int32))
+    for field in ("cent_ids", "assign", "offsets", "member_ids"):
+        np.testing.assert_array_equal(getattr(got, field),
+                                      getattr(want, field), err_msg=field)
+
+
+@pytest.mark.parametrize("dim", [17, 33, 100, 384, 768, 1536, 3072])
+def test_majority_words_match_reference_encode(dim):
+    """The majority centroids' encode sums tau as XLA does on the CPU: equal
+    words, ties at |x| = tau included (levels averaged over 31 rows)."""
+    rng = np.random.default_rng(dim)
+    levels = rng.choice(np.float32([-2, -1, 1, 2]), size=(2000, 31, dim))
+    mean = levels.sum(axis=1) / np.float32(31)
+    want = np.asarray(jbq.encode(jnp.asarray(mean)).words)
+    got = majority_words(torch.from_numpy(mean))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
 
 
 def test_build_partition_matches_the_index_partition(ref, port_index):
