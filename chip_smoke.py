@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases build,kernels,ivf
     python3 chip_smoke.py --phases build,kernels,ladder
+    python3 chip_smoke.py --phases build,kernels,rag
     python3 chip_smoke.py --phases build,profile      # opt-in breakdown
 
 Phases, in order; any failure raises and the script exits nonzero:
@@ -20,16 +21,28 @@ Phases, in order; any failure raises and the script exits nonzero:
               ``list_scan`` (D in {100, 384, 768, 1536, 3072}, L in {45,
               316, 1000}, Q in {256, 8193}), ``hamming_dist_rows`` and
               ``hamming_pairwise`` (D in {64, 100, 384, 768, 1536}, ragged
-              B, K and C); all exactly equal.  Then each kernel's, its plain
-              version's and (for the distance kernels) one PyTorch matmul's
-              time on those main-path inputs: device time and stream time
-              (see ``time_ms``).
+              B, K and C); all exactly equal.  ``flash_attention`` at the
+              RAG path's shapes (hd = 64, H = K = 36, causal: embed 64
+              docs x T = 64; prefill B = 8, Tq = 320 over a 384-row cache;
+              decode B = 8, Tq = 1 at q_offset 320 and 351), with GQA
+              (H = 8, K = 2) and hd in {16, 32, 128} at small shapes,
+              float32 within 2e-3 and bf16 within 2e-2 of its plain
+              version.  Then each kernel's, its plain version's and one
+              PyTorch call's time (a matmul for the distance kernels,
+              ``scaled_dot_product_attention`` for flash) on those
+              main-path inputs: device time and stream time (see
+              ``time_ms``).
 3. parity   — the same N = 4000 builds and searches on ``device="cpu"`` and
               on the card, beam-searched and IVF-seeded: identical
               partition, adjacency, medoid and candidate ids; and
               ``build(nav="auto")`` on sift-like (red: float32 x4) and on
               cohere-surrogate (green: bq2): equal policies, ids matched by
-              ``ids_match``.
+              ``ids_match``; and ``minicpm-2b`` at full width and 2 layers,
+              drawn on the CPU and copied to the card: 2 prompts of 48
+              tokens, prefill and 8 greedy decode steps (the card fed the
+              CPU's tokens), every logit within 0.1 and equal argmax
+              where the CPU's top-2 gap exceeds 0.2, mean-pooled
+              embeddings at cosine >= 0.999.
 4. main     — the main path at deployment size: cohere-surrogate (768-d),
               N = 100 000, 1 000 queries, ``BuildParams()`` defaults;
               build, search at k = 10, ef = 64, recall@10 against exact
@@ -55,13 +68,27 @@ Phases, in order; any failure raises and the script exits nonzero:
               policies must agree, and must be green, red, red.  Launch
               counts as in 4; both hamming entry points and ``list_scan``
               must have launched.
-An opt-in seventh phase, ``profile``, is not run by default: it profiles a
+7. rag      — LM serving with RAG: ``minicpm-2b`` at full width and depth
+              (40 layers, d 2304, 36 heads, vocab 122 880, bf16, weights
+              drawn from seed 0) on the card; embed 8 192 + 256 seeded
+              documents of 64 tokens with ``mean_pool_embedder`` (batches
+              of 64), build a ``QuIVerIndex`` (``BuildParams()``) over the
+              8 192, probe it, recall@10 at ef = 64 of the 256 held-out
+              documents against ``flat_search`` (printed, not gated); then
+              8 prompts of 64 tokens through ``Retriever(k=4, ef=64)`` and
+              ``ServeEngine.generate`` (prefill T = 320, ``max_seq`` 384,
+              32 greedy tokens), twice, with identical tokens; every
+              retrieved id in range and every context row the document's
+              tokens.  Launch counts are reset before each step and read
+              after it: ``flash_attention`` launches 40 times a call of
+              embed, prefill and decode, and the bq kernels in the build.
+An opt-in eighth phase, ``profile``, is not run by default: it profiles a
 few build chunks at the main path's size with ``torch.profiler`` and
 prints the device's busy share and device time by kernel.
 
 The last three lines of standard output are the card's name and power
 limit (``nvidia-smi``), one JSON line of per-kernel numbers (``launches``
-sums phases 4, 5 and 6), and
+sums phases 4, 5, 6 and 7), and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits nonzero and prints no result.
 """
@@ -77,15 +104,17 @@ from functools import partial
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "parity", "main", "ivf", "ladder")
+PHASES = ("build", "kernels", "parity", "main", "ivf", "ladder", "rag")
 OPT_IN = ("profile",)
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the float32
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the float32
 # CUDA-core rate, used as the rate of the kernels' integer and logic
 # operations (Hopper issues int32 at no more than that rate, so the bound
-# derived from it is a lower bound)
+# derived from it is a lower bound), and the dense bf16 tensor-core rate,
+# the bound of attention's products
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
+TENSOR_FLOPS_PER_S = 989e12
 # integer operations per word pair of the Table-1 similarity: 8 to form
 # the planes, 6 ANDs, 6 popcounts, 6 adds
 OPS_PER_WORD_PAIR = 26
@@ -114,9 +143,10 @@ def clocks() -> str:
     return nvidia_smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu")
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float,
+          ops_per_s: float = CORE_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / CORE_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -320,6 +350,7 @@ def phase_kernels(torch) -> dict:
             "log_only": key != "list_scan",
         }
     out.update(hamming_kernels(torch, g))
+    out.update(flash_kernels(torch))
     torch.cuda.synchronize()
     return out
 
@@ -412,6 +443,97 @@ def hamming_kernels(torch, g) -> dict:
     return out
 
 
+def flash_bound(b, tq, h, kvh, hd, causal, q_offset, valid, elem):
+    """(ms, "bytes" or "operations") for one attention call: 4 hd flops for
+    each visible (row, key) pair at the bf16 tensor-core rate, against Q,
+    the visible K/V rows and O moved once."""
+    rows = [min(valid, q_offset + i + 1) if causal else valid
+            for i in range(tq)]
+    flops = 4 * hd * sum(rows) * b * h
+    nbytes = elem * hd * (2 * b * tq * h + 2 * b * kvh * max(rows))
+    return bound(nbytes, flops, TENSOR_FLOPS_PER_S)
+
+
+def flash_kernels(torch) -> dict:
+    """``flash_attention`` against its plain version (float32 within 2e-3,
+    bf16 within 2e-2) at the RAG path's shapes, GQA and other head widths;
+    the numbers at the three main shapes in bf16, with
+    ``scaled_dot_product_attention`` on the same inputs as the library
+    call."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from repro_torch.kernels import flash_attention as kf
+
+    # (label, b, tq, tk, h, kv heads, hd, q_offset, kv_valid_len)
+    cases = [
+        ("embed", 64, 64, 64, 36, 36, 64, 0, 64),
+        ("prefill", 8, 320, 384, 36, 36, 64, 0, 320),
+        ("decode", 8, 1, 384, 36, 36, 64, 320, 321),
+        ("decode", 8, 1, 384, 36, 36, 64, 351, 352),
+        ("gqa", 2, 100, 128, 8, 2, 64, 0, 100),
+        ("gqa decode", 4, 1, 96, 8, 2, 64, 60, 61),
+        ("hd16", 2, 70, 70, 4, 2, 16, 0, 70),
+        ("hd32", 2, 70, 96, 4, 4, 32, 0, 70),
+        ("hd128", 2, 70, 70, 4, 4, 128, 0, 70),
+    ]
+    g = torch.Generator(device="cuda").manual_seed(14)
+    out = {}
+    for label, b, tq, tk, h, kvh, hd, q_offset, valid in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((b, tq, h, hd), generator=g, device="cuda",
+                            dtype=dtype)
+            k = torch.randn((b, tk, kvh, hd), generator=g, device="cuda",
+                            dtype=dtype)
+            v = torch.randn((b, tk, kvh, hd), generator=g, device="cuda",
+                            dtype=dtype)
+            kw = dict(causal=True, q_offset=q_offset, kv_valid_len=valid)
+            got = kf.flash_attention(q, k, v, **kw)
+            want = kf.flash_attention_plain(q, k, v, **kw)
+            err = float((got.float() - want.float()).abs().max())
+            if dtype == torch.float32:
+                ok = torch.allclose(got, want, rtol=2e-3, atol=2e-3)
+            else:
+                ok = err <= 2e-2
+            if not ok:
+                raise AssertionError(
+                    f"flash_attention {label} {dtype} differs by {err}")
+            log(f"  flash_attention {label} B={b} Tq={tq} Tk={tk} H={h} "
+                f"K={kvh} hd={hd} q_offset={q_offset} kv_valid={valid} "
+                f"{str(dtype)[6:]}: max |err| {err:.2e}")
+            main = label in ("embed", "prefill") or (label == "decode"
+                                                     and q_offset == 351)
+            if not (main and dtype == torch.bfloat16):
+                continue
+            # the library call: SDPA on (B, H, T, hd) views of the same
+            # tensors, over the visible keys (q_offset 0 is top-left causal)
+            qt = q.transpose(1, 2)
+            kt, vt = k[:, :valid].transpose(1, 2), v[:, :valid].transpose(1, 2)
+            lib = partial(sdpa, qt, kt, vt, is_causal=label != "decode")
+            lib_err = float((lib().transpose(1, 2).float()
+                             - got.float()).abs().max())
+            if lib_err > 2e-2:
+                raise AssertionError(f"SDPA disagrees with flash_attention "
+                                     f"at {label} by {lib_err}")
+            b_ms, b_by = flash_bound(b, tq, h, kvh, hd, True, q_offset, valid,
+                                     2)
+            key = "flash_attention" if label == "embed" \
+                else f"flash_attention_{label}"
+            out[key] = {
+                "name": "flash_attention", "route": "cuda",
+                "source": "src/repro_torch/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:28",
+                "max_abs_err": err,
+                "fns": (partial(kf.flash_attention, q, k, v, **kw),
+                        partial(kf.flash_attention_plain, q, k, v, **kw),
+                        lib),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "shape": [label, b, tq, tk, h, hd, q_offset, valid],
+                # prefill and decode are logged, not in the kernels line
+                "log_only": label != "embed",
+            }
+    return out
+
+
 def check_library(name: str, result, kernel_out) -> None:
     """The library call computes the kernel's function: the same integers."""
     if not bool((result.round().int() == kernel_out).all()):
@@ -427,8 +549,8 @@ def phase_times(torch, kernels: dict) -> None:
         rec["plain_ms"], rec["plain_stream_ms"] = time_ms(torch, plain,
                                                           reps=3)
         rec["library_ms"] = time_ms(torch, library)[0] if library else None
-        lib = (f", library (one matmul) device {rec['library_ms']:.4f} ms"
-               if library else "")
+        lib = (f", library (one PyTorch call) device "
+               f"{rec['library_ms']:.4f} ms" if library else "")
         log(f"  {rec['name']} at {rec['shape']}: device {rec['ms']:.4f} ms "
             f"(stream-timed {rec['stream_ms']:.4f}), plain device "
             f"{rec['plain_ms']:.4f} ms (stream-timed "
@@ -491,6 +613,80 @@ def phase_parity(torch) -> None:
         f"ids identical up to {tied} rows of scores within 1e-6")
     for name, want in (("sift-like", "float32"), ("cohere-surrogate", "bq2")):
         parity_auto(torch, name, want, params)
+    parity_lm(torch)
+
+
+def parity_lm(torch) -> None:
+    """``minicpm-2b`` at full width and 2 layers, bf16, drawn on the CPU and
+    copied to the card: 2 prompts of 48 tokens, prefill and 8 greedy decode
+    steps on each (the card fed the CPU's tokens, so every step compares
+    like with like); every logit within 0.1 (bf16 products round at other
+    places on the two devices), equal argmax where the CPU's top-2 gap
+    exceeds 0.2, and mean-pooled embeddings at cosine >= 0.999."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.serve.engine import mean_pool_embedder
+
+    cfg = dataclasses.replace(get_config("minicpm-2b"), n_layers=2)
+    bundle = build_model(cfg)
+    t0 = time.perf_counter()
+    cpu = bundle.init(0, device="cpu")
+    gpu = DecoderLM(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    log(f"  minicpm-2b x 2 layers drawn on the CPU and copied: "
+        f"{time.perf_counter() - t0:.1f} s")
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 48)).astype(np.int32)
+
+    def run(model, device, feed=None):
+        caches = bundle.init_caches(2, 64, device=device)
+        logits, caches = bundle.prefill(model, {"tokens": prompts}, caches)
+        steps = [logits.float().cpu()]
+        for i in range(8):
+            tok = steps[-1].argmax(-1) if feed is None else feed[i]
+            logits, caches = bundle.decode(model, tok[:, None], caches,
+                                           48 + i)
+            steps.append(logits.float().cpu())
+        return steps
+
+    t0 = time.perf_counter()
+    want = run(cpu, "cpu")
+    t_cpu = time.perf_counter() - t0
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    got = run(gpu, "cuda", feed=[w.argmax(-1) for w in want[:-1]])
+    t_gpu = time.perf_counter() - t0
+    if kbuild.LAUNCHES["flash_attention"] != 2 * 9:
+        raise AssertionError(f"flash_attention launched "
+                             f"{kbuild.LAUNCHES['flash_attention']} times, "
+                             "not 2 layers x 9 calls")
+    worst, compared = 0.0, 0
+    for step, (w, gt) in enumerate(zip(want, got)):
+        real = w > -1e29
+        worst = max(worst, float((gt - w).abs()[real].max()))
+        top2 = w.topk(2, dim=-1).values
+        clear = top2[:, 0] - top2[:, 1] > 0.2
+        compared += int(clear.sum())
+        if not torch.equal(gt.argmax(-1)[clear], w.argmax(-1)[clear]):
+            raise AssertionError(f"greedy token differs at step {step}")
+    if worst > 0.1:
+        raise AssertionError(f"logits differ by {worst} > 0.1")
+    e_cpu = mean_pool_embedder(bundle, cpu)(prompts)
+    e_gpu = mean_pool_embedder(bundle, gpu)(prompts).cpu()
+    cos = float(torch.nn.functional.cosine_similarity(e_cpu, e_gpu).min())
+    if cos < 0.999:
+        raise AssertionError(f"embeddings at cosine {cos} < 0.999")
+    log(f"  minicpm-2b x 2 layers, 2 x 48 tokens, prefill + 8 decode steps: "
+        f"CPU {t_cpu:.1f} s, card {t_gpu:.1f} s; max |logit diff| "
+        f"{worst:.4f}; greedy tokens equal at all {compared} of 18 "
+        f"(row, step) pairs with a top-2 gap > 0.2; embedding cosine "
+        f">= {cos:.6f}")
 
 
 def parity_auto(torch, name: str, want: str, params) -> None:
@@ -837,6 +1033,167 @@ def phase_ladder(torch, main: dict | None) -> dict:
     return {"launches": launches}
 
 
+def phase_rag(torch) -> dict:
+    """LM serving with RAG at full width and depth; returns its launch
+    counts."""
+    import collections
+
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.baselines import flat_search, recall_at_k
+    from repro_torch.core.index import QuIVerIndex
+    from repro_torch.core.vamana import BuildParams
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import matrix_param_count
+    from repro_torch.probe import probe_corpus, select_policy
+    from repro_torch.serve.engine import Retriever, ServeEngine, \
+        mean_pool_embedder
+
+    n_docs, n_held, doc_len, batch = 8192, 256, 64, 64
+    n_prompts, prompt_len, max_new, max_seq, k = 8, 64, 32, 384, 4
+    cfg = get_config("minicpm-2b")
+    bundle = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = bundle.init(0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = matrix_param_count(model)
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} -> "
+        f"{cfg.padded_vocab}, bf16: {n_params} parameters (param_count() "
+        f"{cfg.param_count()}; plus "
+        f"{sum(p.numel() for p in model.parameters()) - n_params} norm "
+        f"scales), drawn in {time.perf_counter() - t0:.1f} s")
+    if n_params != cfg.param_count():
+        raise AssertionError("the module's parameters are not param_count()")
+
+    launches: collections.Counter = collections.Counter()
+    tally = {name: {"calls": 0, "flash": 0, "s": 0.0}
+             for name in ("embed", "prefill", "decode")}
+
+    def counted(name, fn):
+        """``fn`` with the launch counts reset before each call and read
+        after it, and its time on the host clock around synchronisation."""
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            kbuild.reset_launches()
+            t0 = time.perf_counter()
+            result = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            rec = tally[name]
+            rec["s"] += time.perf_counter() - t0
+            rec["calls"] += 1
+            rec["flash"] += kbuild.LAUNCHES["flash_attention"]
+            launches.update(kbuild.LAUNCHES)
+            return result
+        return run
+
+    rng = np.random.default_rng(0)
+    docs = rng.integers(0, cfg.vocab_size,
+                        (n_docs + n_held, doc_len)).astype(np.int32)
+    embed_fn = counted("embed", mean_pool_embedder(bundle, model))
+    emb = torch.cat([embed_fn(docs[i:i + batch])
+                     for i in range(0, len(docs), batch)])
+    embed_s = tally["embed"]["s"]
+    log(f"  embed {len(docs)} documents x {doc_len} tokens in batches of "
+        f"{batch}: {embed_s:.2f} s, {docs.size / embed_s:.0f} tokens/s")
+    if emb.shape != (len(docs), cfg.d_model) \
+            or not bool(torch.isfinite(emb).all()):
+        raise AssertionError("embeddings malformed")
+    corpus, held = emb[:n_docs], emb[n_docs:]
+
+    torch.cuda.synchronize()
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    index = QuIVerIndex.build(corpus, BuildParams(), device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_counts = dict(kbuild.LAUNCHES)
+    launches.update(build_counts)
+    stats = index.build_stats
+    log(f"  QuIVerIndex.build over {n_docs} x {cfg.d_model}: {build_s:.2f} s "
+        f"(linking {stats.seconds:.2f} s, {stats.chunks} chunks, mean hops "
+        f"{stats.mean_hops:.1f}, {stats.consolidations} consolidations); "
+        f"launches {build_counts}")
+    for name in ("binarize", "bq_dist_rows", "bq_pairwise"):
+        if build_counts.get(name, 0) == 0:
+            raise AssertionError(f"{name} never launched in the build")
+
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    report = probe_corpus(corpus, device="cuda")
+    probe_s = time.perf_counter() - t0
+    launches.update(kbuild.LAUNCHES)
+    log(f"  probe {probe_s:.3f} s: {report.summary()} (agreement "
+        f"{report.bq_agreement:.4f}) -> {select_policy(report).describe()}")
+
+    truth, _ = flat_search(corpus, held, 10, device="cuda")
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    ids, scores = index.search(held, k=10, ef=64)
+    search_s = time.perf_counter() - t0
+    launches.update(kbuild.LAUNCHES)
+    recall = recall_at_k(ids, truth)
+    log(f"  recall@10 at ef=64 of {n_held} held-out documents: {recall:.4f} "
+        f"({n_held / search_s:.1f} QPS; printed, not gated)")
+    if ids.shape != (n_held, 10) or not np.isfinite(scores).all() \
+            or ids.min() < 0 or ids.max() >= n_docs:
+        raise AssertionError("held-out search output malformed")
+
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (n_prompts, prompt_len)).astype(np.int32)
+    retriever = Retriever(index=index, doc_tokens=docs[:n_docs],
+                          embed_fn=embed_fn, k=k, ef=64)
+    served = bundle._replace(prefill=counted("prefill", bundle.prefill),
+                             decode=counted("decode", bundle.decode))
+    engine = ServeEngine(served, model, max_seq=max_seq, device="cuda")
+    runs = []
+    for attempt in range(2):
+        before = {name: dict(rec) for name, rec in tally.items()}
+        t0 = time.perf_counter()
+        tokens = engine.generate(prompts, max_new=max_new,
+                                 retriever=retriever)
+        wall = time.perf_counter() - t0
+        runs.append(tokens)
+        pre = tally["prefill"]["s"] - before["prefill"]["s"]
+        dec = tally["decode"]["s"] - before["decode"]["s"]
+        log(f"  generate {attempt + 1}: {n_prompts} prompts x {prompt_len} "
+            f"tokens + {k} x {doc_len} retrieved = prefill T = "
+            f"{k * doc_len + prompt_len}: prefill {pre * 1e3:.1f} ms, decode "
+            f"{dec / max_new * 1e3:.2f} ms a token, "
+            f"{tokens.size / wall:.1f} new tokens/s ({wall:.2f} s in all)")
+    if not np.array_equal(runs[0], runs[1]):
+        raise AssertionError("two generate runs gave different tokens")
+    if runs[0].shape != (n_prompts, max_new) or runs[0].min() < 0 \
+            or runs[0].max() >= cfg.vocab_size:
+        raise AssertionError("generated tokens malformed")
+
+    # the retrieval the prompts were served with
+    hits, _ = index.search(embed_fn(prompts), k=k, ef=64)
+    if hits.min() < 0 or hits.max() >= n_docs:
+        raise AssertionError("a retrieved id is out of range")
+    ctx = retriever.augment(prompts)[:, :k * doc_len] \
+        .reshape(n_prompts, k, doc_len)
+    if not np.array_equal(ctx, docs[hits]):
+        raise AssertionError("a context row is not its document's tokens")
+    log(f"  retrieval: {hits.size} ids in range, every context row its "
+        f"document's tokens; first prompt's ids {hits[0].tolist()}")
+
+    for name, rec in tally.items():
+        log(f"  {name}: {rec['calls']} calls, {rec['flash']} flash_attention "
+            f"launches")
+        if rec["calls"] == 0 or rec["flash"] != cfg.n_layers * rec["calls"]:
+            raise AssertionError(f"flash_attention did not launch "
+                                 f"{cfg.n_layers} times a call in {name}")
+    log(f"  max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+    del engine, retriever, model
+    torch.cuda.empty_cache()
+    return {"launches": dict(launches)}
+
+
 def phase_profile(torch, chunks: int = 8) -> None:
     """Where a build's time goes at the main path's size (N = 100 000,
     D = 768, ``BuildParams()``): ``chunks`` chunks and the consolidation
@@ -1000,8 +1357,12 @@ def main(argv=None) -> int:
         log("phase 6: metric ladder, cohere-surrogate N=100000, 1000 "
             "queries; probe of three corpora")
         paths.append(phase_ladder(torch, main_path))
+    if "rag" in phases:
+        log("phase 7: LM serving with RAG, minicpm-2b at full width and "
+            "depth")
+        paths.append(phase_rag(torch))
     if "profile" in phases:
-        log("phase 7: profile of build chunks at N=100000")
+        log("phase 8: profile of build chunks at N=100000")
         phase_profile(torch)
     log(f"all phases {time.perf_counter() - t_all:.1f} s")
 

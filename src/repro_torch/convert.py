@@ -1,4 +1,5 @@
-"""Carry an index between the two packages as numpy fields.
+"""Carry an index, or an LM's parameters, between the two packages as
+numpy arrays.
 
 The dict keys are the npz field names of ``repro/core/index.py``'s
 ``save`` (``words`` as uint32, ``dim``, ``adjacency``, ``medoid``,
@@ -27,6 +28,7 @@ from repro_torch.core.metric import registered_kinds
 from repro_torch.core.vamana import BuildParams
 from repro_torch.device import resolve_device
 from repro_torch.ivf import IVFPartition
+from repro_torch.models.transformer import DecoderLM
 from repro_torch.probe import CompatibilityReport, NavPolicy
 
 _PARAM_PREFIX = "param_"
@@ -115,3 +117,95 @@ def index_from_numpy(fields: dict, device=None) -> QuIVerIndex:
         report=CompatibilityReport.from_npz(fields),
         ivf=IVFPartition.from_npz(fields, device),
     )
+
+
+# -- LM parameters ------------------------------------------------------------
+
+
+def _block_leaves(blk) -> dict:
+    """One block's tensors under the reference's pytree paths."""
+    leaves = {("ln1", "scale"): blk.ln1.scale, ("ln2", "scale"): blk.ln2.scale}
+    for name in ("wq", "wk", "wv", "wo"):
+        leaves[("attn", name, "w")] = getattr(blk.attn, name).w
+    for name in ("w1", "w3", "w2"):
+        if hasattr(blk.mlp, name):
+            leaves[("mlp", name, "w")] = getattr(blk.mlp, name).w
+    return leaves
+
+
+def _top_leaves(model) -> dict:
+    return {("embed", "w"): model.embed.w,
+            ("final_norm", "scale"): model.final_norm.scale,
+            ("lm_head", "w"): model.lm_head.w}
+
+
+def _get(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _tensor(a) -> torch.Tensor:
+    """A numpy array as a tensor; bfloat16 (``ml_dtypes``, as
+    ``np.asarray`` of a JAX bf16 array gives it) through its 16 bits,
+    recognised by name, since ``torch.from_numpy`` refuses it."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:           # a JAX array's host view
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+@torch.no_grad()
+def lm_params_from_numpy(params: dict, cfg, *, dtype=None,
+                         device=None) -> DecoderLM:
+    """The reference's parameter pytree (numpy arrays, e.g.
+    ``jax.tree.map(np.asarray, params)``) as a :class:`DecoderLM` on
+    ``device`` (default: the CUDA card).  The matrices keep their dtype
+    unless ``dtype`` is given; norm scales stay float32."""
+    device = resolve_device(device)
+    layers = params["layers"]
+    if len(layers) != 1:
+        raise NotImplementedError(
+            f"a layer pattern of period {len(layers)} (hybrid, MoE, xLSTM "
+            "stacks) is not ported yet")
+    if dtype is None:
+        dtype = _tensor(params["embed"]["w"]).dtype
+    model = DecoderLM(cfg, device=device, dtype=dtype)
+    pairs = [(p, _get(params, path)) for path, p in _top_leaves(model).items()]
+    for g, blk in enumerate(model.blocks):
+        pairs += [(p, np.asarray(_get(layers[0], path))[g])
+                  for path, p in _block_leaves(blk).items()]
+    for p, a in pairs:
+        t = _tensor(a)
+        if t.shape != p.shape:
+            raise ValueError(f"parameter of shape {tuple(t.shape)} for a "
+                             f"slot of {tuple(p.shape)}")
+        p.copy_(t.to(p.dtype))
+    return model
+
+
+def lm_params_to_numpy(model: DecoderLM) -> dict:
+    """The module's parameters as the reference's pytree of numpy arrays.
+    bfloat16 tensors come out as float32 (exactly: every bf16 value is a
+    float32), since numpy has no bfloat16 of its own."""
+    def host(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def put(tree, path, value):
+        for key in path[:-1]:
+            tree = tree.setdefault(key, {})
+        tree[path[-1]] = value
+
+    out: dict = {}
+    for path, p in _top_leaves(model).items():
+        put(out, path, host(p))
+    group: dict = {}
+    per_block = [_block_leaves(blk) for blk in model.blocks]
+    for path in per_block[0]:
+        put(group, path, np.stack([host(leaves[path])
+                                   for leaves in per_block]))
+    out["layers"] = [group]
+    return out

@@ -138,10 +138,12 @@ class IVFPartition:
 
 
 def _xla_chunk_bounds(d: int) -> list[int]:
-    """Where XLA's CPU backend splits a row of ``d <= 1024`` floats when it
-    sums it: chunks of 32, except that ``32 + d % 32`` elements (when not
-    0) are shared between a first chunk (the larger half) and a last one.
-    Each chunk is summed left to right, and the chunk sums left to right."""
+    """Where XLA's CPU backend cuts a row of ``d`` values into windows of
+    32 when it sums it: a reduction of more than 32 values is rewritten as
+    a window-32 reduction padded at both ends (the smaller pad first), so
+    ``32 + d % 32`` values (when ``d % 32`` is not 0) are shared between a
+    first window (the larger half) and a last one.  A row of at most 32
+    values is one window."""
     if d <= 32:
         return [0, d]
     extra = 32 + d % 32
@@ -151,54 +153,43 @@ def _xla_chunk_bounds(d: int) -> list[int]:
     return [0, *range(head, d - (extra - head) + 1, 32), d]
 
 
-def _xla_parts(d: int) -> int | None:
-    """How many equal parts XLA's CPU backend sums a row of ``d`` floats in
-    (each as :func:`_xla_chunk_bounds`, then the part sums left to right),
-    or None where that is not known: a row above 1024 floats is known only
-    where it splits into ``ceil(d / 1024)`` equal multiples of 32."""
-    parts = -(-d // 1024)
-    if parts == 1 or (d % parts == 0 and d // parts % 32 == 0):
-        return parts
-    return None
+def _xla_window_sums(a: torch.Tensor) -> torch.Tensor:
+    """(R, d) -> (R, n_windows): each window of :func:`_xla_chunk_bounds`
+    summed left to right."""
+    d = a.shape[1]
+    b = _xla_chunk_bounds(d)
+    if len(b) == 2:
+        s = a[:, 0]
+        for j in range(1, d):
+            s = s + a[:, j]
+        return s[:, None]
+    head, tail = b[1], d - b[-2]
+    sums = []
+    for lo, hi in ((0, head), (d - tail, d)):
+        s = a[:, lo]
+        for j in range(lo + 1, hi):
+            s = s + a[:, j]
+        sums.append(s[:, None])
+    # the full middle windows side by side: 32 steps for all of them
+    mid = a[:, head:d - tail].reshape(a.shape[0], -1, 32)
+    mid_sum = mid[:, :, 0]
+    for j in range(1, 32):
+        mid_sum = mid_sum + mid[:, :, j]
+    return torch.cat([sums[0], mid_sum, sums[1]], dim=1)
 
 
 def xla_row_sum(a: torch.Tensor) -> torch.Tensor:
     """(R, D) float32 -> (R,) row sums in the order the reference's
-    compiled ``jnp.sum``/``jnp.mean`` over the last axis takes on the CPU
-    (XLA's CPU backend, found by probing the reduction tree and then held
-    bit for bit over 10^5 random rows at D in {100, 384, 768}, and over
-    2 * 10^4 at D in {17, 31, 33, 64, 101, 130, 200, 800, 992, 1024, 1536,
-    3072, 4096}).  Only for the D that :func:`_xla_parts` knows."""
-    d = a.shape[1]
-    parts = _xla_parts(d)
-    if parts is None:
-        raise ValueError(f"XLA's summation order of {d} floats is not known")
-    size = d // parts
-    total = None
-    for p in range(parts):
-        row = a[:, p * size:(p + 1) * size]
-        b = _xla_chunk_bounds(size)
-        head, tail = b[1], size - b[-2]
-        # the full middle chunks side by side: 32 steps for all of them
-        mid = row[:, head:size - tail].reshape(row.shape[0], -1, 32) \
-            if b[-2] > head else row[:, :0].reshape(row.shape[0], 0, 32)
-        chunk_sums = [row[:, 0]]
-        for j in range(1, head):
-            chunk_sums[0] = chunk_sums[0] + row[:, j]
-        mid_sum = mid[:, :, 0]
-        for j in range(1, 32):
-            mid_sum = mid_sum + mid[:, :, j]
-        chunk_sums += list(mid_sum.unbind(dim=1))
-        if tail and len(b) > 2:
-            t = row[:, size - tail]
-            for j in range(size - tail + 1, size):
-                t = t + row[:, j]
-            chunk_sums.append(t)
-        part = chunk_sums[0]
-        for c in chunk_sums[1:]:
-            part = part + c
-        total = part if total is None else total + part
-    return total
+    compiled ``jnp.sum``/``jnp.mean`` over the last axis takes on the CPU:
+    XLA's CPU backend sums windows of 32 (:func:`_xla_chunk_bounds`) and
+    then the window sums the same way, level by level, until one is left.
+    Found by probing the reduction tree, then held bit for bit over 10^5
+    random rows at D in {100, 384, 768}, and over 4 000 (500 above 4 096)
+    at D in {17, 1024, 1025, 1100, 1536, 2000, 2304, 3072, 4096, 4100,
+    5000, 9999, 33000, 40000}."""
+    while a.shape[1] > 1:
+        a = _xla_window_sums(a)
+    return a[:, 0]
 
 
 def majority_words(mean: torch.Tensor) -> torch.Tensor:
@@ -206,11 +197,8 @@ def majority_words(mean: torch.Tensor) -> torch.Tensor:
     tau the reference's encode gives them: its row sum in XLA's order, times
     the float32 reciprocal of D (``jnp.mean``).  A list's mean is made of
     multiples of 1/count, so |x| = tau exactly is common here, and a tau one
-    ulp off flips strong bits (ROADMAP queue 3).  Where XLA's order is not
-    known (:func:`_xla_parts`), the port's ``encode``."""
+    ulp off flips strong bits (ROADMAP queue 3)."""
     d = mean.shape[1]
-    if _xla_parts(d) is None:
-        return bq.encode(mean).words
     absx = mean.abs()
     tau = xla_row_sum(absx) * float(np.float32(1) / np.float32(d))
     return torch.cat([bq.pack_bits(mean > 0),

@@ -1,0 +1,166 @@
+"""LM generation with QuIVer retrieval-augmented prompts.
+
+Counterpart of the LM half of ``repro/serve/engine.py``:
+
+* :class:`ServeEngine` — batched generation: one prefill into a KV cache,
+  then one decode step a token (greedy, or sampled from an explicit
+  ``torch.Generator``).
+* :class:`Retriever` — a QuIVer index plus a token store: the prompt's
+  embedding queries the index and the top-k neighbours' tokens are
+  prepended to the prompt before prefill.
+* :func:`mean_pool_embedder` — the LM as its own embedding model (the mean
+  of the final hidden state over positions).
+
+Every attention call goes through the hand-written flash kernel on the card.
+Not ported: ``QueryEngine`` (the retrieval serving queue, ROADMAP modules
+item 11), so ``Retriever(engine=...)`` raises; label filters (item 9), so
+``filter=`` raises; streaming indexes (item 10), so ``add_documents``
+raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as tf
+
+
+def _no_filter(value) -> None:
+    if value is not None:
+        raise NotImplementedError(
+            "filtered retrieval is not ported yet (ROADMAP modules item 9)")
+
+
+@dataclasses.dataclass
+class Retriever:
+    """QuIVer index + token store for RAG.
+
+    ``embed_fn`` maps (B, S) tokens (a numpy array) to (B, D) embeddings
+    (a tensor or array); ``nav=None`` navigates in the metric the index was
+    built in; ``expand`` is the beam expansion width; ``pad_token`` fills
+    the context slots of missing hits (search returns -1 ids when the beam
+    finds fewer than k live documents, and ids past a lagging token store
+    are blanked the same way); ``adaptive=None`` follows the index's own
+    nav policy.
+    """
+    index: Any                      # QuIVerIndex
+    doc_tokens: np.ndarray          # (n_docs, doc_len) int32
+    embed_fn: Callable              # (B, S) tokens -> (B, D) embeddings
+    k: int = 2
+    ef: int = 64
+    nav: str | None = None
+    expand: int = 1
+    pad_token: int = 0
+    filter: Any = None              # label predicate: not ported (item 9)
+    adaptive: bool | None = None    # None: the index policy decides
+    engine: Any = None              # QueryEngine routing: not ported
+
+    def __post_init__(self):
+        _no_filter(self.filter)
+        if self.engine is not None:
+            raise NotImplementedError(
+                "QueryEngine routing is not ported yet (ROADMAP modules "
+                "item 11)")
+
+    def augment(self, tokens: np.ndarray, *, filter=None) -> np.ndarray:
+        """(B, S) prompts -> (B, k * doc_len + S): the retrieved documents'
+        tokens, then the prompt."""
+        _no_filter(filter)
+        tokens = np.asarray(tokens)
+        emb = self.embed_fn(tokens)
+        ids, _ = self.index.search(
+            emb, k=self.k, ef=self.ef, nav=self.nav, expand=self.expand,
+            adaptive=self.adaptive,
+        )
+        ids = np.asarray(ids).reshape(len(tokens), -1)
+        # ids outside the token store (-1 padding, or slots beyond a lagging
+        # doc_tokens) must not gather a real document: clamp for the gather,
+        # then blank out
+        in_store = (ids >= 0) & (ids < len(self.doc_tokens))
+        safe = np.clip(ids, 0, len(self.doc_tokens) - 1)
+        ctx = np.asarray(self.doc_tokens)[safe]
+        ctx = np.where(in_store[..., None], ctx, self.pad_token)
+        ctx = ctx.reshape(len(tokens), -1)
+        return np.concatenate([ctx, tokens], axis=1)
+
+    def add_documents(self, doc_tokens, embeddings=None, *, labels=None):
+        """Growing the corpus while serving needs a streaming index."""
+        raise NotImplementedError(
+            "add_documents needs the streaming index, which is not ported "
+            "yet (ROADMAP modules item 10)")
+
+
+class ServeEngine:
+    """Batched generation over ``model`` (a :class:`DecoderLM` from
+    ``bundle.init``), which must live on ``device`` (default: the card)."""
+
+    def __init__(self, bundle, model, *, max_seq: int = 512, device=None):
+        device = resolve_device(device)
+        if model.device.type != device.type:
+            raise ValueError(f"the model is on {model.device}, the engine "
+                             f"on {device}")
+        self.device = model.device
+        self.bundle = bundle
+        self.model = model
+        self.max_seq = max_seq
+
+    def generate(
+        self,
+        tokens: np.ndarray,              # (B, S) int32 prompts
+        *,
+        max_new: int = 32,
+        retriever: Retriever | None = None,
+        temperature: float = 0.0,
+        seed: int = 0,
+    ) -> np.ndarray:
+        """(B, max_new) int32 new tokens.  Greedy (``argmax``, ties to the
+        lower index, as ``jnp.argmax``) at ``temperature == 0``; otherwise
+        sampled from a ``torch.Generator`` seeded with ``seed`` (not the
+        reference's ``jax.random`` draws).  Tokens stay on the device until
+        the end."""
+        if retriever is not None:
+            tokens = retriever.augment(tokens)
+        tokens = np.asarray(tokens, dtype=np.int32)
+        b, s = tokens.shape
+        assert s + max_new <= self.max_seq, (s, max_new, self.max_seq)
+
+        caches = self.bundle.init_caches(b, self.max_seq, device=self.device)
+        logits, caches = self.bundle.prefill(
+            self.model, {"tokens": torch.from_numpy(tokens)}, caches)
+        gen = None
+        if temperature > 0:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+        out = torch.empty((b, max_new), dtype=torch.int64, device=self.device)
+        pos = s
+        for i in range(max_new):
+            if temperature > 0:
+                probs = torch.softmax(logits / temperature, dim=-1)
+                tok = torch.multinomial(probs, 1, generator=gen)[:, 0]
+            else:
+                tok = torch.argmax(logits, dim=-1)
+            out[:, i] = tok
+            logits, caches = self.bundle.decode(self.model, tok[:, None],
+                                                caches, pos)
+            pos += 1
+        return out.cpu().numpy().astype(np.int32)
+
+
+def mean_pool_embedder(bundle, model) -> Callable:
+    """(B, S) tokens -> (B, d_model) float32 embeddings on the model's
+    device: the mean over positions of the final hidden state.  As the
+    reference's ``jnp.mean`` of a bf16 state, the mean is summed in float32
+    and rounded to the state's dtype before the cast to float32."""
+    del bundle
+
+    def embed(tokens) -> torch.Tensor:
+        x = tf.embed_tokens(
+            model, torch.as_tensor(tokens, device=model.device).long())
+        h = tf.forward_hidden(model, x)
+        return h.float().mean(dim=1).to(h.dtype).float()
+
+    return embed

@@ -20,6 +20,7 @@ from repro_torch.data.datasets import make_dataset
 from repro_torch.kernels import binarize as kb
 from repro_torch.kernels import bq_distance as kd
 from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention as kf
 from repro_torch.kernels import hamming as kh
 from repro_torch.kernels import list_scan as kl
 from repro_torch.probe import probe_corpus
@@ -202,3 +203,108 @@ def test_card_ivf_build_equals_cpu_build(cuda):
     assert torch.equal(gpu.adjacency.cpu(), cpu.adjacency)
     assert gpu.medoid == cpu.medoid
     np.testing.assert_array_equal(g_ids, c_ids)
+
+
+# (b, tq, tk, h, kv heads, hd, causal, q_offset, kv_valid_len)
+FLASH_CASES = {
+    "ragged_causal": (2, 100, 100, 4, 4, 64, True, 0, 100),
+    "ragged_bidirectional": (1, 77, 77, 2, 2, 32, False, 0, 77),
+    "gqa": (2, 130, 130, 8, 2, 64, True, 0, 130),
+    "prefill_longer_cache": (3, 70, 128, 4, 4, 64, True, 0, 70),
+    "decode": (4, 1, 384, 8, 2, 64, True, 320, 321),
+    "short_queries": (2, 5, 200, 4, 2, 16, True, 150, 155),
+    "hd16": (2, 96, 96, 4, 2, 16, True, 0, 96),
+    "hd128": (1, 65, 129, 4, 4, 128, True, 0, 129),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_attention_matches_plain(cuda, case, dtype):
+    """float32 within 2e-3 (the reference kernel's own tolerance), bf16
+    within 2e-2 of the plain version on the same bf16 inputs."""
+    b, tq, tk, h, kvh, hd, causal, q_offset, valid = FLASH_CASES[case]
+    g = torch.Generator().manual_seed(len(case))
+    q = torch.randn((b, tq, h, hd), generator=g).to(cuda, dtype)
+    k = torch.randn((b, tk, kvh, hd), generator=g).to(cuda, dtype)
+    v = torch.randn((b, tk, kvh, hd), generator=g).to(cuda, dtype)
+    kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=valid)
+    build.reset_launches()
+    got = kf.flash_attention(q, k, v, **kw)
+    assert build.LAUNCHES["flash_attention"] == 1
+    want = kf.flash_attention_plain(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = dict(rtol=2e-3, atol=2e-3) if dtype == torch.float32 \
+        else dict(rtol=0, atol=2e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_flash_attention_reads_cache_slices_and_mixed_dtypes(cuda):
+    """A layer's slice of a stacked bf16 cache, read through its strides,
+    under float32 queries (float32 parameters over the bf16 cache)."""
+    g = torch.Generator().manual_seed(3)
+    cache = torch.randn((3, 2, 64, 2, 16), generator=g).to(cuda,
+                                                           torch.bfloat16)
+    q = torch.randn((2, 1, 4, 16), generator=g).to(cuda)
+    got = kf.flash_attention(q, cache[1], cache[2], q_offset=40,
+                             kv_valid_len=41)
+    want = kf.flash_attention_plain(q, cache[1].contiguous(),
+                                    cache[2].contiguous(), q_offset=40,
+                                    kv_valid_len=41)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+
+
+def test_flash_attention_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 4, 2, 48), device=cuda)
+    with pytest.raises(ValueError, match="head width"):
+        kf.flash_attention(q, q, q)
+    q = torch.zeros((1, 4, 2, 16), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="not instantiated"):
+        kf.flash_attention(q, q.float(), q.float())
+
+
+def test_card_minicpm_two_layers_matches_cpu(cuda):
+    """minicpm-2b at full width and 2 layers, bf16, drawn on the CPU and
+    copied to the card: prefill and 8 decode steps (fed the CPU's greedy
+    tokens) within 0.1 in every logit, equal argmax where the CPU's top-2
+    gap exceeds 0.2; mean-pooled embeddings at cosine >= 0.999."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.serve.engine import mean_pool_embedder
+
+    cfg = dataclasses.replace(get_config("minicpm-2b"), n_layers=2)
+    bundle = build_model(cfg)
+    cpu = bundle.init(0, device="cpu")
+    gpu = DecoderLM(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 48)).astype(np.int32)
+
+    def run(model, device, feed=None):
+        caches = bundle.init_caches(2, 64, device=device)
+        logits, caches = bundle.prefill(model, {"tokens": prompts}, caches)
+        steps = [logits.float().cpu()]
+        for i in range(8):
+            tok = steps[-1].argmax(-1) if feed is None else feed[i]
+            logits, caches = bundle.decode(model, tok[:, None], caches,
+                                           48 + i)
+            steps.append(logits.float().cpu())
+        return steps
+
+    want = run(cpu, "cpu")
+    build.reset_launches()
+    got = run(gpu, cuda, feed=[w.argmax(-1) for w in want[:-1]])
+    assert build.LAUNCHES["flash_attention"] == 2 * 9
+    for w, gt in zip(want, got):
+        real = w > -1e29
+        assert (gt - w).abs()[real].max() <= 0.1
+        top2 = w.topk(2, dim=-1).values
+        clear = top2[:, 0] - top2[:, 1] > 0.2
+        assert torch.equal(gt.argmax(-1)[clear], w.argmax(-1)[clear])
+    e_cpu = mean_pool_embedder(bundle, cpu)(prompts)
+    e_gpu = mean_pool_embedder(bundle, gpu)(prompts).cpu()
+    assert torch.nn.functional.cosine_similarity(e_cpu, e_gpu).min() >= 0.999

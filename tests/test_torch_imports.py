@@ -43,6 +43,12 @@ def test_every_module_imports_without_jax_or_repro():
     assert {"repro_torch.kernels.hamming", "repro_torch.probe.diagnostics",
             "repro_torch.probe.incremental", "repro_torch.probe.policy",
             "repro_torch.probe.report"} <= set(mods)
+    assert {"repro_torch.configs.base", "repro_torch.configs.minicpm_2b",
+            "repro_torch.configs.yi_34b", "repro_torch.models.layers",
+            "repro_torch.models.ffn", "repro_torch.models.attention",
+            "repro_torch.models.transformer", "repro_torch.models.model",
+            "repro_torch.kernels.flash_attention",
+            "repro_torch.serve.engine", "repro_torch.launch.serve"} <= set(mods)
     _run_fresh(
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"

@@ -172,7 +172,7 @@ def test_partition_matches_reference_at_threshold_ties(n, seed):
                                       getattr(want, field), err_msg=field)
 
 
-@pytest.mark.parametrize("dim", [17, 33, 100, 384, 768, 1536, 3072])
+@pytest.mark.parametrize("dim", [17, 33, 100, 384, 768, 1536, 2304, 3072])
 def test_majority_words_match_reference_encode(dim):
     """The majority centroids' encode sums tau as XLA does on the CPU: equal
     words, ties at |x| = tau included (levels averaged over 31 rows)."""
