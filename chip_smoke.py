@@ -18,16 +18,24 @@ Phases, in order; any failure raises and the script exits nonzero:
               strong bits only within 4 ulp of tau), ``bq_dist_rows``
               (K from the IVF build's top-up of 32 to a search batch's
               50 880 gathered list members), ``bq_pairwise`` and
-              ``list_scan`` (D in {100, 384, 768, 1536, 3072}, L in {45,
-              316, 1000}, Q in {256, 8193}), ``hamming_dist_rows`` and
-              ``hamming_pairwise`` (D in {64, 100, 384, 768, 1536}, ragged
-              B, K and C); all exactly equal.  ``flash_attention`` at the
-              RAG path's shapes (hd = 64, H = K = 36, causal: embed 64
-              docs x T = 64; prefill B = 8, Tq = 320 over a 384-row cache;
-              decode B = 8, Tq = 1 at q_offset 320 and 351), with GQA
-              (H = 8, K = 2) and hd in {16, 32, 128} at small shapes,
-              float32 within 2e-3 and bf16 within 2e-2 of its plain
-              version.  Then each kernel's, its plain version's and one
+              ``list_scan`` (D in {64, 100, 384, 768, 1536, 3072}, L in
+              {45, 316, 1000}, Q in {1, 256, 8193}), ``hamming_dist_rows``
+              and ``hamming_pairwise`` (D in {64, 100, 384, 768, 1536},
+              ragged B, K and C); all exactly equal.  ``flash_attention``
+              (``FLASH_CASES``), each call through the kernel its dtype and
+              Tq select (float32: the CUDA-core kernel; bf16 Tq = 1: the
+              split-KV decode, also held to its float32 mirror; bf16 Tq >
+              1: the tensor-core kernel), float32 within 2e-3 and bf16
+              within 2e-2 of its plain version: the RAG path's shapes
+              (hd = 64, H = K = 36, causal: embed 64 docs x T = 64;
+              prefill B = 8, Tq = 320 over a 384-row cache; decode B = 8,
+              Tq = 1 at q_offset 320 and 351), decode with kv_valid_len
+              1, 63, 64 and 65 (around a 64-key split), fully masked
+              splits, a 4096-row cache, GQA groups of 4, hd in {16, 32,
+              128}, prefill at q_offset 100 with a ragged Tq = 70, a
+              ragged embed, bf16 K/V read through a stacked cache's and a
+              fused buffer's strides, and a misaligned K that must raise.
+              Then each kernel's, its plain version's and one
               PyTorch call's time (a matmul for the distance kernels,
               ``scaled_dot_product_attention`` for flash) on those
               main-path inputs: device time and stream time (see
@@ -81,7 +89,11 @@ Phases, in order; any failure raises and the script exits nonzero:
               retrieved id in range and every context row the document's
               tokens.  Launch counts are reset before each step and read
               after it: ``flash_attention`` launches 40 times a call of
-              embed, prefill and decode, and the bq kernels in the build.
+              embed, prefill and decode, every embed and prefill launch on
+              the tensor-core kernel and every decode launch on the
+              split-KV kernel, and the bq kernels in the build.  Each
+              step's ms a call is printed with the flash kernel's share
+              (its launches x its phase-2 device time).
 An opt-in eighth phase, ``profile``, is not run by default: it profiles a
 few build chunks at the main path's size with ``torch.profiler`` and
 prints the device's busy share and device time by kernel.
@@ -108,16 +120,17 @@ PHASES = ("build", "kernels", "parity", "main", "ivf", "ladder", "rag")
 OPT_IN = ("profile",)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the float32
-# CUDA-core rate, used as the rate of the kernels' integer and logic
-# operations (Hopper issues int32 at no more than that rate, so the bound
-# derived from it is a lower bound), and the dense bf16 tensor-core rate,
-# the bound of attention's products
+# CUDA-core rate, used as the rate of binarize's and hamming's integer and
+# logic operations (Hopper issues int32 at no more than that rate, so the
+# bound derived from it is a lower bound), the dense bf16 tensor-core rate,
+# the bound of attention's products, and the dense int8 tensor-core rate:
+# the Table-1 similarity is the integer dot product of +-1/+-2 levels, so
+# list_scan, bq_dist_rows and bq_pairwise are reckoned as int8 products of
+# 2 * D operations a (query, row) pair
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
 TENSOR_FLOPS_PER_S = 989e12
-# integer operations per word pair of the Table-1 similarity: 8 to form
-# the planes, 6 ANDs, 6 popcounts, 6 adds
-OPS_PER_WORD_PAIR = 26
+INT8_OPS_PER_S = 1979e12
 # per float of binarize: abs, add, two compares
 OPS_PER_ELEMENT = 4
 # integer operations per word pair of the 1-bit Hamming distance: xor,
@@ -257,7 +270,8 @@ def phase_kernels(torch) -> dict:
                 uniq = torch.unique(ids).numel()
                 nb = uniq * 8 * w + ids.numel() * 4 + q.numel() * 4 \
                     + w * 4 + got.numel() * 4
-                b_ms, b_by = bound(nb, OPS_PER_WORD_PAIR * ids.numel() * w)
+                b_ms, b_by = bound(nb, 2 * ids.numel() * dim,
+                                   INT8_OPS_PER_S)
                 # the library call: one bmm of the decoded levels (gather
                 # and decode outside the timed call)
                 lr = kd.masked_levels(table, mask)[ids.long()]
@@ -291,7 +305,8 @@ def phase_kernels(torch) -> dict:
             if dim == 768 and c == 128:
                 uniq = torch.unique(ids).numel()
                 nb = uniq * 8 * w + ids.numel() * 4 + w * 4 + got.numel() * 4
-                b_ms, b_by = bound(nb, OPS_PER_WORD_PAIR * got.numel() * w)
+                b_ms, b_by = bound(nb, 2 * got.numel() * dim,
+                                   INT8_OPS_PER_S)
                 lp = kd.masked_levels(table[ids.long()], mask)
                 lpt = lp.transpose(1, 2)
                 check_library("bq_pairwise", torch.bmm(lp, lpt), got)
@@ -307,12 +322,12 @@ def phase_kernels(torch) -> dict:
                     "shape": [256, c, dim],
                 }
 
-    # list_scan: ragged Q and L, and L * 8W bytes of centroids up to 768 KB
-    # (D = 3072, L = 1000), above a block's 227 KB of shared memory
-    for dim in (100, 384, 768, 1536, 3072):
+    # list_scan: one query, ragged Q and L, both tile shapes, and D from 64
+    # to 3072 (L = 1000: 768 KB of centroids)
+    for dim in (64, 100, 384, 768, 1536, 3072):
         mask = bq.valid_mask(dim, device="cuda")
         for n_lists in (45, 316, 1000):
-            for n_q in (256, 8193):
+            for n_q in (1, 256, 8193):
                 table = random_table(torch, n_q + n_lists, dim,
                                      seed=dim + n_lists + n_q)
                 q, cent = table[:n_q], table[n_q:]
@@ -321,7 +336,7 @@ def phase_kernels(torch) -> dict:
                 if not torch.equal(got, want):
                     raise AssertionError(
                         f"list_scan differs at D={dim} L={n_lists} Q={n_q}")
-        log(f"  list_scan D={dim} L in (45, 316, 1000) Q in (256, 8193): "
+        log(f"  list_scan D={dim} L in (45, 316, 1000) Q in (1, 256, 8193): "
             "exact")
     # the most-launched shape (a search batch or build chunk against the
     # centroids at N = 100 000), and the partition's assignment chunk
@@ -335,7 +350,7 @@ def phase_kernels(torch) -> dict:
         lq, lct = kd.masked_levels(q, mask), kd.masked_levels(cent, mask).T
         check_library("list_scan", torch.matmul(lq, lct), got)
         nb = (n_q + n_lists) * 8 * w + w * 4 + got.numel() * 4
-        b_ms, b_by = bound(nb, OPS_PER_WORD_PAIR * got.numel() * w)
+        b_ms, b_by = bound(nb, 2 * got.numel() * dim, INT8_OPS_PER_S)
         out[key] = {
             "name": "list_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/list_scan.cu",
@@ -454,31 +469,91 @@ def flash_bound(b, tq, h, kvh, hd, causal, q_offset, valid, elem):
     return bound(nbytes, flops, TENSOR_FLOPS_PER_S)
 
 
+# (label, b, tq, tk, h, kv heads, hd, q_offset, kv_valid_len); each in
+# float32 (the CUDA-core kernel) and bf16 (Tq = 1: split-KV; else the
+# tensor-core kernel)
+FLASH_CASES = [
+    ("embed", 64, 64, 64, 36, 36, 64, 0, 64),
+    ("prefill", 8, 320, 384, 36, 36, 64, 0, 320),
+    ("decode", 8, 1, 384, 36, 36, 64, 320, 321),
+    ("decode", 8, 1, 384, 36, 36, 64, 351, 352),
+    # kv_valid_len before, on and after a split boundary (64 keys)
+    ("decode", 8, 1, 384, 36, 36, 64, 0, 1),
+    ("decode", 8, 1, 384, 36, 36, 64, 62, 63),
+    ("decode", 8, 1, 384, 36, 36, 64, 63, 64),
+    ("decode", 8, 1, 384, 36, 36, 64, 64, 65),
+    # splits 1-3 see no key: q_offset 5 masks keys 6.. causally
+    ("decode masked splits", 2, 1, 256, 8, 2, 64, 5, 200),
+    ("decode long cache", 2, 1, 4096, 36, 36, 64, 4095, 4096),
+    ("gqa decode group 4", 4, 1, 256, 16, 4, 64, 200, 201),
+    ("decode hd16", 4, 1, 200, 8, 4, 16, 150, 151),
+    ("decode hd32", 4, 1, 200, 8, 4, 32, 150, 151),
+    ("decode hd128", 4, 1, 200, 8, 4, 128, 150, 151),
+    ("prefill q_offset ragged", 2, 70, 256, 8, 4, 64, 100, 170),
+    ("embed ragged", 16, 45, 45, 36, 36, 64, 0, 45),
+    ("gqa", 2, 100, 128, 8, 2, 64, 0, 100),
+    ("gqa decode", 4, 1, 96, 8, 2, 64, 60, 61),
+    ("hd16", 2, 70, 70, 4, 2, 16, 0, 70),
+    ("hd32", 2, 70, 96, 4, 4, 32, 0, 70),
+    ("hd128", 2, 70, 70, 4, 4, 128, 0, 70),
+]
+
+
+def flash_variant(torch, q) -> str:
+    """The launch-count key of the kernel the wrapper takes for ``q``."""
+    from repro_torch.kernels import flash_attention as kf
+
+    if q.dtype == torch.float32:
+        return kf.VARIANTS["fma"]
+    return kf.VARIANTS["split_kv" if q.shape[1] == 1 else "mma"]
+
+
+def flash_check(torch, label, q, k, v, **kw) -> tuple:
+    """One wrapper call against the plain version (float32 within 2e-3,
+    bf16 within 2e-2), through the kernel its dtype and Tq select; a
+    split-KV call also against the float32 mirror of its arithmetic.
+    Returns (output, max |error|)."""
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels import flash_attention as kf
+
+    before = dict(kbuild.LAUNCHES)
+    got = kf.flash_attention(q, k, v, **kw)
+    variant = flash_variant(torch, q)
+    for key in ("flash_attention", variant):
+        if kbuild.LAUNCHES[key] != before.get(key, 0) + 1:
+            raise AssertionError(f"flash_attention {label} did not launch "
+                                 f"{variant} once")
+    want = kf.flash_attention_plain(q, k, v, **kw)
+    err = float((got.float() - want.float()).abs().max())
+    if q.dtype == torch.float32:
+        ok = torch.allclose(got, want, rtol=2e-3, atol=2e-3)
+    else:
+        ok = err <= 2e-2
+    if variant == kf.VARIANTS["split_kv"]:
+        mirror = kf.flash_decode_split_plain(q, k, v, **kw)
+        ok = ok and float((got.float() - mirror.float()).abs().max()) <= 2e-2
+    if not ok or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"flash_attention {label} {q.dtype} differs by "
+                             f"{err}")
+    return got, err
+
+
 def flash_kernels(torch) -> dict:
     """``flash_attention`` against its plain version (float32 within 2e-3,
-    bf16 within 2e-2) at the RAG path's shapes, GQA and other head widths;
-    the numbers at the three main shapes in bf16, with
+    bf16 within 2e-2) at the RAG path's shapes, split boundaries, GQA,
+    other head widths and strided cache slices, each call through the
+    kernel its dtype and Tq select; the numbers at the three main shapes
+    in bf16 (the tensor-core kernel at embed and prefill, the split-KV
+    decode) and the CUDA-core kernel's at embed in float32, with
     ``scaled_dot_product_attention`` on the same inputs as the library
     call."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from repro_torch.kernels import flash_attention as kf
 
-    # (label, b, tq, tk, h, kv heads, hd, q_offset, kv_valid_len)
-    cases = [
-        ("embed", 64, 64, 64, 36, 36, 64, 0, 64),
-        ("prefill", 8, 320, 384, 36, 36, 64, 0, 320),
-        ("decode", 8, 1, 384, 36, 36, 64, 320, 321),
-        ("decode", 8, 1, 384, 36, 36, 64, 351, 352),
-        ("gqa", 2, 100, 128, 8, 2, 64, 0, 100),
-        ("gqa decode", 4, 1, 96, 8, 2, 64, 60, 61),
-        ("hd16", 2, 70, 70, 4, 2, 16, 0, 70),
-        ("hd32", 2, 70, 96, 4, 4, 32, 0, 70),
-        ("hd128", 2, 70, 70, 4, 4, 128, 0, 70),
-    ]
     g = torch.Generator(device="cuda").manual_seed(14)
     out = {}
-    for label, b, tq, tk, h, kvh, hd, q_offset, valid in cases:
+    for label, b, tq, tk, h, kvh, hd, q_offset, valid in FLASH_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             q = torch.randn((b, tq, h, hd), generator=g, device="cuda",
                             dtype=dtype)
@@ -487,22 +562,14 @@ def flash_kernels(torch) -> dict:
             v = torch.randn((b, tk, kvh, hd), generator=g, device="cuda",
                             dtype=dtype)
             kw = dict(causal=True, q_offset=q_offset, kv_valid_len=valid)
-            got = kf.flash_attention(q, k, v, **kw)
-            want = kf.flash_attention_plain(q, k, v, **kw)
-            err = float((got.float() - want.float()).abs().max())
-            if dtype == torch.float32:
-                ok = torch.allclose(got, want, rtol=2e-3, atol=2e-3)
-            else:
-                ok = err <= 2e-2
-            if not ok:
-                raise AssertionError(
-                    f"flash_attention {label} {dtype} differs by {err}")
+            got, err = flash_check(torch, label, q, k, v, **kw)
+            variant = flash_variant(torch, q)
             log(f"  flash_attention {label} B={b} Tq={tq} Tk={tk} H={h} "
                 f"K={kvh} hd={hd} q_offset={q_offset} kv_valid={valid} "
-                f"{str(dtype)[6:]}: max |err| {err:.2e}")
-            main = label in ("embed", "prefill") or (label == "decode"
-                                                     and q_offset == 351)
-            if not (main and dtype == torch.bfloat16):
+                f"{str(dtype)[6:]} ({variant}): max |err| {err:.2e}")
+            main = (label in ("embed", "prefill") and q_offset == 0) or (
+                label == "decode" and q_offset == 351)
+            if not main or (dtype == torch.float32 and label != "embed"):
                 continue
             # the library call: SDPA on (B, H, T, hd) views of the same
             # tensors, over the visible keys (q_offset 0 is top-left causal)
@@ -515,11 +582,10 @@ def flash_kernels(torch) -> dict:
                 raise AssertionError(f"SDPA disagrees with flash_attention "
                                      f"at {label} by {lib_err}")
             b_ms, b_by = flash_bound(b, tq, h, kvh, hd, True, q_offset, valid,
-                                     2)
-            key = "flash_attention" if label == "embed" \
-                else f"flash_attention_{label}"
+                                     q.element_size())
+            key = variant if label != "prefill" else f"{variant}_prefill"
             out[key] = {
-                "name": "flash_attention", "route": "cuda",
+                "name": variant, "route": "cuda",
                 "source": "src/repro_torch/csrc/flash_attention.cu",
                 "replaces": "src/repro/kernels/flash_attention.py:28",
                 "max_abs_err": err,
@@ -527,11 +593,47 @@ def flash_kernels(torch) -> dict:
                         partial(kf.flash_attention_plain, q, k, v, **kw),
                         lib),
                 "bound_ms": b_ms, "bound_by": b_by,
-                "shape": [label, b, tq, tk, h, hd, q_offset, valid],
-                # prefill and decode are logged, not in the kernels line
-                "log_only": label != "embed",
+                "shape": [label, b, tq, tk, h, hd, q_offset, valid,
+                          str(dtype)[6:]],
+                # prefill and the float32 kernel (no served call takes it)
+                # are logged, not in the kernels line
+                "log_only": label == "prefill" or dtype == torch.float32,
             }
+    flash_strided(torch, g)
     return out
+
+
+def flash_strided(torch, g) -> None:
+    """bf16 K/V read through strides: a layer's slice of the stacked cache
+    (``init_caches``' (layers, B, S, K, hd)) and the K half of a fused
+    (B, S, 2, K, hd) buffer, in decode and prefill; and the 16-byte rule:
+    a K one element off its alignment raises."""
+    from repro_torch.kernels import flash_attention as kf
+
+    stack = torch.randn((3, 4, 384, 8, 64), generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+    fused = torch.randn((4, 384, 2, 8, 64), generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+    for name, k, v in (("stacked cache slice", stack[1], stack[2]),
+                       ("fused K/V halves", fused[:, :, 0], fused[:, :, 1])):
+        for tq, q_offset in ((1, 200), (70, 130)):
+            q = torch.randn((4, tq, 16, 64), generator=g, device="cuda",
+                            dtype=torch.bfloat16)
+            _, err = flash_check(torch, name, q, k, v, q_offset=q_offset,
+                                 kv_valid_len=q_offset + tq)
+            log(f"  flash_attention {name} strides {k.stride()} Tq={tq} "
+                f"q_offset={q_offset}: max |err| {err:.2e}")
+    flat = torch.zeros(4 * 384 * 8 * 64 + 1, device="cuda",
+                       dtype=torch.bfloat16)
+    k = flat[1:].view(4, 384, 8, 64)
+    try:
+        kf.flash_attention(torch.zeros((4, 1, 16, 64), device="cuda",
+                                       dtype=torch.bfloat16), k, k,
+                           q_offset=10, kv_valid_len=11)
+    except ValueError as e:
+        log(f"  flash_attention misaligned K raises: {e}")
+    else:
+        raise AssertionError("a misaligned K did not raise")
 
 
 def check_library(name: str, result, kernel_out) -> None:
@@ -549,6 +651,8 @@ def phase_times(torch, kernels: dict) -> None:
         rec["plain_ms"], rec["plain_stream_ms"] = time_ms(torch, plain,
                                                           reps=3)
         rec["library_ms"] = time_ms(torch, library)[0] if library else None
+        if rec["name"] == "flash_attention_split_kv":
+            rec["kernel_ms"] = kernel_times(torch, kernel)
         lib = (f", library (one PyTorch call) device "
                f"{rec['library_ms']:.4f} ms" if library else "")
         log(f"  {rec['name']} at {rec['shape']}: device {rec['ms']:.4f} ms "
@@ -556,7 +660,31 @@ def phase_times(torch, kernels: dict) -> None:
             f"{rec['plain_ms']:.4f} ms (stream-timed "
             f"{rec['plain_stream_ms']:.4f}){lib}, bound "
             f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        for name, ms in rec.get("kernel_ms", {}).items():
+            log(f"    of which {name[:70]}: device {ms:.4f} ms a call "
+                "(torch.profiler; a kernel launched early by programmatic "
+                "dependent launch counts its wait)")
     log(f"  clocks right after: {clocks()}")
+
+
+def kernel_times(torch, fn, reps: int = 20) -> dict:
+    """Device ms a call of ``fn`` by CUDA kernel, from ``torch.profiler``
+    over ``reps`` calls: how a call of several launches splits."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0:
+            out[e.key] = us / 1e3 / reps
+    return out
 
 
 def ids_match(a, b, scores_a, scores_b, tol: float = 1e-6) -> int:
@@ -1033,9 +1161,10 @@ def phase_ladder(torch, main: dict | None) -> dict:
     return {"launches": launches}
 
 
-def phase_rag(torch) -> dict:
+def phase_rag(torch, kernels: dict) -> dict:
     """LM serving with RAG at full width and depth; returns its launch
-    counts."""
+    counts.  ``kernels`` holds phase 2's records, whose device times give
+    the flash kernels' share of each step (not measured without them)."""
     import collections
 
     import numpy as np
@@ -1071,7 +1200,10 @@ def phase_rag(torch) -> dict:
         raise AssertionError("the module's parameters are not param_count()")
 
     launches: collections.Counter = collections.Counter()
-    tally = {name: {"calls": 0, "flash": 0, "s": 0.0}
+    variants = dict.fromkeys(("flash_attention_mma",
+                              "flash_attention_split_kv",
+                              "flash_attention_fma"), 0)
+    tally = {name: {"calls": 0, "flash": 0, "s": 0.0, **variants}
              for name in ("embed", "prefill", "decode")}
 
     def counted(name, fn):
@@ -1087,6 +1219,8 @@ def phase_rag(torch) -> dict:
             rec["s"] += time.perf_counter() - t0
             rec["calls"] += 1
             rec["flash"] += kbuild.LAUNCHES["flash_attention"]
+            for key in variants:
+                rec[key] += kbuild.LAUNCHES[key]
             launches.update(kbuild.LAUNCHES)
             return result
         return run
@@ -1182,12 +1316,34 @@ def phase_rag(torch) -> dict:
     log(f"  retrieval: {hits.size} ids in range, every context row its "
         f"document's tokens; first prompt's ids {hits[0].tolist()}")
 
+    # each step's flash kernel: its launches x its phase-2 device time at
+    # the step's shape (decode at 352 keys, the longest step)
+    taken = {"embed": ("flash_attention_mma", "flash_attention_mma"),
+             "prefill": ("flash_attention_mma",
+                         "flash_attention_mma_prefill"),
+             "decode": ("flash_attention_split_kv",
+                        "flash_attention_split_kv")}
     for name, rec in tally.items():
+        variant, record = taken[name]
+        counts = {key: rec[key] for key in variants}
         log(f"  {name}: {rec['calls']} calls, {rec['flash']} flash_attention "
-            f"launches")
+            f"launches {counts}")
         if rec["calls"] == 0 or rec["flash"] != cfg.n_layers * rec["calls"]:
             raise AssertionError(f"flash_attention did not launch "
                                  f"{cfg.n_layers} times a call in {name}")
+        if rec[variant] != rec["flash"]:
+            raise AssertionError(f"not every {name} call of flash_attention "
+                                 f"took {variant}: {counts}")
+        call_ms = rec["s"] / rec["calls"] * 1e3
+        if record in kernels:
+            flash_ms = cfg.n_layers * kernels[record]["ms"]
+            log(f"  {name}: {call_ms:.3f} ms a call, of which {variant} "
+                f"{flash_ms:.3f} ms ({cfg.n_layers} launches x "
+                f"{kernels[record]['ms']:.4f} ms device time, phase 2): "
+                f"{flash_ms / call_ms:.1%}")
+        else:
+            log(f"  {name}: {call_ms:.3f} ms a call; the flash kernel's "
+                "share not measured (phase 2 did not run)")
     log(f"  max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
     del engine, retriever, model
     torch.cuda.empty_cache()
@@ -1360,7 +1516,7 @@ def main(argv=None) -> int:
     if "rag" in phases:
         log("phase 7: LM serving with RAG, minicpm-2b at full width and "
             "depth")
-        paths.append(phase_rag(torch))
+        paths.append(phase_rag(torch, kernels))
     if "profile" in phases:
         log("phase 8: profile of build chunks at N=100000")
         phase_profile(torch)

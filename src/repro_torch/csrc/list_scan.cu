@@ -1,5 +1,5 @@
 // list_scan: symmetric 2-bit Sign-Magnitude similarity of every query to
-// every IVF list centroid.
+// every IVF list centroid, on the int8 tensor cores.
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/list_scan.py::_list_scan_kernel (pallas_call in
@@ -14,103 +14,215 @@
 //     partition assignment (Q = 8192 a chunk), the IVF-seeded build chunk
 //     and the nav="ivf" search batch (Q = 256); L ~ sqrt(N) (316 at 100k).
 //
-// Bound on an H100.  The scan reads (Q + L) * 8W bytes and writes Q * L * 4,
-// but does about 26 integer operations for each of its Q * L * W word pairs
-// (8 to form the planes, 6 ANDs, 6 popcounts, 6 adds): at (8192, 316, 24)
-// that is 17 MB against 1.6 G operations, and at the search batch's
-// (256, 316, 24) 0.4 MB against 50 M operations.  It is bound by the integer
-// pipes (popcount runs at a quarter of the int32 rate), not by memory.
+// The similarity is an exact integer dot product.  Decode each dimension
+// of a signature to its level: +-1 by sign, x2 where strong, 0 at a masked
+// padding bit.  Table 1's weight of a dimension pair is the product of the
+// two levels, so sim(q, c) = sum_d level_q[d] * level_c[d], |sim| <= 4D
+// (12 288 at D = 3072): int8 operands and int32 sums hold it exactly.
 //
-// Shared memory sets the design.  The whole centroid matrix is L * 8W bytes:
-// 60.7 KB at L = 316, D = 768, but 243 KB at D = 3072, more than the 227 KB a
-// block may hold, and 192 KB at the 1M scale's L = 1000.  So the centroids
-// are tiled: blockIdx.y picks a tile of kLTile centroids, blockIdx.x a tile of
-// kQTile queries.  A block loads its centroid tile into shared memory once
-// (coalesced: neighbouring threads load neighbouring words of the contiguous
-// tile) with the row stride padded to 2W + 1 words, so that thread l reading
-// row l hits distinct banks, and its kQTile query rows beside it.  Thread l
-// then keeps kQTile sums in registers, walks the W words, reads its
-// centroid's word pair once per word and every query's as a broadcast, and
-// writes out[q][l0 + l] for each query, coalesced over l.  Rows past Q or L
-// load as zeros and are never written.  The tile's shared memory is
-// (kLTile * (2W + 1) + kQTile * 2W + W) * 4 bytes, 105 KB at D = 3072: above
-// 48 KB the launch raises the block's dynamic shared-memory limit first.
+// Bound on an H100.  The scan reads (Q + L) * 8W bytes and writes Q * L * 4;
+// as an int8 product it is 2 * Q * L * D operations at 1 979 TOP/s.  At
+// (8192, 316, 768) that is 17 MB (5.0 us) against 4.0 G operations (2.0 us),
+// at the search batch's (256, 316, 768) 0.4 MB (0.12 us) against 0.12 G
+// (0.06 us): the bytes bound it, and at Q = 256 the card is mostly waiting
+// on latency.
+//
+// Design.  One block of 4 warps per (BM queries x BN centroids) output tile:
+// 16 x 32 when the card would otherwise hold few tiles (Q = 256, L = 316:
+// 160 blocks), 64 x 64 when there are at least two such tiles an SM
+// (Q = 8192: 640 blocks).  The block walks D in chunks of 128 dimensions:
+// its threads read the chunk's words (4 a plane a row) of its BM query rows
+// and BN centroid rows, decode them to int8 levels (four dimensions a
+// 32-bit lane: bits spread to bytes by a multiply, |level| = m + (m & s),
+// the sign by a byte select) and store them straight into shared memory,
+// rows padded by 16 bytes, which puts the 8 rows an ldmatrix reads in 8
+// distinct groups of 4 banks.  Two buffers: the next chunk is decoded while
+// the tensor cores take this one, one barrier a chunk.  No decoded matrix
+// goes to device memory.  Each warp owns a 16-row strip of the tile and
+// accumulates it with mma.sync.m16n8k32.row.col.s32.s8.s8.s32, A (queries)
+// and B (centroids, whose rows are the col-major operand as they lie) read
+// with ldmatrix.  Rows past Q or L decode as zero levels and are not
+// written; dimensions past D decode as zero (their mask bits are 0).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bq_sim.cuh"
-
 namespace {
 
-constexpr int kLTile = 128;  // centroids a block, one a thread
-constexpr int kQTile = 8;    // queries a block, one register sum each
+constexpr int kThreads = 128;            // 4 warps
+constexpr int kChunk = 128;              // dimensions a k-chunk
+constexpr int kWords = kChunk / 32;      // words a plane a row in a chunk
+constexpr int kRowBytes = kChunk + 16;   // padded shared-memory row
 
-__global__ void list_scan_kernel(const uint32_t* __restrict__ q,
-                                 const uint32_t* __restrict__ cent,
-                                 const uint32_t* __restrict__ mask,
-                                 int32_t* __restrict__ out, int n_q, int n_l,
-                                 int w) {
-  // [centroid tile (kLTile rows, stride 2w + 1) | query tile (kQTile rows,
-  //  stride 2w) | mask (w)]
-  extern __shared__ uint32_t sm[];
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x2(uint32_t r[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+// c (16 x 8, s32) += a (16 x 32, s8, row) . b (32 x 8, s8, col)
+__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// bits 0..3 of x -> the low bit of bytes 0..3
+__device__ __forceinline__ uint32_t spread4(uint32_t x) {
+  return ((x & 0xFu) * 0x00204081u) & 0x01010101u;
+}
+
+// the int8 levels of dimensions 4i .. 4i + 3 of one word, byte t for
+// dimension 4i + t: (+1 where the sign bit is set, else -1) x (2 where
+// strong, else 1), 0 where the mask bit is clear
+__device__ __forceinline__ uint32_t levels4(uint32_t p, uint32_t s,
+                                            uint32_t m, int i) {
+  const uint32_t pb = spread4(p >> (4 * i));
+  const uint32_t sb = spread4(s >> (4 * i));
+  const uint32_t mb = spread4(m >> (4 * i));
+  const uint32_t mag = mb + (mb & sb);  // 0, 1 or 2 a byte
+  const uint32_t sel = pb * 0xFFu;      // 0xFF where the sign bit is set
+  return (mag & sel) | (__vsub4(0u, mag) & ~sel);
+}
+
+template <int BM, int BN>
+__global__ void __launch_bounds__(kThreads)
+    list_scan_kernel(const uint32_t* __restrict__ q,
+                     const uint32_t* __restrict__ cent,
+                     const uint32_t* __restrict__ mask,
+                     int32_t* __restrict__ out, int n_q, int n_l, int w) {
+  constexpr int WARPS_M = BM / 16;
+  constexpr int WARPS_N = (kThreads / 32) / WARPS_M;
+  constexpr int WN = BN / WARPS_N;  // columns a warp
+  constexpr int NT = WN / 8;        // n-tiles a warp
+  constexpr int ROWS = BM + BN;
+  static_assert(WARPS_M * WARPS_N * 32 == kThreads && WN % 8 == 0, "tile");
+  __shared__ __align__(16) int8_t sm[2][ROWS][kRowBytes];
+
+  const long long q0 = (long long)blockIdx.x * BM;
+  const long long l0 = (long long)blockIdx.y * BN;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp % WARPS_M, wn = warp / WARPS_M;
   const int ww = 2 * w;
-  const int stride = ww + 1;
-  uint32_t* sq = sm + kLTile * stride;
-  uint32_t* smask = sq + kQTile * ww;
-  const long long q0 = (long long)blockIdx.x * kQTile;
-  const long long l0 = (long long)blockIdx.y * kLTile;
+  const int n_chunks = (w + kWords - 1) / kWords;
 
-  for (int e = threadIdx.x; e < kLTile * ww; e += blockDim.x) {
-    const int row = e / ww, word = e - row * ww;
-    sm[row * stride + word] = (l0 + row < n_l) ? cent[l0 * ww + e] : 0u;
-  }
-  for (int e = threadIdx.x; e < kQTile * ww; e += blockDim.x) {
-    const int row = e / ww;
-    sq[e] = (q0 + row < n_q) ? q[q0 * ww + e] : 0u;
-  }
-  for (int i = threadIdx.x; i < w; i += blockDim.x) smask[i] = mask[i];
+  // decode chunk c of every row of the tile into buffer buf
+  auto stage = [&](int c, int buf) {
+    for (int e = tid; e < ROWS * kWords; e += kThreads) {
+      const int row = e / kWords, t = e % kWords;
+      const int word = c * kWords + t;
+      const bool is_q = row < BM;
+      const long long g = is_q ? q0 + row : l0 + (row - BM);
+      uint32_t p = 0u, s = 0u, m = 0u;
+      if (word < w && g < (is_q ? n_q : n_l)) {
+        const uint32_t* src = (is_q ? q : cent) + g * ww;
+        p = src[word];
+        s = src[w + word];
+        m = mask[word];
+      }
+      uint4* dst = reinterpret_cast<uint4*>(&sm[buf][row][t * 32]);
+      dst[0] = make_uint4(levels4(p, s, m, 0), levels4(p, s, m, 1),
+                          levels4(p, s, m, 2), levels4(p, s, m, 3));
+      dst[1] = make_uint4(levels4(p, s, m, 4), levels4(p, s, m, 5),
+                          levels4(p, s, m, 6), levels4(p, s, m, 7));
+    }
+  };
+
+  int acc[NT][4];
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0;
+
+  stage(0, 0);
   __syncthreads();
-
-  const int l = threadIdx.x;
-  const uint32_t* rc = sm + l * stride;
-  int sim[kQTile];
+  for (int c = 0; c < n_chunks; ++c) {
+    if (c + 1 < n_chunks) stage(c + 1, (c + 1) & 1);
+    const int buf = c & 1;
 #pragma unroll
-  for (int j = 0; j < kQTile; ++j) sim[j] = 0;
-  for (int t = 0; t < w; ++t) {
-    const uint32_t cp = rc[t], cs = rc[w + t], m = smask[t];
+    for (int ks = 0; ks < kChunk / 32; ++ks) {
+      uint32_t a[4];
+      ldmatrix_x4(a,
+                  &sm[buf][wm * 16 + lane % 16][ks * 32 + (lane / 16) * 16]);
 #pragma unroll
-    for (int j = 0; j < kQTile; ++j)
-      sim[j] += sim_word(sq[j * ww + t], sq[j * ww + w + t], cp, cs, m);
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4(b, &sm[buf][BM + wn * WN + np * 16 + lane % 8 +
+                                (lane / 16) * 8]
+                          [ks * 32 + ((lane / 8) % 2) * 16]);
+        mma_s8(acc[2 * np], a, b[0], b[1]);
+        mma_s8(acc[2 * np + 1], a, b[2], b[3]);
+      }
+      if (NT % 2) {
+        uint32_t b[2];
+        ldmatrix_x2(b, &sm[buf][BM + wn * WN + (NT - 1) * 8 + lane % 8]
+                          [ks * 32 + ((lane / 8) % 2) * 16]);
+        mma_s8(acc[NT - 1], a, b[0], b[1]);
+      }
+    }
+    __syncthreads();  // this buffer is free for chunk c + 2
   }
-  if (l0 + l >= n_l) return;
+
 #pragma unroll
-  for (int j = 0; j < kQTile; ++j)
-    if (q0 + j < n_q) out[(q0 + j) * n_l + l0 + l] = sim[j];
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const long long row = q0 + wm * 16 + lane / 4 + half * 8;
+      const long long col = l0 + wn * WN + t * 8 + (lane % 4) * 2;
+      if (row >= n_q) continue;
+      if (col < n_l) out[row * n_l + col] = acc[t][2 * half];
+      if (col + 1 < n_l) out[row * n_l + col + 1] = acc[t][2 * half + 1];
+    }
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 132;
+  }
+  return n;
+}
+
+template <int BM, int BN>
+void launch(const void* q, const void* cent, const void* mask, void* out,
+            int n_q, int n_l, int w, cudaStream_t stream) {
+  const dim3 grid((n_q + BM - 1) / BM, (n_l + BN - 1) / BN);
+  list_scan_kernel<BM, BN><<<grid, kThreads, 0, stream>>>(
+      (const uint32_t*)q, (const uint32_t*)cent, (const uint32_t*)mask,
+      (int32_t*)out, n_q, n_l, w);
 }
 
 }  // namespace
 
 // q: (n_q, 2w) words; cent: (n_l, 2w) words; mask: (w) words;
-// out: (n_q, n_l) int32.  Returns cudaGetLastError() after the launch, or the
-// error of a shared-memory request above the card's limit (w > ~220).
+// out: (n_q, n_l) int32.  Any n_q, any n_l up to 65 535 * 32, any w.
+// Returns cudaGetLastError() after the launch.
 extern "C" int quiver_list_scan(const void* q, const void* cent,
                                 const void* mask, void* out, int n_q, int n_l,
                                 int w, void* stream) {
   if (n_q > 0 && n_l > 0) {
-    const size_t smem =
-        ((size_t)kLTile * (2 * w + 1) + (size_t)kQTile * 2 * w + w) *
-        sizeof(uint32_t);
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          list_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    const dim3 grid((n_q + kQTile - 1) / kQTile, (n_l + kLTile - 1) / kLTile);
-    list_scan_kernel<<<grid, kLTile, smem, (cudaStream_t)stream>>>(
-        (const uint32_t*)q, (const uint32_t*)cent, (const uint32_t*)mask,
-        (int32_t*)out, n_q, n_l, w);
+    const long long big = (long long)((n_q + 63) / 64) * ((n_l + 63) / 64);
+    if (big >= 2LL * sm_count())
+      launch<64, 64>(q, cent, mask, out, n_q, n_l, w, (cudaStream_t)stream);
+    else
+      launch<16, 32>(q, cent, mask, out, n_q, n_l, w, (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }

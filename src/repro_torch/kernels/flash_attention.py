@@ -1,8 +1,8 @@
 """flash_attention: masked softmax attention with the online max/denominator
 recurrence, for every attention call of the LM (embed, prefill, decode).
 
-The CUDA kernel in ``csrc/flash_attention.cu`` replaces the Pallas TPU
-kernel ``repro/kernels/flash_attention.py::_flash_kernel``.  It computes
+The CUDA kernels in ``csrc/flash_attention.cu`` replace the Pallas TPU
+kernel ``repro/kernels/flash_attention.py::_flash_kernel``.  They compute
 the model layer's function (``repro/models/attention.py::flash_attention``),
 of which the Pallas kernel is the case ``q_offset = 0``,
 ``kv_valid_len = kv_len``::
@@ -15,14 +15,34 @@ of which the Pallas kernel is the case ``q_offset = 0``,
 Masked scores are -1e30 (not -inf), as in both references; sums are
 float32 and the output has ``q``'s dtype.  The scale multiplies the
 scores, as the model layer does (the Pallas kernel scales ``q`` first;
-the two round differently, within the tolerance).  The kernel reads the
+the two round differently, within the tolerance).  The kernels read the
 model's ``(B, T, heads, hd)`` layout through its strides (the last axis
-contiguous), so a KV cache slice needs no copy, and it indexes the KV head
+contiguous), so a KV cache slice needs no copy, and index the KV head
 as ``h // (H/K)``, so GQA needs no repeated K/V.
 
-Each entry point follows ``q``'s device: a CPU tensor takes the plain
+The entry point follows ``q``'s device: a CPU tensor takes the plain
 version (:func:`flash_attention_plain`, the naive masked softmax in
-float32), a CUDA tensor launches the kernel or raises.
+float32), a CUDA tensor launches one of the three kernels of
+``csrc/flash_attention.cu`` or raises.  On the card the kernel is chosen by
+dtype and by Tq, and nothing else:
+
+* bf16 q, k and v, Tq > 1 (embed and prefill): the tensor-core kernel
+  (``flash_mma_kernel``: ``mma.sync`` bf16 products, K/V tiles in a
+  2-stage ``cp.async`` ring, P rounded to bf16 before P V, as
+  FlashAttention-2 and SDPA do);
+* bf16 q, k and v, Tq = 1 (decode): the split-KV kernel
+  (``flash_split_kernel`` over splits of :data:`SPLIT_KEYS` keys, then
+  ``flash_merge_kernel``), whose arithmetic
+  :func:`flash_decode_split_plain` mirrors;
+* float32 q over float32 or bf16 k/v: the CUDA-core kernel (``simt::
+  flash_kernel``, float32 FMAs; TF32 tensor cores would keep about 3
+  digits, outside the float32 tolerance of 2e-3).
+
+bf16 q over float32 k/v raises.  The bf16 kernels copy rows in 16-byte
+vectors, so they raise on a pointer, or a batch, position or head stride,
+that does not keep every row on a 16-byte boundary.  Each call adds one
+to ``build.LAUNCHES["flash_attention"]`` and one to the count of the
+kernel it took (:data:`VARIANTS`).
 """
 
 from __future__ import annotations
@@ -38,6 +58,13 @@ NEG_INF = -1e30
 # configs' 16, the reference's kernel tests' 32 and 64)
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# keys a decode split (the kernels' kKeys)
+SPLIT_KEYS = 64
+LOG2E = 1.4426950408889634
+# launch-count keys of the three kernels, by route
+VARIANTS = {"mma": "flash_attention_mma",
+            "split_kv": "flash_attention_split_kv",
+            "fma": "flash_attention_fma"}
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, q_offset: int = 0,
@@ -64,6 +91,49 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, q_offset: int = 0,
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
 
 
+def flash_decode_split_plain(q, k, v, *, causal: bool = True,
+                             q_offset: int = 0,
+                             kv_valid_len: int | None = None,
+                             split_keys: int = SPLIT_KEYS) -> torch.Tensor:
+    """The split-KV decode's arithmetic in float32, for Tq = 1: the keys
+    ``[0, min(kv_valid_len, Tk))`` cut into splits of ``split_keys``; each
+    split's (m, l, o) over its visible keys, on scores scaled by
+    ``hd^-0.5 * log2 e`` and exponentiated with exp2 (a split with no
+    visible key has m = -1e30, l = 0, o = 0); then the merge, which rescales
+    each split by exp2(m_s - m).  Returns ``q``'s dtype."""
+    b, tq, h, hd = q.shape
+    if tq != 1:
+        raise ValueError(f"the split-KV decode takes Tq = 1, got {tq}")
+    tk, kh = k.shape[1], k.shape[2]
+    kv_end = min(tk if kv_valid_len is None else kv_valid_len, tk)
+    last = min(kv_end, q_offset + 1) if causal else kv_end
+    g = h // kh
+    scale = hd ** -0.5 * LOG2E
+    qf = q[:, 0].float().reshape(b, kh, g, hd)
+    ms, ls, os = [], [], []
+    for j0 in range(0, kv_end, split_keys):
+        n_vis = max(0, min(split_keys, last - j0))
+        if n_vis == 0:
+            ms.append(torch.full((b, kh, g), NEG_INF, device=q.device))
+            ls.append(torch.zeros((b, kh, g), device=q.device))
+            os.append(torch.zeros((b, kh, g, hd), device=q.device))
+            continue
+        s = torch.einsum("bkgd,bnkd->bkgn", qf,
+                         k[:, j0:j0 + n_vis].float()) * scale
+        m = s.amax(dim=-1)
+        p = torch.exp2(s - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        os.append(torch.einsum("bkgn,bnkd->bkgd", p,
+                               v[:, j0:j0 + n_vis].float()))
+    m = torch.stack(ms, dim=-1)                       # (b, kh, g, splits)
+    w = torch.exp2(m - m.amax(dim=-1, keepdim=True))
+    den = (torch.stack(ls, dim=-1) * w).sum(dim=-1)
+    o = (torch.stack(os, dim=-2) * w[..., None]).sum(dim=-2)
+    o = o / den.clamp_min(1e-30)[..., None]
+    return o.reshape(b, 1, h, hd).to(q.dtype)
+
+
 def _check(q, k, v, q_offset: int, kv_valid_len: int) -> None:
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"q must be (B, Tq, H, hd) and k, v (B, Tk, K, hd); "
@@ -87,15 +157,41 @@ def _check(q, k, v, q_offset: int, kv_valid_len: int) -> None:
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_float
+    strides = [ll] * 9                # q, k, v strides (b, t, h)
     lib.quiver_flash_attention.argtypes = [
-        p, p, p, p, i, i,             # q, k, v, out, q dtype, kv dtype
+        p, p, p, p, i,                # q, k, v, out, kv dtype
         i, i, i, i, i, i,             # b, tq, tk, h, kh, hd
-        ll, ll, ll, ll, ll, ll, ll, ll, ll,   # q, k, v strides (b, t, h)
-        i, i, i, ctypes.c_float, p,   # causal, q_offset, kv_valid_len,
+        *strides, i, i, i, f, p,      # causal, q_offset, kv_valid_len,
     ]                                 # scale, stream
-    lib.quiver_flash_attention.restype = i
+    lib.quiver_flash_attention_mma.argtypes = [
+        p, p, p, p, i, i, i, i, i, i, *strides, i, i, i, f, p]
+    lib.quiver_flash_decode_split.argtypes = [
+        p, p, p, p, p, p, i,          # q, k, v, out, part_o, part_ml, splits
+        i, i, i, i, i,                # b, tk, h, kh, hd
+        ll, ll, *[ll] * 6,            # q (b, h), k and v (b, t, h) strides
+        i, i, i, f, p]
+    for fn in (lib.quiver_flash_attention, lib.quiver_flash_attention_mma,
+               lib.quiver_flash_decode_split):
+        fn.restype = i
     return lib
+
+
+def _check_vectors(*named) -> None:
+    """The bf16 kernels copy rows in 16-byte vectors (8 bf16): each base
+    pointer, and each stride of a batch, position or head axis longer than
+    1, must keep rows on a 16-byte boundary."""
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}'s data pointer is not 16-byte aligned, "
+                             "which the bf16 kernels' 16-byte copies need")
+        for dim in range(3):
+            if t.shape[dim] > 1 and t.stride(dim) % 8:
+                raise ValueError(
+                    f"{name}'s stride {t.stride(dim)} of axis {dim} is not a "
+                    "multiple of 8 elements (16 bytes), which the bf16 "
+                    "kernels' 16-byte copies need")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -125,14 +221,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"{name}'s head axis must be contiguous")
     out = torch.empty((b, tq, h, hd), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    status = _lib().quiver_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], _DTYPES[k.dtype], b, tq, tk, h, kh, hd,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        int(causal), q_offset, kv_valid_len, hd ** -0.5, stream,
-    )
+    strides = (q.stride(0), q.stride(1), q.stride(2),
+               k.stride(0), k.stride(1), k.stride(2),
+               v.stride(0), v.stride(1), v.stride(2))
+    masking = (int(causal), q_offset, kv_valid_len, hd ** -0.5)
+    if q.dtype == torch.float32:
+        variant = "fma"
+        status = _lib().quiver_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPES[k.dtype], b, tq, tk, h, kh, hd, *strides, *masking, stream)
+    else:
+        _check_vectors(("q", q), ("k", k), ("v", v))
+        if tq == 1:
+            variant = "split_kv"
+            n_split = -(-kv_valid_len // SPLIT_KEYS)
+            part_o = torch.empty((b, h, n_split, hd), dtype=torch.float32,
+                                 device=q.device)
+            part_ml = torch.empty((b, h, n_split, 2), dtype=torch.float32,
+                                  device=q.device)
+            status = _lib().quiver_flash_decode_split(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                part_o.data_ptr(), part_ml.data_ptr(), n_split, b, tk, h, kh,
+                hd, strides[0], strides[2], *strides[3:], *masking, stream)
+        else:
+            variant = "mma"
+            status = _lib().quiver_flash_attention_mma(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                tq, tk, h, kh, hd, *strides, *masking, stream)
     build.LAUNCHES["flash_attention"] += 1
-    build.check(status, "flash_attention")
+    build.LAUNCHES[VARIANTS[variant]] += 1
+    build.check(status, f"flash_attention ({variant})")
     return out

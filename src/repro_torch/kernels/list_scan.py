@@ -5,13 +5,17 @@ The CUDA kernel ``csrc/list_scan.cu`` replaces the Pallas TPU kernel
 against ``(L, 2W)`` centroid words -> ``(Q, L)`` int32 **positive** Table-1
 similarity (larger = nearer), the IVF layer's coarse-routing primitive.
 Unlike the Pallas kernel, whose caller pads Q to 8 and L to 128 with zero
-signatures, it takes any Q and L and masks the ragged edges itself, and it
-tiles the centroids, so no L is too large for a block's shared memory.
+signatures, it takes any Q and L and masks the ragged edges itself.
+
+The similarity is the integer dot product of the signatures' levels
+(:func:`int8_levels`: +-1 by sign, x2 where strong, 0 at a masked padding
+bit), which the kernel decodes into shared memory chunk by chunk and
+multiplies on the int8 tensor cores (``mma.sync`` m16n8k32, int32 sums).
 
 :func:`scan` follows the tensors' device: CPU tensors take the plain version
-:func:`scan_plain` (a matmul of the decoded +-1/+-2 levels, exact in
-float32), CUDA tensors launch the kernel.  Results are integers, so kernel
-and plain version agree exactly.
+:func:`scan_plain` (a matmul of the same levels, exact in float32), CUDA
+tensors launch the kernel.  Results are integers, so kernel and plain
+version agree exactly.
 """
 
 from __future__ import annotations
@@ -22,6 +26,14 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.bq_distance import _check, masked_levels
+
+
+def int8_levels(words, mask) -> torch.Tensor:
+    """(R, 2W) words -> (R, 32W) int8 levels in the kernel's layout: the
+    level of dimension 32w + i (bit i of word w of each plane) in column
+    32w + i, +-1 by the sign bit, x2 where the strong bit is set, 0 past
+    the valid bits.  A similarity is the integer dot product of two rows."""
+    return masked_levels(words, mask).to(torch.int8)
 
 
 def scan_plain(q_words, cent_words, mask) -> torch.Tensor:

@@ -85,11 +85,12 @@ def test_pairwise_matches_plain(cuda, dim, c):
     assert torch.equal(got, kd.pairwise_plain(ids, table, mask))
 
 
-@pytest.mark.parametrize("dim", [100, 384, 768, 1536, 3072])
+@pytest.mark.parametrize("dim", [64, 100, 384, 768, 1536, 3072])
 @pytest.mark.parametrize("n_lists", [45, 316, 1000])
-@pytest.mark.parametrize("n_q", [256, 8193])
+@pytest.mark.parametrize("n_q", [1, 256, 8193])
 def test_list_scan_matches_plain(cuda, dim, n_lists, n_q):
-    # L * 8W bytes of centroids exceed a block's shared memory at D = 3072
+    # one query, both tile shapes (16 x 32 and 64 x 64), ragged edges, and
+    # up to 96 k-chunks at D = 3072
     table = _table(n_q + n_lists, dim, dim + n_lists + n_q, cuda)
     q, cent = table[:n_q], table[n_q:]
     mask = bq.valid_mask(dim, device=cuda)
@@ -215,6 +216,21 @@ FLASH_CASES = {
     "short_queries": (2, 5, 200, 4, 2, 16, True, 150, 155),
     "hd16": (2, 96, 96, 4, 2, 16, True, 0, 96),
     "hd128": (1, 65, 129, 4, 4, 128, True, 0, 129),
+    # decode: kv_valid_len before, on and after a 64-key split boundary
+    "decode_one_key": (2, 1, 128, 4, 4, 64, True, 0, 1),
+    "decode_before_split": (2, 1, 128, 4, 4, 64, True, 62, 63),
+    "decode_on_split": (2, 1, 128, 4, 4, 64, True, 63, 64),
+    "decode_after_split": (2, 1, 128, 4, 4, 64, True, 64, 65),
+    # q_offset 5 hides keys 6..199: splits 1..3 see no key
+    "decode_masked_splits": (2, 1, 256, 8, 2, 64, True, 5, 200),
+    "decode_long_cache": (1, 1, 4096, 8, 8, 64, True, 4095, 4096),
+    "decode_gqa_group4": (3, 1, 256, 16, 4, 64, True, 200, 201),
+    "decode_hd16": (2, 1, 200, 8, 4, 16, True, 150, 151),
+    "decode_hd32": (2, 1, 200, 8, 4, 32, True, 150, 151),
+    "decode_hd128": (2, 1, 200, 8, 4, 128, True, 150, 151),
+    "decode_bidirectional": (2, 1, 150, 4, 2, 32, False, 0, 130),
+    "prefill_offset_ragged": (2, 70, 256, 8, 4, 64, True, 100, 170),
+    "embed_ragged": (4, 45, 45, 8, 8, 64, True, 0, 45),
 }
 
 
@@ -232,6 +248,11 @@ def test_flash_attention_matches_plain(cuda, case, dtype):
     build.reset_launches()
     got = kf.flash_attention(q, k, v, **kw)
     assert build.LAUNCHES["flash_attention"] == 1
+    # one launch of the kernel the dtype and Tq select, none of the others
+    variant = "fma" if dtype == torch.float32 else (
+        "split_kv" if tq == 1 else "mma")
+    assert {key: build.LAUNCHES[name] for key, name in kf.VARIANTS.items()} \
+        == {key: int(key == variant) for key in kf.VARIANTS}
     want = kf.flash_attention_plain(q, k, v, **kw)
     assert got.dtype == dtype and got.shape == q.shape
     tol = dict(rtol=2e-3, atol=2e-3) if dtype == torch.float32 \
@@ -253,6 +274,63 @@ def test_flash_attention_reads_cache_slices_and_mixed_dtypes(cuda):
                                     kv_valid_len=41)
     assert got.dtype == torch.float32
     torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("case", sorted(c for c in FLASH_CASES
+                                         if FLASH_CASES[c][1] == 1))
+def test_flash_split_kv_matches_its_mirror(cuda, case):
+    """The split-KV decode against the float32 mirror of its arithmetic
+    (``flash_decode_split_plain``) on the same bf16 inputs, within 2e-2."""
+    b, tq, tk, h, kvh, hd, causal, q_offset, valid = FLASH_CASES[case]
+    g = torch.Generator().manual_seed(tk + valid)
+    q = torch.randn((b, tq, h, hd), generator=g).to(cuda, torch.bfloat16)
+    k = torch.randn((b, tk, kvh, hd), generator=g).to(cuda, torch.bfloat16)
+    v = torch.randn((b, tk, kvh, hd), generator=g).to(cuda, torch.bfloat16)
+    kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=valid)
+    got = kf.flash_attention(q, k, v, **kw)
+    want = kf.flash_decode_split_plain(q, k, v, **kw)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("tq,q_offset", [(1, 200), (70, 130)])
+def test_flash_attention_reads_bf16_cache_slices(cuda, tq, q_offset):
+    """bf16 K/V through strides: a layer's slice of the stacked cache and
+    the halves of a fused (B, S, 2, K, hd) buffer, in decode (split-KV)
+    and prefill (tensor cores)."""
+    g = torch.Generator().manual_seed(tq)
+    stack = torch.randn((3, 2, 256, 2, 64), generator=g).to(cuda,
+                                                            torch.bfloat16)
+    fused = torch.randn((2, 256, 2, 2, 64), generator=g).to(cuda,
+                                                            torch.bfloat16)
+    q = torch.randn((2, tq, 8, 64), generator=g).to(cuda, torch.bfloat16)
+    kw = dict(q_offset=q_offset, kv_valid_len=q_offset + tq)
+    for k, v in ((stack[1], stack[2]), (fused[:, :, 0], fused[:, :, 1])):
+        got = kf.flash_attention(q, k, v, **kw)
+        want = kf.flash_attention_plain(q, k.contiguous(), v.contiguous(),
+                                        **kw)
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=2e-2)
+
+
+def test_flash_attention_rejects_misaligned_bf16_rows(cuda):
+    """The bf16 kernels copy 16-byte vectors: a K one element off its
+    alignment, or a position stride that is not a multiple of 8, raises
+    before any launch."""
+    n = 2 * 64 * 2 * 64
+    flat = torch.zeros(n + 1, device=cuda, dtype=torch.bfloat16)
+    k = flat[1:].view(2, 64, 2, 64)
+    q = torch.zeros((2, 1, 4, 64), device=cuda, dtype=torch.bfloat16)
+    build.reset_launches()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kf.flash_attention(q, k, k, q_offset=10, kv_valid_len=11)
+    wide = torch.zeros((2, 64, 2 * 64 + 4), device=cuda,
+                       dtype=torch.bfloat16)
+    v = wide[:, :, :128].unflatten(2, (2, 64))
+    with pytest.raises(ValueError, match="multiple of 8 elements"):
+        kf.flash_attention(q.expand(2, 5, 4, 64), v, v, q_offset=10,
+                           kv_valid_len=15)
+    assert sum(build.LAUNCHES.values()) == 0
 
 
 def test_flash_attention_rejects_what_it_does_not_take(cuda):

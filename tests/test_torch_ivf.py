@@ -117,6 +117,35 @@ def test_scan_plain_matches_reference(dim, q, el):
     assert torch.equal(bound, got) and sum(build.LAUNCHES.values()) == 0
 
 
+@pytest.mark.parametrize("dim", [64, 100, 384, 768, 3072])
+@pytest.mark.parametrize("q,el", [(7, 45), (19, 130)])
+def test_int8_levels_give_the_reference_similarities(dim, q, el):
+    """The int8 levels the tensor-core kernel stages, multiplied as
+    integers, give exactly the Pallas kernel's (interpret mode) and
+    ``repro.core.bq``'s similarities."""
+    rng = np.random.default_rng(dim + q)
+    x = rng.standard_normal((q + el, dim)).astype(np.float32)
+    sig = jbq.encode(jnp.asarray(x))
+    words = np.asarray(sig.words)
+    qw, cw = words[:q], words[q:]
+    mask = bq.valid_mask(dim)
+    lq = list_scan.int8_levels(_t(qw), mask)
+    lc = list_scan.int8_levels(_t(cw), mask)
+    assert lq.dtype == torch.int8 and lq.shape == (q, 32 * mask.shape[0])
+    assert set(lq.unique().tolist()) <= {-2, -1, 0, 1, 2}
+    assert not lq[:, dim:].any()
+    got = (lq.long() @ lc.long().T).numpy()
+    want = -np.asarray(jbq.pairwise_distance(
+        jbq.Signature(jnp.asarray(qw), dim), jbq.Signature(jnp.asarray(cw),
+                                                           dim)))
+    np.testing.assert_array_equal(got, want)
+    qp = np.pad(qw, ((0, -q % 8), (0, 0)))
+    cp = np.pad(cw, ((0, -el % 128), (0, 0)))
+    pallas = list_scan_pallas(jnp.asarray(qp), jnp.asarray(cp),
+                              jbq.valid_mask(dim), dim=dim, interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(pallas)[:q, :el])
+
+
 def test_scan_checks_inputs():
     mask = bq.valid_mask(100)
     cent = torch.zeros((5, 8), dtype=torch.int32)
