@@ -17,7 +17,8 @@ Phases, in order; any failure raises and the script exits nonzero:
               (D in {100, 384, 768, 1536, 3072}, ragged N; sign words exact,
               strong bits only within 4 ulp of tau), ``bq_dist_rows``
               (K from the IVF build's top-up of 32 to a search batch's
-              50 880 gathered list members), ``bq_pairwise`` and
+              50 880 gathered list members), ``bq_pairwise`` (C = 72,
+              consolidation's pool, and 128, a build chunk's) and
               ``list_scan`` (D in {64, 100, 384, 768, 1536, 3072}, L in
               {45, 316, 1000}, Q in {1, 256, 8193}), ``hamming_dist_rows``
               and ``hamming_pairwise`` (D in {64, 100, 384, 768, 1536},
@@ -39,7 +40,10 @@ Phases, in order; any failure raises and the script exits nonzero:
               PyTorch call's time (a matmul for the distance kernels,
               ``scaled_dot_product_attention`` for flash) on those
               main-path inputs: device time and stream time (see
-              ``time_ms``).
+              ``time_ms``); logged beside them, not in the kernels line:
+              ``bq_dist_rows`` at K = 34 080 and 50 880 (the IVF build
+              chunk and search batch), ``bq_pairwise`` at C = 72, and
+              ``list_scan`` at Q = 8192.
 3. parity   — the same N = 4000 builds and searches on ``device="cpu"`` and
               on the card, beam-searched and IVF-seeded: identical
               partition, adjacency, medoid and candidate ids; and
@@ -56,7 +60,8 @@ Phases, in order; any failure raises and the script exits nonzero:
               build, search at k = 10, ef = 64, recall@10 against exact
               search (gate 0.80), save, load, search again (identical
               ids).  Launch counts are reset just before this phase and
-              read just after; every kernel must have launched.
+              read just after; every kernel must have launched, and
+              the ``bq_pairwise`` launches are printed by pool size.
 5. ivf      — the IVF path at the same size: ``BuildParams(
               ivf_candidates=True)``, partition and linking timed apart;
               search ``nav="bq2"`` at ef = 64 (recall gate 0.80) and
@@ -96,7 +101,8 @@ Phases, in order; any failure raises and the script exits nonzero:
               (its launches x its phase-2 device time).
 An opt-in eighth phase, ``profile``, is not run by default: it profiles a
 few build chunks at the main path's size with ``torch.profiler`` and
-prints the device's busy share and device time by kernel.
+prints the device's busy share, device time by kernel, and the port's own
+kernels' share of it.
 
 The last three lines of standard output are the card's name and power
 limit (``nvidia-smi``), one JSON line of per-kernel numbers (``launches``
@@ -266,7 +272,7 @@ def phase_kernels(torch) -> dict:
             if not torch.equal(got, want):
                 raise AssertionError(f"bq_dist_rows differs at D={dim} K={k}")
             log(f"  bq_dist_rows B=256 K={k} D={dim}: exact")
-            if dim == 768 and k in (72, 71 * 480):
+            if dim == 768 and k in (72, 71 * 480, 106 * 480):
                 uniq = torch.unique(ids).numel()
                 nb = uniq * 8 * w + ids.numel() * 4 + q.numel() * 4 \
                     + w * 4 + got.numel() * 4
@@ -290,8 +296,8 @@ def phase_kernels(torch) -> dict:
                             partial(torch.bmm, lr, lq)),
                     "bound_ms": b_ms, "bound_by": b_by,
                     "shape": [256, k, dim],
-                    # the IVF build chunk's shape: logged, not in the
-                    # kernels line
+                    # the IVF build chunk's and search batch's shapes:
+                    # logged, not in the kernels line
                     "log_only": k != 72,
                 }
         for c in (72, 128):
@@ -302,7 +308,7 @@ def phase_kernels(torch) -> dict:
             if not torch.equal(got, want):
                 raise AssertionError(f"bq_pairwise differs at D={dim} C={c}")
             log(f"  bq_pairwise B=256 C={c} D={dim}: exact")
-            if dim == 768 and c == 128:
+            if dim == 768:
                 uniq = torch.unique(ids).numel()
                 nb = uniq * 8 * w + ids.numel() * 4 + w * 4 + got.numel() * 4
                 b_ms, b_by = bound(nb, 2 * got.numel() * dim,
@@ -310,7 +316,10 @@ def phase_kernels(torch) -> dict:
                 lp = kd.masked_levels(table[ids.long()], mask)
                 lpt = lp.transpose(1, 2)
                 check_library("bq_pairwise", torch.bmm(lp, lpt), got)
-                out["bq_pairwise"] = {
+                # a build chunk's pool (prune_pool); consolidation's pool
+                # (R_total) is logged, not in the kernels line
+                key = "bq_pairwise" if c == 128 else f"bq_pairwise_c{c}"
+                out[key] = {
                     "name": "bq_pairwise", "route": "cuda",
                     "source": "src/repro_torch/csrc/bq_distance.cu",
                     "replaces": "src/repro/kernels/bq_distance.py:25",
@@ -320,6 +329,7 @@ def phase_kernels(torch) -> dict:
                             partial(torch.bmm, lp, lpt)),
                     "bound_ms": b_ms, "bound_by": b_by,
                     "shape": [256, c, dim],
+                    "log_only": c != 128,
                 }
 
     # list_scan: one query, ragged Q and L, both tile shapes, and D from 64
@@ -884,6 +894,16 @@ def parity_ivf(torch, base, queries, params) -> None:
     log("  IVF: partition, adjacency, medoid and nav=ivf ids identical")
 
 
+def pool_sizes(launches: dict) -> str:
+    """``bq_pairwise`` launches by pool size C (the wrapper counts each
+    call under ``bq_pairwise_c<C>``): C = 128 are a build chunk's prune
+    pools, C = 72 consolidation's."""
+    sizes = {int(key[len("bq_pairwise_c"):]): n
+             for key, n in launches.items()
+             if key.startswith("bq_pairwise_c")}
+    return ", ".join(f"C={c}: {sizes[c]}" for c in sorted(sizes)) or "none"
+
+
 def phase_main(torch) -> dict:
     """The main path at deployment size; returns launch counts and stats."""
     import numpy as np
@@ -927,6 +947,7 @@ def phase_main(torch) -> dict:
     log(f"  memory_breakdown {json.dumps(index.memory_breakdown())}")
     log(f"  max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
     log(f"  launches on the main path: {launches}")
+    log(f"  bq_pairwise launches by pool size: {pool_sizes(launches)}")
     if ids.shape != (n_queries, 10) or not np.isfinite(scores).all():
         raise AssertionError("search output malformed")
     if ids.min() < 0 or ids.max() >= n:
@@ -1014,6 +1035,7 @@ def phase_ivf(torch) -> dict:
         f"memory_breakdown {json.dumps(index.memory_breakdown())}")
     log(f"  max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
     log(f"  launches on the IVF path: {launches}")
+    log(f"  bq_pairwise launches by pool size: {pool_sizes(launches)}")
     (_, _, r_graph), (default_ids, default_scores, _), (_, _, r_wide) = runs
     if r_graph < 0.80:
         raise AssertionError(f"IVF-seeded graph recall@10 {r_graph:.4f} is "
@@ -1448,6 +1470,13 @@ def phase_profile(torch, chunks: int = 8) -> None:
     for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
         log(f"    {dev_us(e) / 1e3:9.2f} ms {e.count:7d} launches  "
             f"{e.key[:80]}")
+    # the port's own kernels (csrc/*.cu); PyTorch's are in at::, and
+    # copies and fills are named Memcpy and Memset
+    log("  the port's kernels (share of device time):")
+    for e in sorted(kernels, key=dev_us, reverse=True):
+        if "at::" not in e.key and not e.key.startswith("Mem"):
+            log(f"    {dev_us(e) / 1e3:9.2f} ms {e.count:7d} launches "
+                f"({dev_us(e) / 1e6 / device_s:.1%})  {e.key[:70]}")
     ops = [e for e in events if e.device_type == DeviceType.CPU
            and e.key.startswith("aten::")]
     log("  host time by operator (self CPU):")

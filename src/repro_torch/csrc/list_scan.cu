@@ -32,14 +32,16 @@
 // 160 blocks), 64 x 64 when there are at least two such tiles an SM
 // (Q = 8192: 640 blocks).  The block walks D in chunks of 128 dimensions:
 // its threads read the chunk's words (4 a plane a row) of its BM query rows
-// and BN centroid rows, decode them to int8 levels (four dimensions a
-// 32-bit lane: bits spread to bytes by a multiply, |level| = m + (m & s),
-// the sign by a byte select) and store them straight into shared memory,
-// rows padded by 16 bytes, which puts the 8 rows an ldmatrix reads in 8
-// distinct groups of 4 banks.  Two buffers: the next chunk is decoded while
-// the tensor cores take this one, one barrier a chunk.  No decoded matrix
-// goes to device memory.  Each warp owns a 16-row strip of the tile and
-// accumulates it with mma.sync.m16n8k32.row.col.s32.s8.s8.s32, A (queries)
+// and BN centroid rows, decode them to int8 levels (a byte permute a four
+// dimensions, in an order that queries and centroids share) and store them
+// straight into shared memory, rows padded by 16 bytes, which puts the 8
+// rows an ldmatrix reads in 8 distinct groups of 4 banks (these helpers
+// live in int8_levels.cuh, which the pairwise kernel of bq_distance.cu
+// shares).  Two buffers: the next
+// chunk is decoded while the tensor cores take this one, one barrier a
+// chunk.  No decoded matrix goes to device memory.  Each warp owns a
+// 16-row strip of the tile and accumulates it with
+// mma.sync.m16n8k32.row.col.s32.s8.s8.s32, A (queries)
 // and B (centroids, whose rows are the col-major operand as they lie) read
 // with ldmatrix.  Rows past Q or L decode as zero levels and are not
 // written; dimensions past D decode as zero (their mask bits are 0).
@@ -47,56 +49,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int8_levels.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;            // 4 warps
-constexpr int kChunk = 128;              // dimensions a k-chunk
-constexpr int kWords = kChunk / 32;      // words a plane a row in a chunk
-constexpr int kRowBytes = kChunk + 16;   // padded shared-memory row
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x2(uint32_t r[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-// c (16 x 8, s32) += a (16 x 32, s8, row) . b (32 x 8, s8, col)
-__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// bits 0..3 of x -> the low bit of bytes 0..3
-__device__ __forceinline__ uint32_t spread4(uint32_t x) {
-  return ((x & 0xFu) * 0x00204081u) & 0x01010101u;
-}
-
-// the int8 levels of dimensions 4i .. 4i + 3 of one word, byte t for
-// dimension 4i + t: (+1 where the sign bit is set, else -1) x (2 where
-// strong, else 1), 0 where the mask bit is clear
-__device__ __forceinline__ uint32_t levels4(uint32_t p, uint32_t s,
-                                            uint32_t m, int i) {
-  const uint32_t pb = spread4(p >> (4 * i));
-  const uint32_t sb = spread4(s >> (4 * i));
-  const uint32_t mb = spread4(m >> (4 * i));
-  const uint32_t mag = mb + (mb & sb);  // 0, 1 or 2 a byte
-  const uint32_t sel = pb * 0xFFu;      // 0xFF where the sign bit is set
-  return (mag & sel) | (__vsub4(0u, mag) & ~sel);
-}
 
 template <int BM, int BN>
 __global__ void __launch_bounds__(kThreads)
@@ -133,11 +90,7 @@ __global__ void __launch_bounds__(kThreads)
         s = src[w + word];
         m = mask[word];
       }
-      uint4* dst = reinterpret_cast<uint4*>(&sm[buf][row][t * 32]);
-      dst[0] = make_uint4(levels4(p, s, m, 0), levels4(p, s, m, 1),
-                          levels4(p, s, m, 2), levels4(p, s, m, 3));
-      dst[1] = make_uint4(levels4(p, s, m, 4), levels4(p, s, m, 5),
-                          levels4(p, s, m, 6), levels4(p, s, m, 7));
+      store_levels(&sm[buf][row][t * 32], p, s, m);
     }
   };
 

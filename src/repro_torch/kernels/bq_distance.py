@@ -6,8 +6,14 @@ row *ids* into the ``(N, 2W)`` signature table and read the rows themselves
 (no gathered copy), and they return the Table-1 **similarity** as int32 (the
 Pallas kernel emits its negation, which ``repro.kernels.dispatch`` undoes).
 
-* :func:`dist_rows` — ``q (B, 2W)``, ``ids (B, K)`` -> ``(B, K)``
-* :func:`pairwise`  — ``ids (B, C)`` -> ``(B, C, C)``
+* :func:`dist_rows` — ``q (B, 2W)``, ``ids (B, K)`` -> ``(B, K)``: a gather,
+  groups of lanes reading 16-byte vectors of each row (4-byte words where
+  W is not a multiple of 4: the ``bq_dist_rows_vec4`` and
+  ``bq_dist_rows_word`` variants), scored by the three-popcount identity of
+  :func:`similarity_three_popcounts`.
+* :func:`pairwise`  — ``ids (B, C)`` -> ``(B, C, C)``: the pool's int8
+  levels multiplied on the tensor cores, the tiles on and above the
+  diagonal only, each written with its mirror.
 
 Words are int32 bit views of the reference's uint32 words; ``mask`` is the
 ``(W,)`` valid-bit mask (``repro_torch.core.bq.valid_mask``); ids are int32
@@ -27,8 +33,10 @@ import torch
 from repro_torch.core import bq
 from repro_torch.kernels import build
 
-# one block's shared memory on an H100 (bytes), for the pairwise pool
-_MAX_SMEM = 232_448
+# pairwise: pool rows a tile; the tile pairs above the diagonal are one
+# grid dimension, at most 65 535 (362 tiles)
+_TILE = 128
+_MAX_POOL = 362 * _TILE
 # dist_rows_plain: elements per int64 temporary (2 MiB, cache-sized)
 _BLOCK_ELEMS = 1 << 18
 
@@ -49,6 +57,27 @@ def dist_rows_plain(q, ids, table, mask) -> torch.Tensor:
         )
         out = s if out is None else out + s
     return out
+
+
+def similarity_three_popcounts(pa, sa, pb, sb, mask) -> torch.Tensor:
+    """Table 1's similarity as the ``dist_rows`` kernel reckons it, from
+    the same broadcasting word arrays as
+    :func:`repro_torch.core.bq.symmetric_similarity_words`.
+
+    With d = pa ^ pb, x = sa ^ sb and o = sa | sb, a valid bit's weight is
+    1 + 3 o - 2 (d ^ x) - 6 (d & o): +-1 where both are weak, +-2 where one
+    is strong, +-4 where both are, positive where the signs agree.  Padding
+    bits are 0 in every plane and weigh 0 but for the 1, so
+    sim = D + 3 pop(o) - 2 pop(d ^ x) - 6 pop(d & o): three popcounts a
+    word pair and no mask, where Table 1's formula takes six and the
+    mask."""
+    d = pa ^ pb
+    o = sa | sb
+
+    def pc(v):
+        return bq.popcount(v).sum(dim=-1, dtype=torch.int32)
+
+    return pc(mask) + 3 * pc(o) - 2 * pc(d ^ sa ^ sb) - 6 * pc(d & o)
 
 
 def masked_levels(words, mask) -> torch.Tensor:
@@ -91,11 +120,17 @@ def _check(table, mask, **named):
 def _lib() -> ctypes.CDLL:
     lib = build.load("bq_distance")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.quiver_bq_dist_rows.argtypes = [p, p, p, p, p, i, i, i, ll, p]
+    lib.quiver_bq_dist_rows.argtypes = [p, p, p, p, p, i, i, i, ll, i, p]
     lib.quiver_bq_dist_rows.restype = i
     lib.quiver_bq_pairwise.argtypes = [p, p, p, p, i, i, i, ll, p]
     lib.quiver_bq_pairwise.restype = i
     return lib
+
+
+def rows_vector_words(w: int) -> int:
+    """Words a lane of ``dist_rows`` reads at once: 4 (a 16-byte vector)
+    where a plane's W words split into whole vectors, else 1."""
+    return 4 if w % 4 == 0 else 1
 
 
 def dist_rows(q: torch.Tensor, ids: torch.Tensor, table: torch.Tensor,
@@ -109,14 +144,21 @@ def dist_rows(q: torch.Tensor, ids: torch.Tensor, table: torch.Tensor,
                          f"{tuple(q.shape)}")
     if table.device.type == "cpu":
         return dist_rows_plain(q, ids, table, mask)
+    w = mask.shape[0]
+    vec = rows_vector_words(w)
+    if vec == 4 and any(t.data_ptr() % 16 for t in (q, table, mask)):
+        raise ValueError("dist_rows reads q, table and mask in 16-byte "
+                         "vectors: their data must be 16-byte aligned")
     out = torch.empty((b, k), dtype=torch.int32, device=table.device)
     lib = _lib()
     stream = torch.cuda.current_stream(table.device).cuda_stream
     status = lib.quiver_bq_dist_rows(
         q.data_ptr(), ids.data_ptr(), table.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), b, k, mask.shape[0], table.shape[0], stream,
+        out.data_ptr(), b, k, w, table.shape[0], vec, stream,
     )
     build.LAUNCHES["bq_dist_rows"] += 1
+    build.LAUNCHES["bq_dist_rows_vec4" if vec == 4
+                   else "bq_dist_rows_word"] += 1
     build.check(status, "bq_dist_rows")
     return out
 
@@ -129,9 +171,9 @@ def pairwise(ids: torch.Tensor, table: torch.Tensor,
     if table.device.type == "cpu":
         return pairwise_plain(ids, table, mask)
     w = mask.shape[0]
-    if c > 1024 or (c * (2 * w + 1) + w) * 4 > _MAX_SMEM:
-        raise ValueError(f"pool of {c} rows x {2 * w} words does not fit "
-                         "one block")
+    if c > _MAX_POOL:
+        raise ValueError(f"pairwise takes pools of at most {_MAX_POOL} "
+                         f"rows, got {c}")
     out = torch.empty((b, c, c), dtype=torch.int32, device=table.device)
     lib = _lib()
     stream = torch.cuda.current_stream(table.device).cuda_stream
@@ -140,5 +182,11 @@ def pairwise(ids: torch.Tensor, table: torch.Tensor,
         b, c, w, table.shape[0], stream,
     )
     build.LAUNCHES["bq_pairwise"] += 1
+    # launches by pool size: the build's chunks (prune_pool) against
+    # consolidation's (R_total)
+    build.LAUNCHES[f"bq_pairwise_c{c}"] += 1
+    if c > _TILE:
+        # the second launch, over the tiles above the diagonal
+        build.LAUNCHES["bq_pairwise_offdiag"] += 1
     build.check(status, "bq_pairwise")
     return out

@@ -28,7 +28,9 @@ import torch
 
 from repro_torch.core import bq
 from repro_torch.kernels import build
-from repro_torch.kernels.bq_distance import _MAX_SMEM
+
+# one block's shared memory on an H100 (bytes), for the pairwise pool
+_MAX_SMEM = 232_448
 
 # elements per int64 temporary of the plain versions (2 MiB, cache-sized)
 _BLOCK_ELEMS = 1 << 18

@@ -29,10 +29,13 @@ from repro_torch.kernels.bq_distance import _check, masked_levels
 
 
 def int8_levels(words, mask) -> torch.Tensor:
-    """(R, 2W) words -> (R, 32W) int8 levels in the kernel's layout: the
-    level of dimension 32w + i (bit i of word w of each plane) in column
-    32w + i, +-1 by the sign bit, x2 where the strong bit is set, 0 past
-    the valid bits.  A similarity is the integer dot product of two rows."""
+    """(R, 2W) words -> (R, 32W) int8 levels: the level of dimension
+    32w + i (bit i of word w of each plane) in column 32w + i, +-1 by the
+    sign bit, x2 where the strong bit is set, 0 past the valid bits.  A
+    similarity is the integer dot product of two rows.  The kernel stages
+    the same levels in shared memory with the 32 columns of each word in
+    an order of its own (``csrc/int8_levels.cuh``), which a dot product of
+    two rows staged alike does not see."""
     return masked_levels(words, mask).to(torch.int8)
 
 

@@ -85,6 +85,79 @@ def test_pairwise_matches_plain(cuda, dim, c):
     assert torch.equal(got, kd.pairwise_plain(ids, table, mask))
 
 
+@pytest.mark.parametrize("b", [1, 3, 256])
+@pytest.mark.parametrize("dim", [64, 100, 768, 3072])
+@pytest.mark.parametrize("c", [1, 15, 16, 17, 72, 100, 128, 129, 512, 1024])
+def test_pairwise_tiles_match_plain(cuda, c, dim, b):
+    # one diagonal tile with ragged strips (C <= 128), tile pairs off the
+    # diagonal with their mirrors (C > 128: up to 36 a pool), 4-byte stores
+    # where C is not a multiple of 4, and duplicate ids: the second half of
+    # each pool repeats the first
+    table = _table(5000, dim, dim + c + b, cuda)
+    ids = torch.randint(0, 5000, (b, c),
+                        generator=torch.Generator().manual_seed(c * 7 + b),
+                        dtype=torch.int32)
+    ids[:, c // 2:] = ids[:, :c - c // 2].clone()
+    ids = ids.to(cuda)
+    mask = bq.valid_mask(dim, device=cuda)
+    build.reset_launches()
+    got = kd.pairwise(ids, table, mask)
+    assert build.LAUNCHES["bq_pairwise"] == 1
+    assert build.LAUNCHES[f"bq_pairwise_c{c}"] == 1
+    assert build.LAUNCHES["bq_pairwise_offdiag"] == (1 if c > 128 else 0)
+    assert torch.equal(got, got.transpose(1, 2))
+    assert torch.equal(got, kd.pairwise_plain(ids, table, mask))
+
+
+@pytest.mark.parametrize("b", [1, 3, 256])
+@pytest.mark.parametrize("k", [1, 31, 72, 288, 34_080])
+@pytest.mark.parametrize("dim", [17, 64, 100, 768, 3072])
+def test_dist_rows_gathers_match_plain(cuda, dim, k, b):
+    # 4-byte words (W = 1, 2) and 16-byte vectors (W = 4, 24, 96: groups of
+    # 1, 2 and 8 lanes), one row a group up to 8 rows a group (K = 34 080)
+    table = _table(5000, dim, dim + k + b, cuda)
+    g = torch.Generator().manual_seed(k * 3 + b)
+    ids = torch.randint(0, 5000, (b, k), generator=g,
+                        dtype=torch.int32).to(cuda)
+    q = table[torch.randint(0, 5000, (b,), generator=g).to(cuda)]
+    mask = bq.valid_mask(dim, device=cuda)
+    build.reset_launches()
+    got = kd.dist_rows(q, ids, table, mask)
+    variant = ("bq_dist_rows_vec4" if mask.shape[0] % 4 == 0
+               else "bq_dist_rows_word")
+    assert build.LAUNCHES["bq_dist_rows"] == 1
+    assert build.LAUNCHES[variant] == 1
+    assert torch.equal(got, kd.dist_rows_plain(q, ids, table, mask))
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("k", [1, 72])
+@pytest.mark.parametrize("dim", [3104, 12_800])
+def test_dist_rows_long_rows_match_plain(cuda, dim, k, b):
+    # more than 96 words or vectors a plane (W = 97 in words, W = 400 in
+    # 100 vectors): a 32-lane group reads the rest of the row in a loop
+    table = _table(500, dim, dim + k + b, cuda)
+    g = torch.Generator().manual_seed(k * 5 + b)
+    ids = torch.randint(0, 500, (b, k), generator=g,
+                        dtype=torch.int32).to(cuda)
+    q = table[torch.randint(0, 500, (b,), generator=g).to(cuda)]
+    mask = bq.valid_mask(dim, device=cuda)
+    build.reset_launches()
+    got = kd.dist_rows(q, ids, table, mask)
+    assert build.LAUNCHES["bq_dist_rows"] == 1
+    assert torch.equal(got, kd.dist_rows_plain(q, ids, table, mask))
+
+
+def test_dist_rows_rejects_misaligned_vectors(cuda):
+    table = _table(100, 768, 0, cuda)
+    mask = bq.valid_mask(768, device=cuda)
+    ids = torch.zeros((2, 3), dtype=torch.int32, device=cuda)
+    q = torch.empty(2 * 48 + 1, dtype=torch.int32, device=cuda)[1:]
+    q = q.view(2, 48).copy_(table[:2])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kd.dist_rows(q, ids, table, mask)
+
+
 @pytest.mark.parametrize("dim", [64, 100, 384, 768, 1536, 3072])
 @pytest.mark.parametrize("n_lists", [45, 316, 1000])
 @pytest.mark.parametrize("n_q", [1, 256, 8193])

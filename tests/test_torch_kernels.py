@@ -47,7 +47,8 @@ def test_binarize_plain_matches_pallas(dim, n):
 
 
 @pytest.mark.parametrize("dim", [64, 100, 768])
-@pytest.mark.parametrize("b,k", [(1, 33), (5, 72)])
+@pytest.mark.parametrize("b,k", [(1, 33), (5, 72), (3, 1), (2, 31),
+                                 (4, 289)])
 def test_dist_rows_plain_matches_pallas(dim, b, k):
     words, table = _table(dim + b, 300, dim)
     rng = np.random.default_rng(dim * b + k)
@@ -63,7 +64,7 @@ def test_dist_rows_plain_matches_pallas(dim, b, k):
 
 
 @pytest.mark.parametrize("dim", [64, 100, 768])
-@pytest.mark.parametrize("c", [8, 40])
+@pytest.mark.parametrize("c", [1, 8, 17, 40, 72, 128])
 def test_pairwise_plain_matches_pallas(dim, c):
     words, table = _table(dim + c, 300, dim)
     ids = np.random.default_rng(c).integers(0, 300, size=(3, c)).astype(
@@ -133,11 +134,11 @@ def test_edited_header_renames_every_library(tmp_path, monkeypatch):
     every kernel instead of loading a stale library."""
     for src in (*build.CSRC.glob("*.cu"), *build.CSRC.glob("*.cuh")):
         (tmp_path / src.name).write_bytes(src.read_bytes())
-    assert (tmp_path / "bq_sim.cuh").exists()
+    assert (tmp_path / "int8_levels.cuh").exists()
     monkeypatch.setattr(build, "CSRC", tmp_path)
     names = ("binarize", "bq_distance", "list_scan")
     before = {name: build._target(name) for name in names}
-    header = tmp_path / "bq_sim.cuh"
+    header = tmp_path / "int8_levels.cuh"
     header.write_text(header.read_text() + "\n")
     for name in names:
         assert build._target(name) != before[name]
