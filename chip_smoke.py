@@ -21,8 +21,10 @@ Phases, in order; any failure raises and the script exits nonzero:
               consolidation's pool, and 128, a build chunk's) and
               ``list_scan`` (D in {64, 100, 384, 768, 1536, 3072}, L in
               {45, 316, 1000}, Q in {1, 256, 8193}), ``hamming_dist_rows``
-              and ``hamming_pairwise`` (D in {64, 100, 384, 768, 1536},
-              ragged B, K and C); all exactly equal.  ``flash_attention``
+              and ``hamming_pairwise`` (D in {17, 64, 100, 384, 768, 1536,
+              3072}, ragged B, K and C, K = 34 080 at D = 768, C from 1 to
+              1024 with duplicate ids, each pool equal to its transpose);
+              all exactly equal.  ``flash_attention``
               (``FLASH_CASES``), each call through the kernel its dtype and
               Tq select (float32: the CUDA-core kernel; bf16 Tq = 1: the
               split-KV decode, also held to its float32 mirror; bf16 Tq >
@@ -42,8 +44,9 @@ Phases, in order; any failure raises and the script exits nonzero:
               main-path inputs: device time and stream time (see
               ``time_ms``); logged beside them, not in the kernels line:
               ``bq_dist_rows`` at K = 34 080 and 50 880 (the IVF build
-              chunk and search batch), ``bq_pairwise`` at C = 72, and
-              ``list_scan`` at Q = 8192.
+              chunk and search batch), ``bq_pairwise`` at C = 72,
+              ``list_scan`` at Q = 8192, ``hamming_pairwise`` at C = 72 and
+              ``hamming_dist_rows`` at K = 34 080.
 3. parity   — the same N = 4000 builds and searches on ``device="cpu"`` and
               on the card, beam-searched and IVF-seeded: identical
               partition, adjacency, medoid and candidate ids; and
@@ -80,7 +83,8 @@ Phases, in order; any failure raises and the script exits nonzero:
               N = 100 000, on the card and on the CPU: verdicts and
               policies must agree, and must be green, red, red.  Launch
               counts as in 4; both hamming entry points and ``list_scan``
-              must have launched.
+              must have launched, and the bq1 build's ``hamming_pairwise``
+              launches are printed by pool size.
 7. rag      — LM serving with RAG: ``minicpm-2b`` at full width and depth
               (40 layers, d 2304, 36 heads, vocab 122 880, bf16, weights
               drawn from seed 0) on the card; embed 8 192 + 256 seeded
@@ -391,17 +395,23 @@ def sign_levels(torch, words, dim: int):
 
 
 def hamming_kernels(torch, g) -> dict:
-    """Both hamming entry points against their plain versions over ragged
-    shapes; the numbers at the bq1 path's shapes (D = 768: the beam hop's
-    B = 256, K = 72, and the prune pool's B = 256, C = 128)."""
+    """Both hamming entry points against their plain versions: gathers of
+    K up to 34 080 and pools of C from 1 to 1024 (some with duplicate ids;
+    a pool's output must equal its transpose), at D from 17 to 3072.  The
+    numbers at the bq1 path's shapes (D = 768): the beam hop's B = 256,
+    K = 72, the prune pool's B = 256, C = 128, and logged beside them
+    consolidation's C = 72 and the gather at K = 34 080."""
+    from repro_torch.core import bq
     from repro_torch.kernels import hamming as kh
 
     out = {}
     n_table = 100_000
-    for dim in (64, 100, 384, 768, 1536):
+    for dim in (17, 64, 100, 384, 768, 1536, 3072):
         table = random_table(torch, n_table, dim, seed=dim + 1)
-        w = table.shape[1] // 2
-        for b, k in ((256, 72), (13, 777), (256, 288)):
+        mask = bq.valid_mask(dim, device="cuda")
+        w = mask.shape[0]
+        rows = ((256, 72), (13, 777), (256, 288))
+        for b, k in rows + (((256, 34_080),) if dim == 768 else ()):
             ids = torch.randint(0, n_table, (b, k), generator=g,
                                 device="cuda", dtype=torch.int32)
             q = table[torch.randint(0, n_table, (b,), generator=g,
@@ -411,38 +421,55 @@ def hamming_kernels(torch, g) -> dict:
             if not torch.equal(got, want):
                 raise AssertionError(
                     f"hamming_dist_rows differs at D={dim} B={b} K={k}")
-            if dim == 768 and (b, k) == (256, 72):
+            if dim == 768 and b == 256 and k in (72, 34_080):
                 uniq = torch.unique(ids).numel()
                 nb = uniq * 4 * w + ids.numel() * 4 + q.numel() * 4 \
                     + got.numel() * 4
                 b_ms, b_by = bound(nb, OPS_PER_SIGN_WORD_PAIR * ids.numel()
                                    * w)
-                # the library call: one bmm of the +-1 sign levels (gather
-                # and decode outside the timed call)
-                lr = sign_levels(torch, table[:, :w], dim)[ids.long()]
-                lq = sign_levels(torch, q, dim)[:, :, None]
-                check_library("hamming_dist_rows",
-                              (dim - torch.bmm(lr, lq)[..., 0]) / 2, got)
-                out["hamming_dist_rows"] = {
+                library = None
+                if k == 72:
+                    # the library call: one bmm of the +-1 sign levels
+                    # (gather and decode outside the timed call; at
+                    # K = 34 080 the levels would take 27 GB)
+                    lr = sign_levels(torch, table[:, :w], dim)[ids.long()]
+                    lq = sign_levels(torch, q, dim)[:, :, None]
+                    check_library("hamming_dist_rows",
+                                  (dim - torch.bmm(lr, lq)[..., 0]) / 2, got)
+                    library = partial(torch.bmm, lr, lq)
+                key = "hamming_dist_rows" if k == 72 \
+                    else f"hamming_dist_rows_k{k}"
+                out[key] = {
                     "name": "hamming_dist_rows", "route": "cuda",
                     "source": "src/repro_torch/csrc/hamming.cu",
                     "replaces": "src/repro/kernels/hamming.py:17",
                     "max_abs_err": float((got - want).abs().max()),
                     "fns": (partial(kh.dist_rows, q, ids, table),
                             partial(kh.dist_rows_plain, q, ids, table),
-                            partial(torch.bmm, lr, lq)),
+                            library),
                     "bound_ms": b_ms, "bound_by": b_by,
                     "shape": [b, k, dim],
+                    "log_only": k != 72,
                 }
-        for b, c in ((256, 128), (7, 37), (64, 72)):
+        # (B, C, pools repeat their first half); distinct ids at C = 256
+        # and 1024 too, where a repeated half would hide a tile of the
+        # second launch read or written in place of another
+        pools = ((256, 128, False), (7, 37, False), (64, 72, False),
+                 (256, 72, False), (8, 256, False), (2, 1024, False),
+                 (256, 1, True), (64, 72, True), (16, 129, True),
+                 (8, 256, True), (2, 1024, True))
+        for b, c, dup in pools:
             ids = torch.randint(0, n_table, (b, c), generator=g,
                                 device="cuda", dtype=torch.int32)
-            got = kh.pairwise(ids, table)
-            want = kh.pairwise_plain(ids, table)
-            if not torch.equal(got, want):
+            if dup:
+                ids[:, c // 2:] = ids[:, :c - c // 2].clone()
+            got = kh.pairwise(ids, table, mask)
+            want = kh.pairwise_plain(ids, table, mask)
+            if not (torch.equal(got, want)
+                    and torch.equal(got, got.transpose(1, 2))):
                 raise AssertionError(
                     f"hamming_pairwise differs at D={dim} B={b} C={c}")
-            if dim == 768 and (b, c) == (256, 128):
+            if dim == 768 and b == 256 and c in (72, 128):
                 uniq = torch.unique(ids).numel()
                 nb = uniq * 4 * w + ids.numel() * 4 + got.numel() * 4
                 b_ms, b_by = bound(nb, OPS_PER_SIGN_WORD_PAIR * got.numel()
@@ -451,20 +478,27 @@ def hamming_kernels(torch, g) -> dict:
                 lpt = lp.transpose(1, 2)
                 check_library("hamming_pairwise",
                               (dim - torch.bmm(lp, lpt)) / 2, got)
-                out["hamming_pairwise"] = {
+                # a build chunk's pool (prune_pool); consolidation's pool
+                # (R_total) is logged, not in the kernels line
+                key = "hamming_pairwise" if c == 128 \
+                    else f"hamming_pairwise_c{c}"
+                out[key] = {
                     "name": "hamming_pairwise", "route": "cuda",
                     "source": "src/repro_torch/csrc/hamming.cu",
                     "replaces": "src/repro/kernels/hamming.py:17",
                     "max_abs_err": float((got - want).abs().max()),
-                    "fns": (partial(kh.pairwise, ids, table),
-                            partial(kh.pairwise_plain, ids, table),
+                    "fns": (partial(kh.pairwise, ids, table, mask),
+                            partial(kh.pairwise_plain, ids, table, mask),
                             partial(torch.bmm, lp, lpt)),
                     "bound_ms": b_ms, "bound_by": b_by,
                     "shape": [b, c, dim],
+                    "log_only": c != 128,
                 }
-        log(f"  hamming_dist_rows (B, K) in ((256, 72), (13, 777), "
-            f"(256, 288)) and hamming_pairwise (B, C) in ((256, 128), "
-            f"(7, 37), (64, 72)), D={dim}: exact")
+        log(f"  hamming D={dim}: dist_rows at (B, K) in {rows}"
+            f"{' and (256, 34080)' if dim == 768 else ''}, pairwise at "
+            f"(B, C) in {[(b, c) for b, c, dup in pools if not dup]} and, "
+            f"with duplicate ids, {[(b, c) for b, c, dup in pools if dup]}:"
+            " exact, each pool equal to its transpose")
     return out
 
 
@@ -894,13 +928,13 @@ def parity_ivf(torch, base, queries, params) -> None:
     log("  IVF: partition, adjacency, medoid and nav=ivf ids identical")
 
 
-def pool_sizes(launches: dict) -> str:
-    """``bq_pairwise`` launches by pool size C (the wrapper counts each
-    call under ``bq_pairwise_c<C>``): C = 128 are a build chunk's prune
-    pools, C = 72 consolidation's."""
-    sizes = {int(key[len("bq_pairwise_c"):]): n
+def pool_sizes(launches: dict, prefix: str = "bq_pairwise") -> str:
+    """``prefix`` launches by pool size C (the ``bq_pairwise`` and
+    ``hamming_pairwise`` wrappers count each call under ``<prefix>_c<C>``):
+    C = 128 are a build chunk's prune pools, C = 72 consolidation's."""
+    sizes = {int(key[len(prefix) + 2:]): n
              for key, n in launches.items()
-             if key.startswith("bq_pairwise_c")}
+             if key.startswith(prefix + "_c")}
     return ", ".join(f"C={c}: {sizes[c]}" for c in sorted(sizes)) or "none"
 
 
@@ -1120,6 +1154,8 @@ def phase_ladder(torch, main: dict | None) -> dict:
     bq1_launches = {k: v for k, v in kbuild.LAUNCHES.items()
                     if k.startswith("hamming")}
     log(f"  hamming launches of the bq1 build + search: {bq1_launches}")
+    log(f"  hamming_pairwise launches by pool size: "
+        f"{pool_sizes(bq1_launches, 'hamming_pairwise')}")
     del bq1
 
     # 2. every nav kind on the bq2 graph, and adaptive escalation

@@ -1,7 +1,9 @@
 """bq_distance: gather-fused symmetric 2-bit Sign-Magnitude similarity.
 
-The CUDA kernels in ``csrc/bq_distance.cu`` replace the Pallas TPU kernel
-``repro/kernels/bq_distance.py::_bq_distance_kernel``.  Unlike it, they take
+The CUDA kernels in ``csrc/bq_distance.cu`` (the 2-bit cases of the gather
+in ``csrc/bq_gather.cuh`` and the pool in ``csrc/bq_pool.cuh``) replace the
+Pallas TPU kernel ``repro/kernels/bq_distance.py::_bq_distance_kernel``.
+Unlike it, they take
 row *ids* into the ``(N, 2W)`` signature table and read the rows themselves
 (no gathered copy), and they return the Table-1 **similarity** as int32 (the
 Pallas kernel emits its negation, which ``repro.kernels.dispatch`` undoes).
@@ -33,10 +35,11 @@ import torch
 from repro_torch.core import bq
 from repro_torch.kernels import build
 
-# pairwise: pool rows a tile; the tile pairs above the diagonal are one
-# grid dimension, at most 65 535 (362 tiles)
-_TILE = 128
-_MAX_POOL = 362 * _TILE
+# the pool kernels (csrc/bq_pool.cuh, launched by launch_pool): pool rows a
+# tile; the tile pairs above the diagonal are one grid dimension, at most
+# 65 535 (362 tiles)
+_POOL_TILE = 128
+_MAX_POOL = 362 * _POOL_TILE
 # dist_rows_plain: elements per int64 temporary (2 MiB, cache-sized)
 _BLOCK_ELEMS = 1 << 18
 
@@ -163,30 +166,35 @@ def dist_rows(q: torch.Tensor, ids: torch.Tensor, table: torch.Tensor,
     return out
 
 
-def pairwise(ids: torch.Tensor, table: torch.Tensor,
-             mask: torch.Tensor) -> torch.Tensor:
-    """All-pairs similarity within each pool: (B, C) ids -> (B, C, C) int32."""
-    _check(table, mask, ids=ids)
+def launch_pool(fn, name: str, ids: torch.Tensor, table: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+    """Launch a pool kernel of ``csrc/bq_pool.cuh`` through ``fn``, its
+    library's ``quiver_*_pairwise`` entry point, on checked CUDA tensors:
+    (B, C) ids -> (B, C, C) int32.  Counts the call under ``name``, under
+    ``<name>_c<C>`` by pool size (the build's chunks, prune_pool, against
+    consolidation's, R_total) and, for C > 128, the second launch, over the
+    tiles above the diagonal, under ``<name>_offdiag``."""
     b, c = ids.shape
-    if table.device.type == "cpu":
-        return pairwise_plain(ids, table, mask)
-    w = mask.shape[0]
     if c > _MAX_POOL:
         raise ValueError(f"pairwise takes pools of at most {_MAX_POOL} "
                          f"rows, got {c}")
     out = torch.empty((b, c, c), dtype=torch.int32, device=table.device)
-    lib = _lib()
     stream = torch.cuda.current_stream(table.device).cuda_stream
-    status = lib.quiver_bq_pairwise(
-        ids.data_ptr(), table.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        b, c, w, table.shape[0], stream,
-    )
-    build.LAUNCHES["bq_pairwise"] += 1
-    # launches by pool size: the build's chunks (prune_pool) against
-    # consolidation's (R_total)
-    build.LAUNCHES[f"bq_pairwise_c{c}"] += 1
-    if c > _TILE:
-        # the second launch, over the tiles above the diagonal
-        build.LAUNCHES["bq_pairwise_offdiag"] += 1
-    build.check(status, "bq_pairwise")
+    status = fn(ids.data_ptr(), table.data_ptr(), mask.data_ptr(),
+                out.data_ptr(), b, c, mask.shape[0], table.shape[0], stream)
+    build.LAUNCHES[name] += 1
+    build.LAUNCHES[f"{name}_c{c}"] += 1
+    if c > _POOL_TILE:
+        build.LAUNCHES[f"{name}_offdiag"] += 1
+    build.check(status, name)
     return out
+
+
+def pairwise(ids: torch.Tensor, table: torch.Tensor,
+             mask: torch.Tensor) -> torch.Tensor:
+    """All-pairs similarity within each pool: (B, C) ids -> (B, C, C) int32."""
+    _check(table, mask, ids=ids)
+    if table.device.type == "cpu":
+        return pairwise_plain(ids, table, mask)
+    return launch_pool(_lib().quiver_bq_pairwise, "bq_pairwise", ids, table,
+                       mask)

@@ -69,11 +69,10 @@ def list_scan_ops(dim: int, device: torch.device | str) -> ListScanOps:
 
 def bq1_ops(dim: int, device: torch.device | str) -> MetricOps:
     """Bind the 1-bit Hamming primitives for ``dim``, as negated-distance
-    similarities.  ``dim`` and ``device`` are taken for symmetry with
-    :func:`bq2_ops`: the sign plane needs no valid-bit mask, and each
-    primitive follows its table's device."""
-    del dim, device
+    similarities.  The pool decodes the sign plane under the valid-bit
+    mask; the gather needs none."""
+    mask = bq.valid_mask(dim, device=device)
     return MetricOps(
         dist_rows=lambda q, ids, table: -hamming.dist_rows(q, ids, table),
-        pairwise=lambda ids, table: -hamming.pairwise(ids, table),
+        pairwise=lambda ids, table: -hamming.pairwise(ids, table, mask),
     )

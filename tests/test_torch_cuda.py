@@ -85,19 +85,23 @@ def test_pairwise_matches_plain(cuda, dim, c):
     assert torch.equal(got, kd.pairwise_plain(ids, table, mask))
 
 
-@pytest.mark.parametrize("b", [1, 3, 256])
+@pytest.mark.parametrize("b,dup", [(1, True), (3, True), (256, True),
+                                   (64, False)])
 @pytest.mark.parametrize("dim", [64, 100, 768, 3072])
-@pytest.mark.parametrize("c", [1, 15, 16, 17, 72, 100, 128, 129, 512, 1024])
-def test_pairwise_tiles_match_plain(cuda, c, dim, b):
+@pytest.mark.parametrize("c", [1, 15, 16, 17, 72, 100, 128, 129, 256, 512,
+                               1024])
+def test_pairwise_tiles_match_plain(cuda, c, dim, b, dup):
     # one diagonal tile with ragged strips (C <= 128), tile pairs off the
     # diagonal with their mirrors (C > 128: up to 36 a pool), 4-byte stores
-    # where C is not a multiple of 4, and duplicate ids: the second half of
-    # each pool repeats the first
+    # where C is not a multiple of 4, and duplicate ids (dup: the second
+    # half of each pool repeats the first; without it, a tile of the second
+    # launch read or written in place of another shows)
     table = _table(5000, dim, dim + c + b, cuda)
     ids = torch.randint(0, 5000, (b, c),
                         generator=torch.Generator().manual_seed(c * 7 + b),
                         dtype=torch.int32)
-    ids[:, c // 2:] = ids[:, :c - c // 2].clone()
+    if dup:
+        ids[:, c // 2:] = ids[:, :c - c // 2].clone()
     ids = ids.to(cuda)
     mask = bq.valid_mask(dim, device=cuda)
     build.reset_launches()
@@ -173,11 +177,15 @@ def test_list_scan_matches_plain(cuda, dim, n_lists, n_q):
     assert torch.equal(got, kl.scan_plain(q, cent, mask))
 
 
-@pytest.mark.parametrize("dim", [64, 100, 384, 768, 1536])
-@pytest.mark.parametrize("b,k", [(256, 72), (13, 777)])
-def test_hamming_dist_rows_matches_plain(cuda, dim, b, k):
-    table = _table(5000, dim, dim + k, cuda)
-    g = torch.Generator().manual_seed(k)
+@pytest.mark.parametrize("b", [1, 3, 256])
+@pytest.mark.parametrize("k", [1, 31, 72, 288, 777, 34_080])
+@pytest.mark.parametrize("dim", [17, 64, 100, 384, 768, 1536, 3072])
+def test_hamming_dist_rows_matches_plain(cuda, dim, k, b):
+    # the sign plane in 4-byte words (W = 1, 2) and in 16-byte vectors
+    # (W = 4, 12, 24, 48, 96: groups of 1, 1, 2, 4 and 8 lanes), one row a
+    # group up to 8 rows a group (K = 34 080)
+    table = _table(5000, dim, dim + k + b, cuda)
+    g = torch.Generator().manual_seed(k * 3 + b)
     ids = torch.randint(0, 5000, (b, k), generator=g,
                         dtype=torch.int32).to(cuda)
     w = table.shape[1] // 2
@@ -186,20 +194,85 @@ def test_hamming_dist_rows_matches_plain(cuda, dim, b, k):
     build.reset_launches()
     got = kh.dist_rows(q, ids, table)
     assert build.LAUNCHES["hamming_dist_rows"] == 1
+    assert build.LAUNCHES[f"hamming_dist_rows_vec{4 if w % 4 == 0 else 1}"] \
+        == 1
     assert torch.equal(got, kh.dist_rows_plain(q, ids, table))
 
 
-@pytest.mark.parametrize("dim", [64, 100, 768, 1536, 3072])
-@pytest.mark.parametrize("c", [37, 128])
-def test_hamming_pairwise_matches_plain(cuda, dim, c):
-    table = _table(5000, dim, dim + c, cuda)
-    ids = torch.randint(0, 5000, (64, c),
-                        generator=torch.Generator().manual_seed(c),
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("k", [1, 72])
+@pytest.mark.parametrize("dim", [3104, 12_800])
+def test_hamming_dist_rows_long_rows_match_plain(cuda, dim, k, b):
+    # more than 96 words or vectors of sign plane (W = 97 in words, W = 400
+    # in 100 vectors): a 32-lane group reads the rest of the row in a loop
+    table = _table(500, dim, dim + k + b, cuda)
+    g = torch.Generator().manual_seed(k * 5 + b)
+    ids = torch.randint(0, 500, (b, k), generator=g,
                         dtype=torch.int32).to(cuda)
+    w = table.shape[1] // 2
+    q = table[torch.randint(0, 500, (b,), generator=g).to(cuda), :w]
+    q = q.contiguous()
     build.reset_launches()
-    got = kh.pairwise(ids, table)
+    got = kh.dist_rows(q, ids, table)
+    assert build.LAUNCHES["hamming_dist_rows"] == 1
+    assert torch.equal(got, kh.dist_rows_plain(q, ids, table))
+
+
+def test_hamming_dist_rows_rejects_misaligned_vectors(cuda):
+    table = _table(100, 768, 0, cuda)
+    ids = torch.zeros((2, 3), dtype=torch.int32, device=cuda)
+    q = torch.empty(2 * 24 + 1, dtype=torch.int32, device=cuda)[1:]
+    q = q.view(2, 24).copy_(table[:2, :24])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kh.dist_rows(q, ids, table)
+
+
+@pytest.mark.parametrize("b,dup", [(1, True), (3, True), (256, True),
+                                   (64, False)])
+@pytest.mark.parametrize("dim", [17, 64, 100, 768, 1536, 3072])
+@pytest.mark.parametrize("c", [1, 15, 16, 17, 37, 72, 100, 128, 129, 256,
+                               512, 1024])
+def test_hamming_pairwise_matches_plain(cuda, c, dim, b, dup):
+    # one tile (C <= 128: ragged m16n8 tiles, C not a multiple of 4) and
+    # several (the off-diagonal launch); dup: each pool repeats its first
+    # half, else its ids are drawn apart, so that a tile of the second
+    # launch read or written in place of another shows
+    table = _table(5000, dim, dim + c + b, cuda)
+    ids = torch.randint(0, 5000, (b, c),
+                        generator=torch.Generator().manual_seed(c * 7 + b),
+                        dtype=torch.int32)
+    if dup:
+        ids[:, c // 2:] = ids[:, :c - c // 2].clone()
+    ids = ids.to(cuda)
+    mask = bq.valid_mask(dim, device=cuda)
+    build.reset_launches()
+    got = kh.pairwise(ids, table, mask)
     assert build.LAUNCHES["hamming_pairwise"] == 1
-    assert torch.equal(got, kh.pairwise_plain(ids, table))
+    assert build.LAUNCHES[f"hamming_pairwise_c{c}"] == 1
+    assert build.LAUNCHES["hamming_pairwise_offdiag"] == (1 if c > 128
+                                                          else 0)
+    assert torch.equal(got, got.transpose(1, 2))
+    assert torch.equal(got, kh.pairwise_plain(ids, table, mask))
+
+
+@pytest.mark.parametrize("dim", [17, 100, 3071])
+@pytest.mark.parametrize("c", [72, 256])
+def test_hamming_pairwise_ignores_bits_outside_the_mask(cuda, dim, c):
+    # set padding bits in the sign plane: the kernel decodes them to 0
+    # under the mask, as the plain version masks them away
+    table = _table(5000, dim, dim + c, cuda)
+    mask = bq.valid_mask(dim, device=cuda)
+    w = mask.shape[0]
+    g = torch.Generator().manual_seed(dim + c)
+    junk = torch.randint(-2 ** 31, 2 ** 31 - 1, (5000, w), generator=g,
+                         dtype=torch.int32).to(cuda) & ~mask
+    dirty = table.clone()
+    dirty[:, :w] |= junk
+    ids = torch.randint(0, 5000, (16, c), generator=g,
+                        dtype=torch.int32).to(cuda)
+    got = kh.pairwise(ids, dirty, mask)
+    assert torch.equal(got, kh.pairwise(ids, table, mask))
+    assert torch.equal(got, kh.pairwise_plain(ids, dirty, mask))
 
 
 def test_card_bq1_build_equals_cpu_build(cuda):
@@ -238,7 +311,7 @@ def test_empty_batches_launch_cleanly(cuda):
     assert kl.scan(table[:0], table, mask).shape == (0, 10)
     assert kl.scan(table, table[:0], mask).shape == (10, 0)
     assert kh.dist_rows(table[:0, :4], ids, table).shape == (0, 5)
-    assert kh.pairwise(ids, table).shape == (0, 5, 5)
+    assert kh.pairwise(ids, table, mask).shape == (0, 5, 5)
 
 
 def test_card_build_equals_cpu_build(cuda):

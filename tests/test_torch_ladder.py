@@ -120,7 +120,7 @@ def test_hamming_plain_matches_reference(dim, q, n):
     # pairwise: pools of the base rows against themselves
     c = min(n, 40)
     pool = torch.from_numpy(rng.integers(0, n, (3, c), dtype=np.int32))
-    pw = hamming.pairwise(pool, _t(bw))
+    pw = hamming.pairwise(pool, _t(bw), bq.valid_mask(dim))
     rows = bw[pool.numpy(), :w]
     want_pw = np.stack([np.asarray(jref.hamming_distance_ref(
         jnp.asarray(r), jnp.asarray(r), dim)) for r in rows])
@@ -134,10 +134,12 @@ def test_hamming_checks_inputs():
         hamming.dist_rows(torch.zeros((2, 8), dtype=torch.int32),
                           torch.zeros((2, 3), dtype=torch.int32), table)
     with pytest.raises(ValueError, match="int32"):
-        hamming.pairwise(torch.zeros((2, 3), dtype=torch.int64), table)
+        hamming.pairwise(torch.zeros((2, 3), dtype=torch.int64), table,
+                         bq.valid_mask(100))
     with pytest.raises(ValueError, match="table must be"):
         hamming.pairwise(torch.zeros((2, 3), dtype=torch.int32),
-                         torch.zeros((10, 7), dtype=torch.int32))
+                         torch.zeros((10, 7), dtype=torch.int32),
+                         bq.valid_mask(100))
 
 
 @pytest.mark.parametrize("dim", [64, 100, 384])
