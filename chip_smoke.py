@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases build,kernels,ivf
     python3 chip_smoke.py --phases build,kernels,ladder
+    python3 chip_smoke.py --phases build,kernels,filter
     python3 chip_smoke.py --phases build,kernels,rag
     python3 chip_smoke.py --phases build,profile      # opt-in breakdown
 
@@ -46,10 +47,14 @@ Phases, in order; any failure raises and the script exits nonzero:
               ``bq_dist_rows`` at K = 34 080 and 50 880 (the IVF build
               chunk and search batch), ``bq_pairwise`` at C = 72,
               ``list_scan`` at Q = 8192, ``hamming_pairwise`` at C = 72 and
-              ``hamming_dist_rows`` at K = 34 080.
+              ``hamming_dist_rows`` at K = 34 080 (its library bmm over
+              26.8 GB of float32 levels, gathered when it is timed).
 3. parity   — the same N = 4000 builds and searches on ``device="cpu"`` and
               on the card, beam-searched and IVF-seeded: identical
-              partition, adjacency, medoid and candidate ids; and
+              partition, adjacency, medoid and candidate ids; the filter
+              phase's labels and predicates on the beam-built graph: equal
+              entries and plans, identical ids with ``rerank=False`` and
+              ids matched by ``ids_match`` reranked; and
               ``build(nav="auto")`` on sift-like (red: float32 x4) and on
               cohere-surrogate (green: bq2): equal policies, ids matched by
               ``ids_match``; and ``minicpm-2b`` at full width and 2 layers,
@@ -84,7 +89,31 @@ Phases, in order; any failure raises and the script exits nonzero:
               policies must agree, and must be green, red, red.  Launch
               counts as in 4; both hamming entry points and ``list_scan``
               must have launched, and the bq1 build's ``hamming_pairwise``
-              launches are printed by pool size.
+              launches are printed by pool size.  The adaptive search's
+              escalations are counted by a hub on the index's plan cache.
+filter      — filtered search through query plans on phase 4's graph and
+              phase 5's IVF index (each built here when its phase did not
+              run): 8 labels, each row's membership drawn from seed 0 at
+              rates ``FILTER_RATES`` (0.5 down to 0.001), per-label entries
+              (``build_label_entries(min_count=32)``, timed); then 1 000
+              queries at k = 10, ef = 64: unfiltered (ids equal to phase
+              4's), labels 0-3 (graph route, widened ef), labels 4-6
+              (brute route), ``All(0, 1)``, ``Any(4, 5)``, ``Not(0)``,
+              label 5 with ``rerank=False``, label 0 with ``nav="bq1"``,
+              label 1 with ``adaptive=True`` and label 1 with
+              ``nav="ivf"`` on the IVF index; route, ef, QPS and recall
+              printed for each.  Gates: every returned id matches its
+              predicate (the membership matrix, exactly); the reranked
+              brute route's ids match exact filtered cosine top-10 (up to
+              1e-6 score ties), the unreranked one's scores equal an exact
+              bq2 scan's; graph-route recall@10 against the filtered truth
+              >= phase 4's recall - 0.05, ivf-route >= phase 5's default
+              ``nav="ivf"`` recall - 0.05.  Then every plan warmed at the
+              buckets (8, 32, 128, 256) and the whole set run again, each
+              search at one of those buckets in turn: zero retraces and no
+              new miss.  Launch counts as in 4: binarize,
+              ``bq_dist_rows``, ``list_scan`` and ``hamming_dist_rows``
+              must have launched.
 7. rag      — LM serving with RAG: ``minicpm-2b`` at full width and depth
               (40 layers, d 2304, 36 heads, vocab 122 880, bf16, weights
               drawn from seed 0) on the card; embed 8 192 + 256 seeded
@@ -102,7 +131,9 @@ Phases, in order; any failure raises and the script exits nonzero:
               the tensor-core kernel and every decode launch on the
               split-KV kernel, and the bq kernels in the build.  Each
               step's ms a call is printed with the flash kernel's share
-              (its launches x its phase-2 device time).
+              (its launches x its phase-2 device time).  Then two labels on
+              the 8 192 documents and one filtered ``Retriever.augment``
+              of the 8 prompts: every retrieved document carries label 1.
 An opt-in eighth phase, ``profile``, is not run by default: it profiles a
 few build chunks at the main path's size with ``torch.profiler`` and
 prints the device's busy share, device time by kernel, and the port's own
@@ -110,7 +141,7 @@ kernels' share of it.
 
 The last three lines of standard output are the card's name and power
 limit (``nvidia-smi``), one JSON line of per-kernel numbers (``launches``
-sums phases 4, 5, 6 and 7), and
+sums phases 4, 5, 6, filter and 7), and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits nonzero and prints no result.
 """
@@ -118,6 +149,7 @@ repository beside it, the script exits nonzero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -126,7 +158,8 @@ from functools import partial
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "parity", "main", "ivf", "ladder", "rag")
+PHASES = ("build", "kernels", "parity", "main", "ivf", "ladder", "filter",
+          "rag")
 OPT_IN = ("profile",)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the float32
@@ -427,16 +460,15 @@ def hamming_kernels(torch, g) -> dict:
                     + got.numel() * 4
                 b_ms, b_by = bound(nb, OPS_PER_SIGN_WORD_PAIR * ids.numel()
                                    * w)
-                library = None
+                # the library call: one bmm of the +-1 sign levels (gather
+                # and decode outside the timed call).  At K = 34 080 the
+                # float32 levels take 26.8 GB, more than is left beside
+                # bq_dist_rows' levels, so phase_times gathers them when
+                # it reaches this record and frees them right after
+                library = partial(hamming_library, torch, table[:, :w], q,
+                                  ids, dim, got)
                 if k == 72:
-                    # the library call: one bmm of the +-1 sign levels
-                    # (gather and decode outside the timed call; at
-                    # K = 34 080 the levels would take 27 GB)
-                    lr = sign_levels(torch, table[:, :w], dim)[ids.long()]
-                    lq = sign_levels(torch, q, dim)[:, :, None]
-                    check_library("hamming_dist_rows",
-                                  (dim - torch.bmm(lr, lq)[..., 0]) / 2, got)
-                    library = partial(torch.bmm, lr, lq)
+                    library = library()
                 key = "hamming_dist_rows" if k == 72 \
                     else f"hamming_dist_rows_k{k}"
                 out[key] = {
@@ -447,6 +479,7 @@ def hamming_kernels(torch, g) -> dict:
                     "fns": (partial(kh.dist_rows, q, ids, table),
                             partial(kh.dist_rows_plain, q, ids, table),
                             library),
+                    "library_gathered_late": k != 72,
                     "bound_ms": b_ms, "bound_by": b_by,
                     "shape": [b, k, dim],
                     "log_only": k != 72,
@@ -500,6 +533,16 @@ def hamming_kernels(torch, g) -> dict:
             f"with duplicate ids, {[(b, c) for b, c, dup in pools if dup]}:"
             " exact, each pool equal to its transpose")
     return out
+
+
+def hamming_library(torch, sign_words, q, ids, dim: int, got):
+    """``hamming_dist_rows``' library call: one bmm of the gathered float32
+    +-1 sign levels, checked to give the kernel's distances ``got``."""
+    lr = sign_levels(torch, sign_words, dim)[ids.long()]
+    lq = sign_levels(torch, q, dim)[:, :, None]
+    check_library("hamming_dist_rows",
+                  (dim - torch.bmm(lr, lq)[..., 0]) / 2, got)
+    return partial(torch.bmm, lr, lq)
 
 
 def flash_bound(b, tq, h, kvh, hd, causal, q_offset, valid, elem):
@@ -694,6 +737,9 @@ def phase_times(torch, kernels: dict) -> None:
         rec["ms"], rec["stream_ms"] = time_ms(torch, kernel)
         rec["plain_ms"], rec["plain_stream_ms"] = time_ms(torch, plain,
                                                           reps=3)
+        if rec.pop("library_gathered_late", False):
+            # the earlier records' levels are freed by now
+            library = library()
         rec["library_ms"] = time_ms(torch, library)[0] if library else None
         if rec["name"] == "flash_attention_split_kv":
             rec["kernel_ms"] = kernel_times(torch, kernel)
@@ -708,6 +754,7 @@ def phase_times(torch, kernels: dict) -> None:
             log(f"    of which {name[:70]}: device {ms:.4f} ms a call "
                 "(torch.profiler; a kernel launched early by programmatic "
                 "dependent launch counts its wait)")
+        del kernel, plain, library      # free this record's inputs now
     log(f"  clocks right after: {clocks()}")
 
 
@@ -739,7 +786,7 @@ def ids_match(a, b, scores_a, scores_b, tol: float = 1e-6) -> int:
     import numpy as np
 
     diff = a != b
-    if (np.abs(scores_a - scores_b)[diff] > tol).any():
+    if (np.abs(scores_a[diff] - scores_b[diff]) > tol).any():
         bad = int(np.nonzero(diff.any(axis=1))[0][0])
         raise AssertionError(
             f"query {bad}: ids {a[bad].tolist()} vs {b[bad].tolist()}")
@@ -783,9 +830,63 @@ def phase_parity(torch) -> None:
     tied = ids_match(cpu[2], gpu[2], cpu[3], gpu[3])
     log(f"  signatures, adjacency, medoid and beam ids identical; reranked "
         f"ids identical up to {tied} rows of scores within 1e-6")
+    parity_filter(torch, cpu[0], gpu[0], queries)
     for name, want in (("sift-like", "float32"), ("cohere-surrogate", "bq2")):
         parity_auto(torch, name, want, params)
     parity_lm(torch)
+
+
+def parity_filter(torch, cpu, gpu, queries) -> None:
+    """The filter phase's labels and predicates on the N = 4000 graph, on
+    the CPU and on the card, for the first 32 queries: equal entries and
+    plans; identical ids and scores on the graph routes (searched with
+    ``rerank=False``) and on the brute route without rerank; ids matched by
+    ``ids_match`` on the reranked brute routes."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.plan import resolve_plan
+
+    rng = np.random.default_rng(0)
+    member = np.stack([rng.random(cpu.adjacency.shape[0]) < p
+                       for p in FILTER_RATES], axis=1)
+    rows = label_rows(member)
+    for index in (cpu, gpu):
+        index.attach_labels(rows, n_labels=len(FILTER_RATES))
+        index.build_label_entries(min_count=32)
+    if not np.array_equal(cpu.labels.entries, gpu.labels.entries):
+        raise AssertionError(f"label entries differ: {cpu.labels.entries} "
+                             f"vs {gpu.labels.entries}")
+    routes, tied = [], 0
+    queries = queries[:32]
+    for name, pred, mask_of, kw, on_ivf in filter_searches():
+        if on_ivf or pred is None:
+            continue
+        plans = [resolve_plan(index, k=10, ef=64, filter=pred, **kw)
+                 for index in (cpu, gpu)]
+        (c_plan, c_ctx), (g_plan, g_ctx) = plans
+        if dataclasses.asdict(c_plan) != dataclasses.asdict(g_plan) \
+                or c_ctx.start != g_ctx.start \
+                or c_ctx.selectivity != g_ctx.selectivity:
+            raise AssertionError(f"{name}: plans differ: {c_plan}, "
+                                 f"{g_plan}")
+        routes.append(f"{name}: {g_plan.route}")
+        if g_plan.route == "graph":
+            kw = {**kw, "rerank": False}
+        (c_ids, c_sc), (g_ids, g_sc) = (
+            index.search(queries, k=10, ef=64, filter=pred, **kw)
+            for index in (cpu, gpu))
+        if not mask_of(member)[g_ids[g_ids >= 0]].all():
+            raise AssertionError(f"{name}: an id outside its predicate")
+        if kw.get("rerank", True):
+            tied += ids_match(c_ids, g_ids, c_sc, g_sc)
+        elif not (np.array_equal(c_ids, g_ids)
+                  and np.array_equal(c_sc, g_sc)):
+            raise AssertionError(f"{name}: hot-path ids differ")
+    log(f"  filters: entries {gpu.labels.entries.tolist()} equal; plans "
+        f"equal ({'; '.join(routes)}); hot-path ids identical, reranked "
+        f"brute ids identical up to {tied} rows of scores within 1e-6")
 
 
 def parity_lm(torch) -> None:
@@ -995,7 +1096,7 @@ def phase_main(torch) -> dict:
             raise AssertionError(f"{name} never launched on the main path")
     return {"launches": launches, "recall": recall,
             "build_s": stats.seconds, "qps": n_queries / search_s,
-            "index": index, "data": (base, queries, truth)}
+            "index": index, "data": (base, queries, truth), "ids": ids}
 
 
 def phase_ivf(torch) -> dict:
@@ -1083,16 +1184,33 @@ def phase_ivf(torch) -> dict:
     for name in ("binarize", "bq_dist_rows", "bq_pairwise", "list_scan"):
         if launches.get(name, 0) == 0:
             raise AssertionError(f"{name} never launched on the IVF path")
-    return {"launches": launches}
+    return {"launches": launches, "index": index,
+            "ivf_recall": runs[1][2]}
 
 
-def escalated_total() -> float:
-    """Queries escalated so far (the port's process registry)."""
-    from repro_torch.obs.metrics import get_default_registry
+class SmokeHub:
+    """What ``PlanCache.obs`` reads: a metrics registry of its own and a
+    tracer with a clock and spans (the port has no ObsHub yet)."""
 
-    counter = get_default_registry().counter(
-        "quiver_escalated_queries_total", labels=("plan",))
-    return float(sum(slot[0] for slot in counter.series().values()))
+    def __init__(self):
+        from repro_torch.obs.metrics import MetricsRegistry
+
+        self.registry = MetricsRegistry()
+        self.tracer = self
+
+    @staticmethod
+    def clock() -> float:
+        return time.perf_counter()
+
+    @contextlib.contextmanager
+    def span(self, name, **attrs):
+        yield
+
+    def escalated(self) -> float:
+        """Queries escalated so far under this hub."""
+        counter = self.registry.counter("quiver_escalated_queries_total",
+                                        labels=("plan",))
+        return float(sum(slot[0] for slot in counter.series().values()))
 
 
 def timed_search(index, queries, truth, label: str, **kw):
@@ -1164,11 +1282,13 @@ def phase_ladder(torch, main: dict | None) -> dict:
         _, recalls[nav] = timed_search(graph, queries, truth,
                                        f'nav="{nav}" on the bq2 graph',
                                        nav=nav)
-    before = escalated_total()
+    # the escalation counter lives on the plan cache's hub
+    graph.plans.obs = hub = SmokeHub()
     _, r_adaptive = timed_search(graph, queries, truth,
                                  'nav="bq2" adaptive=True on the bq2 graph',
                                  nav="bq2", adaptive=True)
-    escalated = escalated_total() - before
+    graph.plans.obs = None
+    escalated = hub.escalated()
     log(f"  adaptive: {int(escalated)} of {n_queries} queries escalated "
         f"({escalated / n_queries:.1%}) at the default margin 0.15, ef x4")
 
@@ -1216,6 +1336,209 @@ def phase_ladder(torch, main: dict | None) -> dict:
                  "hamming_pairwise", "list_scan"):
         if launches.get(name, 0) == 0:
             raise AssertionError(f"{name} never launched on the ladder path")
+    return {"launches": launches}
+
+
+# the filter phase's catalogue: 8 labels, each row's membership drawn
+# independently at these rates (a long tail of rare facets; label 3 sits at
+# 0.06 so that no draw lands it on either side of the 0.05 floor)
+FILTER_RATES = (0.5, 0.2, 0.1, 0.06, 0.02, 0.01, 0.005, 0.001)
+
+
+def label_rows(member) -> list:
+    """(N, L) bool membership -> one label list per row."""
+    return [row.nonzero()[0].tolist() for row in member]
+
+
+def filter_searches() -> list:
+    """The filter phase's searches: (name, predicate, its mask from the
+    (N, L) membership matrix, search kwargs, on the IVF index)."""
+    from repro_torch.filter import All, Any, Not
+
+    def lbl(i):
+        return lambda m: m[:, i]
+
+    return [
+        ("unfiltered", None, None, {}, False),
+        *[(f"label {i}", i, lbl(i), {}, False) for i in range(7)],
+        ("All(0, 1)", All(0, 1), lambda m: m[:, 0] & m[:, 1], {}, False),
+        ("Any(4, 5)", Any(4, 5), lambda m: m[:, 4] | m[:, 5], {}, False),
+        ("Not(0)", Not(0), lambda m: ~m[:, 0], {}, False),
+        ("label 5 rerank=False", 5, lbl(5), {"rerank": False}, False),
+        ('label 0 nav="bq1"', 0, lbl(0), {"nav": "bq1"}, False),
+        ("label 1 adaptive=True", 1, lbl(1), {"adaptive": True}, False),
+        ('label 1 nav="ivf"', 1, lbl(1), {"nav": "ivf"}, True),
+    ]
+
+
+def filtered_truth(base, queries, mask, k: int = 10):
+    """Exact filtered cosine top-k: (ids, scores) over the rows of
+    ``mask``."""
+    import numpy as np
+
+    from repro_torch.core.baselines import flat_search
+
+    match = np.nonzero(mask)[0]
+    ids, scores = flat_search(base[match], queries, k, device="cuda")
+    return match[ids], scores
+
+
+def brute_bq2_scores(torch, index, queries, mask, k: int = 10):
+    """The top-k scores of an exact bq2 scan over the rows of ``mask``, by
+    the plain distance (``bq.pairwise_distance``): the brute route without
+    rerank must return these scores."""
+    import numpy as np
+
+    from repro_torch.core import bq
+    from repro_torch.core.metric import normalize
+
+    match = torch.from_numpy(np.nonzero(mask)[0]).cuda()
+    qs = bq.encode(normalize(torch.as_tensor(queries, device="cuda")))
+    rows = bq.Signature(words=index.sigs.words[match], dim=index.sigs.dim)
+    scores = -bq.pairwise_distance(qs, rows).float() - 4 * index.sigs.dim
+    return torch.topk(scores, k, dim=1).values.cpu().numpy()
+
+
+def phase_filter(torch, main: dict | None, ivf: dict | None) -> dict:
+    """Filtered search and query plans at deployment size, on phase 4's
+    graph and phase 5's IVF index (each built here when its phase did not
+    run); returns the phase's launch counts."""
+    import numpy as np
+
+    from repro_torch.core.baselines import flat_search, recall_at_k
+    from repro_torch.core.index import QuIVerIndex
+    from repro_torch.core.vamana import BuildParams
+    from repro_torch.data.datasets import make_dataset
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.plan import resolve_plan
+
+    n, n_queries = 100_000, 1000
+    if main is not None:
+        base, queries, truth = main["data"]
+        graph, graph_recall = main["index"], main["recall"]
+    else:
+        base, queries = make_dataset("cohere-surrogate", n, queries=n_queries)
+        truth, _ = flat_search(base, queries, 10, device="cuda")
+        log("  (phase 4 did not run: building its bq2 graph first)")
+        graph = QuIVerIndex.build(base, BuildParams(), device="cuda")
+        graph_recall = recall_at_k(graph.search(queries, k=10, ef=64)[0],
+                                   truth)
+    if ivf is not None:
+        ivf_index, ivf_recall = ivf["index"], ivf["ivf_recall"]
+    else:
+        log("  (phase 5 did not run: building its IVF index first)")
+        ivf_index = QuIVerIndex.build(base, BuildParams(ivf_candidates=True),
+                                      device="cuda")
+        ivf_recall = recall_at_k(
+            ivf_index.search(queries, k=10, ef=128, nav="ivf")[0], truth)
+    torch.cuda.synchronize()
+    t_phase = time.perf_counter()
+
+    kbuild.reset_launches()
+    rng = np.random.default_rng(0)
+    member = np.stack([rng.random(n) < p for p in FILTER_RATES], axis=1)
+    rows = label_rows(member)
+    graph.attach_labels(rows, n_labels=len(FILTER_RATES))
+    ivf_index.attach_labels(rows, n_labels=len(FILTER_RATES))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    built = graph.build_label_entries(min_count=32)
+    torch.cuda.synchronize()
+    entries_s = time.perf_counter() - t0
+    log(f"  {len(FILTER_RATES)} labels at rates {FILTER_RATES}: members "
+        f"{graph.labels.counts.tolist()}, "
+        f"{graph.memory_breakdown()['hot_label_bytes']} label bytes; "
+        f"build_label_entries(min_count=32): {built} entries "
+        f"{graph.labels.entries.tolist()} in {entries_s:.3f} s")
+
+    searches = filter_searches()
+    runs, failures = [], []
+    for name, pred, mask_of, kw, on_ivf in searches:
+        index = ivf_index if on_ivf else graph
+        plan, ctx = resolve_plan(index, k=10, ef=64, filter=pred, **kw)
+        mask = mask_of(member) if mask_of is not None else None
+        if mask is not None:
+            want_ids, want_scores = filtered_truth(base, queries, mask)
+        else:
+            want_ids, want_scores = truth, None
+        hub = None
+        if plan.adaptive:
+            index.plans.obs = hub = SmokeHub()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, scores = index.search(queries, k=10, ef=64, filter=pred, **kw)
+        secs = time.perf_counter() - t0
+        index.plans.obs = None
+        recall = recall_at_k(ids, want_ids)
+        note = ""
+        if hub is not None:
+            note = f", {int(hub.escalated())} escalated at ef {plan.ef} x " \
+                f"{plan.escalate_mult}"
+        log(f"  {name}: route {plan.route}, ef {plan.ef}"
+            f"{f', probes {plan.probes}' if plan.route == 'ivf' else ''}, "
+            f"selectivity {ctx.selectivity}, start {ctx.start}: "
+            f"{secs:.3f} s, {n_queries / secs:.1f} QPS, recall@10 "
+            f"{recall:.4f}{note}")
+        runs.append((name, pred, kw, index, plan, ctx))
+        if ids.shape != (n_queries, 10) or ids.max() >= n:
+            raise AssertionError(f"{name}: search output malformed")
+        if mask is None:
+            if main is not None and not np.array_equal(ids, main["ids"]):
+                failures.append(f"{name}: ids differ from phase 4's")
+            continue
+        if not mask[ids[ids >= 0]].all():
+            failures.append(f"{name}: an id outside its predicate")
+        if plan.route == "brute" and plan.rerank:
+            ids_match(ids, want_ids, scores, want_scores)
+        elif plan.route == "brute":
+            want = brute_bq2_scores(torch, index, queries, mask)
+            if not np.array_equal(scores, want):
+                failures.append(f"{name}: scores differ from an exact "
+                                "bq2 scan")
+        elif plan.route == "ivf" and recall < ivf_recall - 0.05:
+            failures.append(f"{name}: recall@10 {recall:.4f} below the "
+                            f"ivf route's {ivf_recall:.4f} - 0.05")
+        elif plan.route == "graph" and recall < graph_recall - 0.05:
+            failures.append(f"{name}: recall@10 {recall:.4f} below the "
+                            f"graph's {graph_recall:.4f} - 0.05")
+
+    # steady state: warm every program at the bucket ladder, then run the
+    # whole set again, each search at one of the warmed buckets in turn,
+    # with no first run at a new key and no miss
+    caches = {id(graph.plans): graph.plans, id(ivf_index.plans):
+              ivf_index.plans}
+    buckets = (8, 32, 128, 256)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for name, pred, kw, index, plan, ctx in runs:
+        index.plans.warmup(plan, ctx, buckets=buckets)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    misses = {key: c.misses for key, c in caches.items()}
+    t0 = time.perf_counter()
+    for i, (name, pred, kw, index, plan, ctx) in enumerate(runs):
+        index.search(queries[:buckets[i % 4]], k=10, ef=64, filter=pred,
+                     **kw)
+    torch.cuda.synchronize()
+    rerun_s = time.perf_counter() - t0
+    for key, cache in caches.items():
+        report = cache.report()
+        log(f"  plans report: {json.dumps(report)}")
+        if report["retraces"] != 0 or cache.misses != misses[key]:
+            failures.append(f"steady state: {report['retraces']} retraces, "
+                            f"{cache.misses - misses[key]} new misses")
+    launches = dict(kbuild.LAUNCHES)
+    phase_s = time.perf_counter() - t_phase
+    log(f"  warmup at buckets {buckets} {warm_s:.1f} s, the set again "
+        f"(8, 32, 128 or 256 queries a search) {rerun_s:.1f} s; phase "
+        f"{phase_s:.1f} s")
+    log(f"  launches on the filter path: {launches}")
+    for name in ("binarize", "bq_dist_rows", "list_scan",
+                 "hamming_dist_rows"):
+        if launches.get(name, 0) == 0:
+            failures.append(f"{name} never launched on the filter path")
+    if failures:
+        raise AssertionError("; ".join(failures))
     return {"launches": launches}
 
 
@@ -1373,6 +1696,26 @@ def phase_rag(torch, kernels: dict) -> dict:
         raise AssertionError("a context row is not its document's tokens")
     log(f"  retrieval: {hits.size} ids in range, every context row its "
         f"document's tokens; first prompt's ids {hits[0].tolist()}")
+
+    # filtered retrieval: two labels on the indexed documents, and the
+    # prompts served documents of label 1 only
+    member = np.random.default_rng(1).random((n_docs, 2)) < (0.5, 0.1)
+    index.attach_labels(label_rows(member), n_labels=2)
+    emb = embed_fn(prompts)
+    kbuild.reset_launches()
+    hits, _ = index.search(emb, k=k, ef=64, filter=1)
+    launches.update(kbuild.LAUNCHES)
+    ctx = retriever.augment(prompts, filter=1)[:, :k * doc_len] \
+        .reshape(n_prompts, k, doc_len)
+    if hits.min() < 0 or not member[hits, 1].all():
+        raise AssertionError("a filtered retrieval returned a document "
+                             "without the label")
+    if not np.array_equal(ctx, docs[hits]):
+        raise AssertionError("a filtered context row is not its "
+                             "document's tokens")
+    log(f"  filtered retrieval (label 1: {int(member[:, 1].sum())} of "
+        f"{n_docs} documents): every one of {hits.size} retrieved ids "
+        f"carries the label; first prompt's ids {hits[0].tolist()}")
 
     # each step's flash kernel: its launches x its phase-2 device time at
     # the step's shape (decode at 352 keys, the longest step)
@@ -1566,18 +1909,23 @@ def main(argv=None) -> int:
         log("phase 3: the N=4000 builds on the CPU and on the card")
         phase_parity(torch)
     paths = []
-    main_path = None
+    main_path = ivf_path = None
     if "main" in phases:
         log("phase 4: main path, cohere-surrogate N=100000, 1000 queries")
         main_path = phase_main(torch)
         paths.append(main_path)
     if "ivf" in phases:
         log("phase 5: IVF path, cohere-surrogate N=100000, 1000 queries")
-        paths.append(phase_ivf(torch))
+        ivf_path = phase_ivf(torch)
+        paths.append(ivf_path)
     if "ladder" in phases:
         log("phase 6: metric ladder, cohere-surrogate N=100000, 1000 "
             "queries; probe of three corpora")
         paths.append(phase_ladder(torch, main_path))
+    if "filter" in phases:
+        log("phase filter: filtered search and query plans, "
+            "cohere-surrogate N=100000, 1000 queries, 8 labels")
+        paths.append(phase_filter(torch, main_path, ivf_path))
     if "rag" in phases:
         log("phase 7: LM serving with RAG, minicpm-2b at full width and "
             "depth")

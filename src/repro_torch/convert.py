@@ -9,10 +9,11 @@ wrappers over :func:`index_to_numpy` / :func:`index_from_numpy`, and an
 archive written by either package loads in the other.
 
 An IVF partition travels as the reference's ``ivf_*`` fields, a nav
-policy as its ``policy_*`` fields and a probe report as its ``probe_*``
-fields; ``metric_kind`` is any registered kind.  Fields of parts not
-ported yet (labels, graph-health reports, streaming archives) are refused
-with an error rather than dropped.
+policy as its ``policy_*`` fields, a probe report as its ``probe_*``
+fields and a label store as its ``label_*`` fields (words as uint32);
+``metric_kind`` is any registered kind.  Fields of parts not ported yet
+(graph-health reports, streaming archives) are refused with an error
+rather than dropped.
 """
 
 from __future__ import annotations
@@ -27,13 +28,14 @@ from repro_torch.core.index import QuIVerIndex
 from repro_torch.core.metric import registered_kinds
 from repro_torch.core.vamana import BuildParams
 from repro_torch.device import resolve_device
+from repro_torch.filter import LabelStore
 from repro_torch.ivf import IVFPartition
 from repro_torch.models.transformer import DecoderLM
 from repro_torch.probe import CompatibilityReport, NavPolicy
 
 _PARAM_PREFIX = "param_"
 # npz field prefixes of state this part of the port cannot honour
-_UNPORTED_PREFIXES = ("label_", "graph_")
+_UNPORTED_PREFIXES = ("graph_",)
 
 
 def params_to_npz(params: BuildParams) -> dict:
@@ -64,6 +66,8 @@ def index_to_numpy(index: QuIVerIndex) -> dict:
         return t.detach().cpu().numpy() if t is not None else np.zeros((0,))
 
     extra = {}
+    if index.labels is not None:
+        extra.update(index.labels.to_npz_fields())
     if index.policy is not None:
         extra.update(index.policy.to_npz_fields())
     if index.report is not None:
@@ -113,6 +117,7 @@ def index_from_numpy(fields: dict, device=None) -> QuIVerIndex:
         vectors=dev(fields["vectors"], torch.float32),
         rotation=dev(fields["rotation"], torch.float32),
         metric_kind=metric_kind,
+        labels=LabelStore.from_npz(fields, device),
         policy=NavPolicy.from_npz(fields),
         report=CompatibilityReport.from_npz(fields),
         ivf=IVFPartition.from_npz(fields, device),

@@ -12,6 +12,11 @@ live query and folds their <= ``expand * R`` neighbours into the beam with
 one batched distance call.  Ties are broken as the reference breaks them:
 frontier picks and the ``[beam | new]`` merge use stable sorts, and a
 neighbour that appears twice in one hop counts only at its first slot.
+
+Two optional ``(n,)`` masks restrict what is *returned*, never what is
+traversed: ``node_valid`` (tombstones) and ``result_valid`` (a filter
+predicate) conjoin, and under either a parallel valid-only result list is
+merged beside the navigation beam, as in the reference.
 """
 
 from __future__ import annotations
@@ -94,6 +99,24 @@ def escalated_search(run, reprs, queries, ef: int, *,
     return all_ids, all_scores
 
 
+def _conjoin(node_valid, result_valid):
+    """Combine the tombstone and predicate result masks (None == all
+    valid); the one owner of the two-mask conjunction."""
+    if node_valid is not None and result_valid is not None:
+        return node_valid & result_valid
+    return node_valid if node_valid is not None else result_valid
+
+
+def _merge(ids, dists, new_ids, new_dists, ef):
+    """Merge new candidates into a sorted (B, ef) list and keep the best
+    ``ef``; a stable sort keeps earlier entries first among equal
+    distances.  Returns (ids, dists, the gather order)."""
+    cat_d = torch.cat([dists, new_dists], dim=1)
+    order = torch.sort(cat_d, dim=1, stable=True).indices[:, :ef]
+    return (torch.cat([ids, new_ids], dim=1).gather(1, order),
+            cat_d.gather(1, order), order)
+
+
 class BeamResult(NamedTuple):
     ids: torch.Tensor         # (B, ef) int32, -1 padded, sorted by distance
     dists: torch.Tensor       # (B, ef) float32, INF padded
@@ -115,6 +138,8 @@ def beam_search(
     max_hops: int = 0,
     expand: int = 1,
     max_evals: int = 0,
+    node_valid: torch.Tensor | None = None,     # (n,) bool live mask
+    result_valid: torch.Tensor | None = None,   # (n,) bool predicate mask
 ) -> BeamResult:
     """Batched best-first beam search from ``start`` toward each query.
 
@@ -122,6 +147,13 @@ def beam_search(
     ``expand`` (the expansion width L) picks how many unexpanded entries
     each query expands per hop; ``max_evals`` (0 = unlimited) stops a
     query once it has spent that many fresh distance evaluations.
+
+    ``node_valid`` (tombstones of a mutable index) and ``result_valid`` (a
+    filter predicate's match mask), shared by the batch, conjoin.  Under
+    either, navigation is unchanged: masked-out nodes are still expanded
+    and their edges still route.  Only the returned ids and dists come
+    from the valid-only result list; ``descent`` and ``entry_rank`` are
+    read from the navigation list.
     """
     dev = adjacency.device
     b, r = queries.shape[0], adjacency.shape[1]
@@ -148,6 +180,13 @@ def beam_search(
     # earlier[i, j]: slot j comes before slot i within one hop's batch
     earlier = torch.ones((lr, lr), dtype=torch.bool, device=dev).tril(-1)
     inf = torch.tensor(INF, dtype=torch.float32, device=dev)
+    res_valid = _conjoin(node_valid, result_valid)
+    if res_valid is not None:
+        ok0 = res_valid[start]
+        res_ids = torch.full_like(ids, -1)
+        res_ids[:, 0] = torch.where(ok0, ids[:, 0], -1)
+        res_dists = torch.full_like(dists, INF)
+        res_dists[:, 0] = torch.where(ok0, d0, inf)
 
     while True:
         frontier = ~expanded & (ids >= 0)
@@ -177,19 +216,22 @@ def beam_search(
 
         nd = torch.where(fresh, dist_fn(queries, nbrs_safe), inf)
         new_ids = torch.where(fresh, nbrs_safe, -1)
-        cat_d = torch.cat([dists, nd], dim=1)
-        order = torch.sort(cat_d, dim=1, stable=True).indices[:, :ef]
-        ids = torch.cat([ids, new_ids], dim=1).gather(1, order)
-        dists = cat_d.gather(1, order)
+        ids, dists, order = _merge(ids, dists, new_ids, nd, ef)
         expanded = torch.cat([expanded, torch.zeros_like(fresh)],
                              dim=1).gather(1, order)
+        if res_valid is not None:
+            live = fresh & res_valid[nbrs_safe.long()]
+            res_ids, res_dists, _ = _merge(
+                res_ids, res_dists, torch.where(live, nbrs_safe, -1),
+                torch.where(live, nd, inf), ef)
         evals += fresh.sum(dim=1, dtype=torch.int32)
         # a round that fails to improve the beam best is a stall
         stalls += (~(dists[:, 0] < prev_best) & go).to(torch.int32)
         hops += go.to(torch.int32)
 
-    return BeamResult(
-        ids=ids, dists=dists, hops=hops, evals=evals,
-        descent=d0 - dists[:, 0], stalls=stalls,
-        entry_rank=(dists < d0[:, None]).sum(dim=1, dtype=torch.int32),
-    )
+    nav = dict(descent=d0 - dists[:, 0], stalls=stalls,
+               entry_rank=(dists < d0[:, None]).sum(dim=1,
+                                                    dtype=torch.int32))
+    if res_valid is not None:
+        ids, dists = res_ids, res_dists
+    return BeamResult(ids=ids, dists=dists, hops=hops, evals=evals, **nav)

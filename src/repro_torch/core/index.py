@@ -15,16 +15,14 @@ float32), or in the one the applicability probe picks
 (``build(nav="auto")``, ``repro_torch.probe``), and searched in any of them
 (``search(nav=...)``), or through the IVF list scan (``nav="ivf"``).
 
-The reference lowers ``search`` through compiled query plans
-(``repro.plan``).  For an unfiltered search a plan is: the policy's
-schedule (``resolve_schedule``), beam search (or the IVF list scan), then
-:func:`rerank`, with :func:`beam_margin` at the nav backend's
-``neutral_dist``; an adaptive plan re-runs the tight-margin queries at
-``ef * escalate_mult`` (and ``probes * escalate_mult`` on the ivf route).
-That is what ``search`` runs here, through
-:func:`~repro_torch.core.beam.escalated_search`, without plans.  Filters,
-``replan`` and the plan cache wait for their parts of the port; ``filter``
-raises ``NotImplementedError``.
+``search`` lowers, as the reference's does, to a query plan: the nav
+ladder, the filter route and the escalation schedule are resolved once
+into a frozen :class:`~repro_torch.plan.QueryPlan`
+(:func:`~repro_torch.plan.resolve_plan`), and the index's
+:class:`~repro_torch.plan.PlanCache` runs it.  Labels
+(``attach_labels``, ``repro_torch.filter``) make ``filter=`` predicates
+available; ``replan`` switches the default nav policy and evicts the
+abandoned family's plans.
 """
 
 from __future__ import annotations
@@ -35,7 +33,6 @@ import numpy as np
 import torch
 
 from repro_torch.core import bq
-from repro_torch.core.beam import beam_margin, beam_search, escalated_search
 from repro_torch.core.metric import (
     MetricArrays,
     MetricSpace,
@@ -45,13 +42,18 @@ from repro_torch.core.metric import (
 )
 from repro_torch.core.vamana import BuildParams, BuildStats, build_graph
 from repro_torch.device import resolve_device
-from repro_torch.ivf import IVFPartition, build_partition, scan_search
-from repro_torch.kernels import dispatch
+from repro_torch.filter import (
+    DEFAULT_SELECTIVITY_FLOOR,
+    LabelStore,
+    build_label_entries,
+)
+from repro_torch.ivf import IVFPartition, build_partition
+from repro_torch.plan.cache import PlanCache
+from repro_torch.plan.planner import resolve_plan
 from repro_torch.probe import (
     CompatibilityReport,
     NavPolicy,
     probe_corpus,
-    resolve_schedule,
     select_policy,
 )
 
@@ -75,6 +77,7 @@ class QuIVerIndex:
     rotation: torch.Tensor | None = None
     build_stats: BuildStats | None = None
     metric_kind: str = "bq2"
+    labels: LabelStore | None = None     # packed label bitsets — hot
     # the probe report and nav policy chosen by ``build(nav="auto")`` (or
     # the manual ivf policy of ``build(nav="ivf")``); both persist through
     # save/load, and the policy drives ``search`` defaults
@@ -87,10 +90,21 @@ class QuIVerIndex:
     _backends: dict = dataclasses.field(
         default_factory=dict, repr=False, compare=False
     )
+    # query plans: one cache per index, each distinct plan built once
+    _plan_cache: PlanCache | None = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
 
     @property
     def device(self) -> torch.device:
         return self.adjacency.device
+
+    @property
+    def plans(self) -> PlanCache:
+        """The index's plan cache (created on first use)."""
+        if self._plan_cache is None:
+            self._plan_cache = PlanCache(self)
+        return self._plan_cache
 
     def backend(self, kind: str | None = None) -> MetricSpace:
         """The metric backend for ``kind`` (default: the index's own)."""
@@ -201,6 +215,79 @@ class QuIVerIndex:
         )
         return self.ivf
 
+    # -- replanning ----------------------------------------------------------
+
+    def replan(
+        self,
+        *,
+        nav: str,
+        ef_scale: int | None = None,
+        adaptive: bool | None = None,
+        source: str = "replan",
+    ) -> NavPolicy:
+        """Switch the index's default nav policy at serve time.
+
+        The new :class:`NavPolicy` becomes the default of every search
+        that leaves ``nav`` unset, and the old default's plans are evicted
+        from the :class:`PlanCache` (targeted: every other nav family's
+        programs survive, so their traffic sees zero retraces).
+        ``ef_scale`` / ``adaptive`` default to the current policy's values
+        (or the :class:`NavPolicy` defaults when none is set).
+        """
+        if nav == "ivf" and self.ivf is None:
+            raise ValueError(
+                "replan(nav='ivf') needs a coarse partition; call "
+                "build_ivf() first"
+            )
+        if nav == "float32" and self.vectors is None:
+            raise ValueError(
+                "replan(nav='float32') needs the cold vector tier; "
+                "this index is vector-free"
+            )
+        old_nav = (
+            self.policy.nav if self.policy is not None else self.metric_kind
+        )
+        if self.policy is not None:
+            kw = {"nav": nav, "source": source}
+            if ef_scale is not None:
+                kw["ef_scale"] = int(ef_scale)
+            if adaptive is not None:
+                kw["adaptive"] = bool(adaptive)
+            self.policy = dataclasses.replace(self.policy, **kw)
+        else:
+            self.policy = NavPolicy(
+                nav=nav, source=source,
+                **({} if ef_scale is None else {"ef_scale": int(ef_scale)}),
+                **({} if adaptive is None else {"adaptive": bool(adaptive)}),
+            )
+        if nav != old_nav and self._plan_cache is not None:
+            self._plan_cache.invalidate(nav=old_nav)
+        return self.policy
+
+    # -- labels (filtered search) --------------------------------------------
+
+    def attach_labels(self, labels, *,
+                      n_labels: int | None = None) -> LabelStore:
+        """Attach per-node labels: one int (categorical) or iterable of
+        ints (multi-tag) per node, length N.  Returns the store, whose
+        words live on the index's device."""
+        n = self.sigs.words.shape[0]
+        if len(labels) != n:
+            raise ValueError(f"{len(labels)} label rows for {n} nodes")
+        self.labels = LabelStore.from_rows(labels, n_labels=n_labels,
+                                           device=self.device)
+        return self.labels
+
+    def build_label_entries(self, *, min_count: int = 32) -> int:
+        """Per-label entry points (member medoids) for frequent labels;
+        returns how many were built."""
+        if self.labels is None:
+            raise ValueError("no labels attached")
+        return build_label_entries(
+            self.labels, self.backend(), vectors=self.vectors,
+            min_count=min_count,
+        )
+
     # -- search ------------------------------------------------------------
 
     def search(
@@ -214,6 +301,7 @@ class QuIVerIndex:
         expand: int = 1,
         query_batch: int = 256,
         filter=None,
+        selectivity_floor: float = DEFAULT_SELECTIVITY_FLOOR,
         adaptive: bool | None = None,
         probes: int | None = None,
     ) -> tuple[np.ndarray, np.ndarray]:
@@ -235,74 +323,28 @@ class QuIVerIndex:
         With ``nav`` left at its default, the policy's schedule applies:
         ``ef`` is multiplied by ``policy.ef_scale`` and ``adaptive``
         defaults to the policy's.  ``adaptive=True`` re-runs the queries
-        whose top-k margin (:func:`beam_margin`) is below the schedule's
+        whose top-k margin (``beam_margin``) is below the schedule's
         ``escalate_margin`` at ``ef * escalate_mult`` (and, on the ivf
         route, ``probes * escalate_mult``).
+
+        ``filter`` (optional) is a label predicate (``repro_torch.filter``'s
+        ``Any``/``All``/``Not`` or a bare label id) over the attached
+        :class:`LabelStore`.  Its estimated selectivity picks the route:
+        at or above ``selectivity_floor`` the graph (or the ivf lists) is
+        searched with a widened ``ef`` and the predicate as the result
+        mask, from the best per-label entry point; below it the match set
+        is brute-forced exactly.
+
+        The call lowers to :func:`resolve_plan` and the index's
+        :class:`PlanCache`, which runs each distinct plan's program.
         """
-        if filter is not None:
-            raise NotImplementedError("filtered search is not ported yet")
-        ef, adaptive, sched = resolve_schedule(self.policy, nav, ef,
-                                               adaptive)
-        kind = nav or (self.policy.nav if self.policy is not None
-                       else self.metric_kind)
-        ivf = kind == "ivf"
-        if ivf and self.ivf is None:
-            raise ValueError(
-                "nav='ivf' needs a coarse partition: build with "
-                "BuildParams(ivf_candidates=True) or call build_ivf()"
-            )
-        if k > ef:
-            raise ValueError(f"k={k} exceeds ef={ef}")
-        # the ivf family scores its candidates in bq2 space
-        backend = self.backend("bq2" if ivf else kind)
-        queries = normalize(as_float32(queries, self.device))
-        if queries.ndim == 1:
-            queries = queries[None]
-        enc_in = queries
-        if self.rotation is not None and backend.kind != "float32":
-            enc_in = queries @ self.rotation
-        reprs = backend.encode_queries(enc_in)
-        vectors = self.vectors if rerank else None
-        n = self.sigs.words.shape[0]
-        if ivf:
-            probes = ivf_probes(self.ivf, k, probes)
-            scan = dispatch.list_scan_ops(self.sigs.dim, self.device).scan
-
-        def run(reprs, queries, ef_run, want_margin):
-            if ivf:
-                # the escalated stage widens the list fan-in by the same
-                # multiple as the pool
-                p_run = ivf_probes(self.ivf, k, probes * (ef_run // ef))
-            out_ids, out_scores, out_margins = [], [], []
-            for s in range(0, queries.shape[0], query_batch):
-                if ivf:
-                    cand_ids, cand_dists = scan_search(
-                        backend, scan, reprs[s:s + query_batch],
-                        self.ivf.cent_words, self.ivf.list_ids,
-                        probes=p_run, ef=ef_run,
-                    )
-                else:
-                    res = beam_search(
-                        reprs[s:s + query_batch], self.adjacency,
-                        self.medoid, dist_fn=backend.dist_many, ef=ef_run,
-                        n=n, expand=expand,
-                    )
-                    cand_ids, cand_dists = res.ids, res.dists
-                ids, scores = _rerank(cand_ids, cand_dists,
-                                      queries[s:s + query_batch], vectors, k)
-                out_ids.append(ids.cpu().numpy())
-                out_scores.append(scores.cpu().numpy())
-                if want_margin:
-                    out_margins.append(beam_margin(
-                        cand_dists, k, backend.neutral_dist).cpu().numpy())
-            margins = np.concatenate(out_margins) if want_margin else None
-            return (np.concatenate(out_ids), np.concatenate(out_scores),
-                    margins)
-
-        return escalated_search(
-            run, reprs, queries, ef, adaptive=adaptive,
-            margin_thr=sched.escalate_margin, mult=sched.escalate_mult,
+        plan, ctx = resolve_plan(
+            self, k=k, ef=ef, rerank=rerank, nav=nav, expand=expand,
+            query_batch=query_batch, filter=filter,
+            selectivity_floor=selectivity_floor, adaptive=adaptive,
+            probes=probes,
         )
+        return self.plans.run(plan, ctx, queries)
 
     # -- accounting (paper Table 2) -----------------------------------------
 
@@ -310,14 +352,17 @@ class QuIVerIndex:
         n = self.sigs.words.shape[0]
         sig_bytes = self.sigs.words.numel() * 4
         adj_bytes = self.adjacency.numel() * 4 + n * 4  # + degree counters
+        label_bytes = (
+            self.labels.memory_bytes() if self.labels is not None else 0
+        )
         # the IVF tier rides the hot path: every ivf search gathers from it
         ivf_bytes = self.ivf.memory_bytes() if self.ivf is not None else 0
         cold = self.vectors.numel() * 4 if self.vectors is not None else 0
-        hot = sig_bytes + adj_bytes + ivf_bytes
+        hot = sig_bytes + adj_bytes + label_bytes + ivf_bytes
         out = {
             "hot_signature_bytes": int(sig_bytes),
             "hot_adjacency_bytes": int(adj_bytes),
-            "hot_label_bytes": 0,
+            "hot_label_bytes": int(label_bytes),
             "hot_ivf_bytes": int(ivf_bytes),
             "hot_total_bytes": int(hot),
             "cold_vector_bytes": int(cold),
@@ -346,16 +391,6 @@ class QuIVerIndex:
         from repro_torch.convert import index_from_numpy
         with np.load(path) as z:
             return index_from_numpy(dict(z), device)
-
-
-def ivf_probes(part: IVFPartition, k: int, probes: int | None) -> int:
-    """Lists a ``nav="ivf"`` search probes: ``probes`` (default: the
-    partition's ``default_probes``) clamped to the partition, but never
-    below the fan-in that can fill k.  The reference resolves this in its
-    planner and clamps again in its plan cache; the clamp is idempotent."""
-    probes = probes or part.default_probes
-    return max(min(probes, part.n_lists),
-               min(part.n_lists, -(-k // part.cap)))
 
 
 def rerank_f32(beam_ids, queries, vectors, k):
@@ -387,7 +422,3 @@ def rerank(beam_ids, beam_dists, queries, vectors, k):
     if vectors is None:
         return topk_by_dist(beam_ids, beam_dists, k)
     return rerank_f32(beam_ids, queries, vectors, k)
-
-
-# QuIVerIndex.search takes a ``rerank`` flag, which shadows the function
-_rerank = rerank

@@ -153,10 +153,13 @@ def shard_medoids(backend: MetricSpace, cent_reprs: torch.Tensor,
 
 
 def medoid_scan(backend: MetricSpace, centroid_repr: torch.Tensor, *,
-                chunk: int) -> torch.Tensor:
+                chunk: int,
+                node_valid: torch.Tensor | None = None) -> torch.Tensor:
     """Id of the node nearest ``centroid_repr`` (2W,): the *first* global
-    minimum in id order, scanned in blocks of ``chunk`` ids.  Returns a ()
-    int64 tensor on the backend's device."""
+    minimum in id order, scanned in blocks of ``chunk`` ids.  Nodes outside
+    ``node_valid`` (optional, (n,) bool) score ``BIG``; with none valid the
+    result is node 0, as in the reference.  Returns a () int64 tensor on
+    the backend's device."""
     n = backend.n
     dev = centroid_repr.device
     q = centroid_repr[None]
@@ -166,6 +169,8 @@ def medoid_scan(backend: MetricSpace, centroid_repr: torch.Tensor, *,
         block = torch.arange(s, min(s + chunk, n), dtype=torch.int32,
                              device=dev)
         d = backend.dist_many(q, block[None])[0]
+        if node_valid is not None:
+            d = torch.where(node_valid[s:s + chunk], d, BIG)
         m = d.min()
         i = torch.where(d == m, block.long(), n).min()     # first minimum
         better = m < best_d

@@ -12,6 +12,7 @@ from repro_torch.ivf.partition import (
     default_n_lists,
 )
 from repro_torch.ivf.search import (
+    ivf_probes,
     list_candidates,
     record_routes,
     scan_search,
@@ -22,6 +23,7 @@ __all__ = [
     "IVFPartition",
     "build_partition",
     "default_n_lists",
+    "ivf_probes",
     "list_candidates",
     "record_routes",
     "scan_search",

@@ -79,16 +79,31 @@ def list_candidates(backend, reprs, list_ids, top):
 
 
 def scan_search(backend, scan, reprs, cent_words, list_ids, *,
-                probes: int, ef: int):
+                probes: int, ef: int, result_valid=None):
     """Full IVF candidate stage: (Q, 2W) reprs -> ((Q, ef') ids, dists).
 
     ``ef'`` = min(ef, probes*cap); short pools surface as -1 ids and INF
-    distances.
+    distances.  ``result_valid`` (optional (N,) bool) is the filtered
+    route's predicate mask: non-matching members score INF before the
+    top-ef and never surface, as under the beam's result mask.
     """
     top = top_lists(scan, reprs, cent_words, probes)
     mem, d = list_candidates(backend, reprs, list_ids, top)
+    if result_valid is not None:
+        d = torch.where(result_valid[mem.clamp_min(0).long()], d, INF)
     dists, pos = torch.sort(d, dim=1, stable=True)
     ef_eff = min(ef, mem.shape[1])
     dists = dists[:, :ef_eff]
     ids = mem.gather(1, pos[:, :ef_eff])
     return torch.where(dists < INF / 2, ids, -1), dists
+
+
+def ivf_probes(part, k: int, probes: int | None) -> int:
+    """Lists a ``nav="ivf"`` search probes: ``probes`` (default: the
+    partition's ``default_probes``) clamped to the partition, but never
+    below the fan-in that can fill k (degraded plans halve probes with
+    floor 1).  The planner resolves a plan's probes with it and the plan
+    cache clamps again; the clamp is idempotent."""
+    probes = probes or part.default_probes
+    return max(min(probes, part.n_lists),
+               min(part.n_lists, -(-k // part.cap)))

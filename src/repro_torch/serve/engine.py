@@ -13,9 +13,8 @@ Counterpart of the LM half of ``repro/serve/engine.py``:
 
 Every attention call goes through the hand-written flash kernel on the card.
 Not ported: ``QueryEngine`` (the retrieval serving queue, ROADMAP modules
-item 11), so ``Retriever(engine=...)`` raises; label filters (item 9), so
-``filter=`` raises; streaming indexes (item 10), so ``add_documents``
-raises.
+item 11), so ``Retriever(engine=...)`` raises; streaming indexes (item 10),
+so ``add_documents`` raises.
 """
 
 from __future__ import annotations
@@ -30,12 +29,6 @@ from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
 
 
-def _no_filter(value) -> None:
-    if value is not None:
-        raise NotImplementedError(
-            "filtered retrieval is not ported yet (ROADMAP modules item 9)")
-
-
 @dataclasses.dataclass
 class Retriever:
     """QuIVer index + token store for RAG.
@@ -47,6 +40,11 @@ class Retriever:
     finds fewer than k live documents, and ids past a lagging token store
     are blanked the same way); ``adaptive=None`` follows the index's own
     nav policy.
+
+    ``filter`` (optional) is a label predicate (``repro_torch.filter``):
+    retrieval only surfaces documents matching it (metadata-filtered RAG:
+    language, tenant, source tags).  The index needs labels attached
+    (``attach_labels``); ``augment(filter=...)`` overrides it per call.
     """
     index: Any                      # QuIVerIndex
     doc_tokens: np.ndarray          # (n_docs, doc_len) int32
@@ -56,12 +54,11 @@ class Retriever:
     nav: str | None = None
     expand: int = 1
     pad_token: int = 0
-    filter: Any = None              # label predicate: not ported (item 9)
+    filter: Any = None              # label predicate (repro_torch.filter)
     adaptive: bool | None = None    # None: the index policy decides
     engine: Any = None              # QueryEngine routing: not ported
 
     def __post_init__(self):
-        _no_filter(self.filter)
         if self.engine is not None:
             raise NotImplementedError(
                 "QueryEngine routing is not ported yet (ROADMAP modules "
@@ -69,13 +66,14 @@ class Retriever:
 
     def augment(self, tokens: np.ndarray, *, filter=None) -> np.ndarray:
         """(B, S) prompts -> (B, k * doc_len + S): the retrieved documents'
-        tokens, then the prompt."""
-        _no_filter(filter)
+        tokens, then the prompt; ``filter`` (default: the retriever's own)
+        restricts the documents retrieved."""
         tokens = np.asarray(tokens)
         emb = self.embed_fn(tokens)
         ids, _ = self.index.search(
             emb, k=self.k, ef=self.ef, nav=self.nav, expand=self.expand,
             adaptive=self.adaptive,
+            filter=filter if filter is not None else self.filter,
         )
         ids = np.asarray(ids).reshape(len(tokens), -1)
         # ids outside the token store (-1 padding, or slots beyond a lagging

@@ -122,3 +122,29 @@ def test_batch_bucket_and_pad_rows_match_reference(n, qb):
         beam.pad_rows(torch.from_numpy(arr), size).numpy(),
         np.asarray(jbeam.pad_rows(jnp.asarray(arr), size)),
     )
+
+
+@pytest.mark.parametrize("adaptive", [True, False])
+def test_escalated_search_matches_reference(adaptive):
+    """The escalation wrapper (the streaming index's search delegates to
+    it) with one base search: the same rows re-run at ef * mult and
+    spliced back in place."""
+    margins = np.random.default_rng(2).random(24).astype(np.float32) * 0.3
+    queries = np.arange(24 * 4, dtype=np.float32).reshape(24, 4)
+
+    def run(reprs, queries, ef, want_margin):
+        rows = np.asarray(queries)[:, 0].astype(np.int64) // 4
+        ids = (rows[:, None] * 100 + ef + np.arange(3)).astype(np.int32)
+        scores = (rows[:, None] + ef / 1000.0).astype(np.float32)
+        return ids, scores, margins[rows] if want_margin else None
+
+    kw = dict(adaptive=adaptive, margin_thr=0.1, mult=4)
+    want = jbeam.escalated_search(run, jnp.asarray(queries),
+                                  jnp.asarray(queries), 16, **kw)
+    got = beam.escalated_search(run, torch.from_numpy(queries),
+                                torch.from_numpy(queries), 16, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    escalated = (got[0][:, 0] % 100) == 64
+    assert escalated.any() == adaptive
+    np.testing.assert_array_equal(escalated, adaptive & (margins < 0.1))

@@ -352,6 +352,100 @@ def test_card_ivf_build_equals_cpu_build(cuda):
     np.testing.assert_array_equal(g_ids, c_ids)
 
 
+@pytest.fixture(scope="module")
+def labelled_pair():
+    """One labelled IVF-seeded index on the CPU and the same index carried
+    to the card, with per-label entries built on each device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch import convert
+
+    base, queries = make_dataset("cohere-surrogate", 1500, queries=40)
+    params = BuildParams(m=6, ef_construction=32, prune_pool=32, chunk=128,
+                         ivf_candidates=True)
+    cpu = QuIVerIndex.build(base, params, device="cpu")
+    gpu = convert.index_from_numpy(convert.index_to_numpy(cpu), "cuda")
+    rng = np.random.default_rng(0)
+    member = np.stack([rng.random(1500) < p for p in (0.5, 0.2, 0.01)],
+                      axis=1)
+    rows = [np.nonzero(m)[0].tolist() for m in member]
+    for index in (cpu, gpu):
+        index.attach_labels(rows, n_labels=3)
+        index.build_label_entries(min_count=32)
+    return {"cpu": cpu, "gpu": gpu, "queries": queries, "member": member}
+
+
+def _ids_match(a, b, scores_a, scores_b, tol=1e-6):
+    """Ids may differ at a rank only where the two scores there tie."""
+    np.testing.assert_allclose(scores_a, scores_b, rtol=1e-5, atol=1e-6)
+    diff = a != b
+    assert (np.abs(scores_a[diff] - scores_b[diff]) <= tol).all()
+
+
+@pytest.mark.parametrize("label,kw,route", [
+    (0, {"rerank": False}, "graph"), (1, {}, "graph"),
+    (2, {"rerank": False}, "brute"), (2, {}, "brute"),
+    (1, {"nav": "ivf", "rerank": False}, "ivf"), (0, {"nav": "ivf"}, "ivf"),
+    (0, {"nav": "bq1", "rerank": False}, "graph"),
+], ids=lambda v: str(v) if not isinstance(v, dict) else "-".join(
+    f"{k}{x}" for k, x in v.items()) or "rerank")
+def test_card_filtered_plans_equal_cpu(labelled_pair, label, kw, route):
+    import dataclasses
+
+    from repro_torch.plan import resolve_plan
+
+    cpu, gpu, q = (labelled_pair[k] for k in ("cpu", "gpu", "queries"))
+    np.testing.assert_array_equal(gpu.labels.entries, cpu.labels.entries)
+    c_plan, c_ctx = resolve_plan(cpu, k=10, ef=32, filter=label, **kw)
+    g_plan, g_ctx = resolve_plan(gpu, k=10, ef=32, filter=label, **kw)
+    assert dataclasses.asdict(g_plan) == dataclasses.asdict(c_plan)
+    assert g_plan.route == route and g_ctx.start == c_ctx.start
+    build.reset_launches()
+    g_ids, g_scores = gpu.search(q, k=10, ef=32, filter=label, **kw)
+    launched = dict(build.LAUNCHES)
+    c_ids, c_scores = cpu.search(q, k=10, ef=32, filter=label, **kw)
+    # the reranked brute route is one matmul over the match set
+    want = set() if route == "brute" and g_plan.rerank else {
+        "binarize",
+        "hamming_dist_rows" if kw.get("nav") == "bq1" else "bq_dist_rows"}
+    if route == "ivf":
+        want.add("list_scan")
+    assert {k for k in want if launched.get(k, 0) > 0} == want
+    if g_plan.rerank:
+        _ids_match(g_ids, c_ids, g_scores, c_scores)
+    else:
+        np.testing.assert_array_equal(g_ids, c_ids)
+        np.testing.assert_array_equal(g_scores, c_scores)
+    member = labelled_pair["member"][:, label]
+    assert member[g_ids[g_ids >= 0]].all()
+
+
+@pytest.mark.parametrize("which", ["result", "node", "both"])
+@pytest.mark.parametrize("expand", [1, 4])
+def test_card_masked_beam_equals_cpu(labelled_pair, which, expand):
+    from repro_torch.core.beam import BeamResult, beam_search
+
+    cpu, gpu = labelled_pair["cpu"], labelled_pair["gpu"]
+    n = cpu.adjacency.shape[0]
+    node = torch.from_numpy(np.random.default_rng(3).random(n) > 0.3)
+    result = torch.from_numpy(labelled_pair["member"][:, 0])
+    masks = {"result": {"result_valid": result},
+             "node": {"node_valid": node},
+             "both": {"node_valid": node, "result_valid": result}}[which]
+    words = cpu.backend().encode_queries(
+        torch.from_numpy(labelled_pair["queries"]))
+    out = []
+    for index in (cpu, gpu):
+        dev = index.device
+        out.append(beam_search(
+            words.to(dev), index.adjacency, index.medoid,
+            dist_fn=index.backend().dist_many, ef=48, n=n, expand=expand,
+            **{k: v.to(dev) for k, v in masks.items()}))
+    for field in BeamResult._fields:
+        assert torch.equal(getattr(out[1], field).cpu(),
+                           getattr(out[0], field)), field
+
+
 # (b, tq, tk, h, kv heads, hd, causal, q_offset, kv_valid_len)
 FLASH_CASES = {
     "ragged_causal": (2, 100, 100, 4, 4, 64, True, 0, 100),

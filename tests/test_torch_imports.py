@@ -49,6 +49,10 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.models.transformer", "repro_torch.models.model",
             "repro_torch.kernels.flash_attention",
             "repro_torch.serve.engine", "repro_torch.launch.serve"} <= set(mods)
+    assert {"repro_torch.plan.plan", "repro_torch.plan.planner",
+            "repro_torch.plan.cache", "repro_torch.plan.trace",
+            "repro_torch.filter.labels", "repro_torch.filter.predicate",
+            "repro_torch.filter.search"} <= set(mods)
     _run_fresh(
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"

@@ -32,7 +32,8 @@ from repro.plan import resolve_plan
 from repro_torch import convert
 from repro_torch.core import bq, linking, metric, vamana
 from repro_torch.core.baselines import flat_search, recall_at_k
-from repro_torch.core.index import QuIVerIndex, ivf_probes
+from repro_torch.core.index import QuIVerIndex
+from repro_torch.ivf.search import ivf_probes
 from repro_torch.data.datasets import make_dataset
 from repro_torch.ivf import IVFPartition, build_partition
 from repro_torch.ivf.partition import majority_words

@@ -46,11 +46,13 @@ from repro.kernels import ref as jref
 from repro.plan import resolve_plan
 from repro.probe import NavPolicy as JaxPolicy
 from repro_torch import convert
-from repro_torch.core import bq, index as pindex, metric, vamana
+from repro_torch.core import beam as pbeam
+from repro_torch.core import bq, metric, vamana
 from repro_torch.core.baselines import flat_search, recall_at_k
 from repro_torch.core.index import QuIVerIndex
 from repro_torch.data.datasets import make_dataset
 from repro_torch.kernels import build, dispatch, hamming
+from repro_torch.plan import PlanCache
 
 jax.config.update("jax_platform_name", "cpu")
 # the suite runs in parallel worker processes: one thread each
@@ -333,20 +335,20 @@ def test_nav_kinds_on_one_graph_match_reference(ref, nav, rotated):
 
 
 def _spy_margins(monkeypatch):
-    """Record the margins the port's search escalates on."""
+    """Record the margins the port's search escalates on: the first
+    stage's margins and the threshold its plan cache compares them with."""
     seen = {}
-    real = pindex.escalated_search
+    real = PlanCache.finalize
 
-    def spy(run, *args, **kw):
-        def run_and_record(reprs, queries, ef, want_margin):
-            out = run(reprs, queries, ef, want_margin)
-            if want_margin:
-                seen["margins"] = out[2]
-                seen["thr"] = kw["margin_thr"]
-            return out
-        return real(run_and_record, *args, **kw)
+    def spy(self, pending):
+        if pending.plan.adaptive:
+            seen["margins"] = np.concatenate(
+                [m[:real_rows].numpy()
+                 for _, _, m, _, real_rows in pending.chunks])
+            seen["thr"] = pending.plan.escalate_margin
+        return real(self, pending)
 
-    monkeypatch.setattr(pindex, "escalated_search", spy)
+    monkeypatch.setattr(PlanCache, "finalize", spy)
     return seen
 
 
@@ -411,7 +413,7 @@ def test_beam_margin_scales_per_nav_kind(ref):
     dists = torch.tensor([[1.0, 2.0, 3.0], [5.0, 9.0, 3.0e38]])
     for kind in ("bq1", "adc", "float32"):
         pb = convert.index_from_numpy(ref["fields"], "cpu").backend(kind)
-        got = pindex.beam_margin(dists, 2, pb.neutral_dist).numpy()
+        got = pbeam.beam_margin(dists, 2, pb.neutral_dist).numpy()
         want = np.asarray(jax_beam_margin(jnp.asarray(dists.numpy()), 2,
                                           pb.neutral_dist))
         np.testing.assert_array_equal(got, want)

@@ -154,13 +154,9 @@ def test_sampling_is_seeded(lm):
 def test_unported_options_raise(lm, rag):
     kw = dict(index=rag["index"], doc_tokens=rag["corpus"],
               embed_fn=lambda t: t)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        engine.Retriever(filter=3, **kw)
     with pytest.raises(NotImplementedError, match="item 11"):
         engine.Retriever(engine=object(), **kw)
     ret = engine.Retriever(**kw)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ret.augment(rag["corpus"][:2], filter=3)
     with pytest.raises(NotImplementedError, match="item 10"):
         ret.add_documents(rag["corpus"][:2])
 
