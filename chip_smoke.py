@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases build,kernels,ivf
     python3 chip_smoke.py --phases build,kernels,ladder
     python3 chip_smoke.py --phases build,kernels,filter
+    python3 chip_smoke.py --phases build,kernels,stream
     python3 chip_smoke.py --phases build,kernels,rag
     python3 chip_smoke.py --phases build,profile      # opt-in breakdown
 
@@ -44,8 +45,9 @@ Phases, in order; any failure raises and the script exits nonzero:
               ``scaled_dot_product_attention`` for flash) on those
               main-path inputs: device time and stream time (see
               ``time_ms``); logged beside them, not in the kernels line:
-              ``bq_dist_rows`` at K = 34 080 and 50 880 (the IVF build
-              chunk and search batch), ``bq_pairwise`` at C = 72,
+              ``bq_dist_rows`` at K = 5 256 (the streaming repair's
+              candidate row, 72 + 72 x 72), 34 080 and 50 880 (the IVF
+              build chunk and search batch), ``bq_pairwise`` at C = 72,
               ``list_scan`` at Q = 8192, ``hamming_pairwise`` at C = 72 and
               ``hamming_dist_rows`` at K = 34 080 (its library bmm over
               26.8 GB of float32 levels, gathered when it is timed).
@@ -57,7 +59,13 @@ Phases, in order; any failure raises and the script exits nonzero:
               ids matched by ``ids_match`` reranked; and
               ``build(nav="auto")`` on sift-like (red: float32 x4) and on
               cohere-surrogate (green: bq2): equal policies, ids matched by
-              ``ids_match``; and ``minicpm-2b`` at full width and 2 layers,
+              ``ids_match``; the streaming mutation script on the
+              beam-built graph with its labels (``parity_stream``: insert
+              400, delete 300 with the medoid, graph and brute searches,
+              consolidate, insert into the reclaimed slots, freeze):
+              identical state, ids and frozen graph, and the card's
+              mutable archive loaded on the CPU; and ``minicpm-2b`` at
+              full width and 2 layers,
               drawn on the CPU and copied to the card: 2 prompts of 48
               tokens, prefill and 8 greedy decode steps (the card fed the
               CPU's tokens), every logit within 0.1 and equal argmax
@@ -78,8 +86,11 @@ Phases, in order; any failure raises and the script exits nonzero:
               ``nav="ivf"`` again (identical ids).  Launch counts as in 4;
               all four kernels must have launched.
 6. ladder   — the metric ladder at the same size (1 000 queries, k = 10,
-              ef = 64): a bq1 build (``BuildParams()``) searched with
-              ``nav="bq1"`` (recall gate 0.50); phase 4's bq2 graph (built
+              ef = 64): a bq1 build (``BuildParams()``) over the first
+              ``LADDER_BQ1_N`` = 50 000 rows (the script's one cut of
+              depth, the same on every host) searched with ``nav="bq1"``
+              against their exact truth (recall gate 0.50); phase 4's bq2
+              graph (built
               again when phase 4 did not run) searched with ``nav`` in
               {bq2, bq1, adc, float32} (gate 0.50 each) and with bq2 +
               ``adaptive=True`` (gate: plain bq2 recall - 0.005; the
@@ -114,6 +125,34 @@ filter      — filtered search through query plans on phase 4's graph and
               new miss.  Launch counts as in 4: binarize,
               ``bq_dist_rows``, ``list_scan`` and ``hamming_dist_rows``
               must have launched.
+stream      — the streaming index on phase 4's graph (built here when
+              phase 4 did not run): ``MutableQuIVerIndex.from_index`` (2x
+              headroom) with a ``DriftMonitor`` armed; zero churn: 1 000
+              queries at k = 10, ef = 64, ids and scores equal to phase
+              4's, and the frozen snapshot's too; the mutable search
+              (direct beam) and phase 4's (plans) timed A B A B on the
+              same graph.  Then ``STREAM_CYCLES`` = 2 cycles (delete
+              seeds 0, 1) of FreshDiskANN churn at the reference
+              benchmark's rate, ``STREAM_CHURN`` = 5%: delete 5 000 live
+              ids, search, ``consolidate``, search, re-insert the same 5 000
+              vectors, search.  Gates: no deleted id returned; 5 000 slots
+              reclaimed and exactly those reused; recall@10 against the
+              live truth at ef = 64 after consolidate >= before it -
+              0.02; the accumulator equal to
+              ``ProbeAccumulator.from_words`` of the live words after
+              every mutation; no drift alarm; and, at a search as wide as
+              the insert's own beam (ef = ``ef_construction`` = 128, where
+              the reference sets its bars: its tests search at ef 48 over
+              ef_construction 32, its churn benchmark at ef =
+              ef_construction), the re-inserted vectors found at k = 1 in
+              > 0.9 of cases and recall@10 after the re-insert (phase 4's
+              corpus again) >= phase 4's graph's at that ef - 0.03.  Every
+              step is also searched at ef = 64 and printed, beside the
+              self-hit of the first 1 000 of them before the churn (at
+              both widths) and the re-inserted rows' in-degree.  Then ``freeze``: its recall
+              within 0.005 of the mutable search's.
+              Launch counts as in 4: binarize, ``bq_dist_rows`` and
+              ``bq_pairwise`` must have launched.
 7. rag      — LM serving with RAG: ``minicpm-2b`` at full width and depth
               (40 layers, d 2304, 36 heads, vocab 122 880, bf16, weights
               drawn from seed 0) on the card; embed 8 192 + 256 seeded
@@ -141,7 +180,7 @@ kernels' share of it.
 
 The last three lines of standard output are the card's name and power
 limit (``nvidia-smi``), one JSON line of per-kernel numbers (``launches``
-sums phases 4, 5, 6, filter and 7), and
+sums phases 4, 5, 6, filter, stream and 7), and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits nonzero and prints no result.
 """
@@ -159,7 +198,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "parity", "main", "ivf", "ladder", "filter",
-          "rag")
+          "stream", "rag")
 OPT_IN = ("profile",)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the float32
@@ -297,9 +336,11 @@ def phase_kernels(torch) -> dict:
         mask = bq.valid_mask(dim, device="cuda")
         w = mask.shape[0]
         # the beam hop (72, 288), the IVF-seeded build's random top-up (32),
-        # its chunk's gathered list members at N = 100 000 (71 lists x cap
+        # the streaming repair's candidate row (72 + 72 * 72: a row's live
+        # neighbours and its dead neighbours' out-edges), the IVF build
+        # chunk's gathered list members at N = 100 000 (71 lists x cap
         # 480) and a search batch's at the default 106 probes
-        for k in (32, 72, 4 * 72, 71 * 480, 106 * 480):
+        for k in (32, 72, 4 * 72, 72 + 72 * 72, 71 * 480, 106 * 480):
             ids = torch.randint(0, n_table, (256, k), generator=g,
                                 device="cuda", dtype=torch.int32)
             q = table[torch.randint(0, n_table, (256,), generator=g,
@@ -309,7 +350,7 @@ def phase_kernels(torch) -> dict:
             if not torch.equal(got, want):
                 raise AssertionError(f"bq_dist_rows differs at D={dim} K={k}")
             log(f"  bq_dist_rows B=256 K={k} D={dim}: exact")
-            if dim == 768 and k in (72, 71 * 480, 106 * 480):
+            if dim == 768 and k in (72, 72 + 72 * 72, 71 * 480, 106 * 480):
                 uniq = torch.unique(ids).numel()
                 nb = uniq * 8 * w + ids.numel() * 4 + q.numel() * 4 \
                     + w * 4 + got.numel() * 4
@@ -333,8 +374,8 @@ def phase_kernels(torch) -> dict:
                             partial(torch.bmm, lr, lq)),
                     "bound_ms": b_ms, "bound_by": b_by,
                     "shape": [256, k, dim],
-                    # the IVF build chunk's and search batch's shapes:
-                    # logged, not in the kernels line
+                    # the repair's, the IVF build chunk's and the search
+                    # batch's shapes: logged, not in the kernels line
                     "log_only": k != 72,
                 }
         for c in (72, 128):
@@ -831,6 +872,7 @@ def phase_parity(torch) -> None:
     log(f"  signatures, adjacency, medoid and beam ids identical; reranked "
         f"ids identical up to {tied} rows of scores within 1e-6")
     parity_filter(torch, cpu[0], gpu[0], queries)
+    parity_stream(torch, cpu[0], gpu[0], queries)
     for name, want in (("sift-like", "float32"), ("cohere-surrogate", "bq2")):
         parity_auto(torch, name, want, params)
     parity_lm(torch)
@@ -887,6 +929,103 @@ def parity_filter(torch, cpu, gpu, queries) -> None:
     log(f"  filters: entries {gpu.labels.entries.tolist()} equal; plans "
         f"equal ({'; '.join(routes)}); hot-path ids identical, reranked "
         f"brute ids identical up to {tied} rows of scores within 1e-6")
+
+
+def stream_state(mut) -> dict:
+    """A mutable index's state on the host, for exact comparison."""
+    import dataclasses
+
+    return {"words": mut.words.cpu(), "adjacency": mut.adjacency.cpu(),
+            "deg": mut.deg.cpu(), "labels": mut.labels.words.cpu(),
+            "live": mut.live, "allocated": mut.allocated,
+            "free": mut._free, "medoid": mut.medoid,
+            "generation": mut.generation,
+            "stats": dataclasses.asdict(mut.stats),
+            "probe_acc": mut.probe_acc}
+
+
+def assert_same_stream_state(torch, a: dict, b: dict, what: str) -> None:
+    import numpy as np
+
+    for key, value in a.items():
+        other = b[key]
+        if isinstance(value, torch.Tensor):
+            same = torch.equal(value, other)
+        elif isinstance(value, np.ndarray):
+            same = np.array_equal(value, other)
+        else:
+            same = value == other
+        if not same:
+            raise AssertionError(f"{what}: {key} differs")
+
+
+def parity_stream(torch, cpu, gpu, queries) -> None:
+    """The streaming mutation script on the N = 4000 graph (with the
+    filter phase's labels), on the CPU and on the card: ``from_index``,
+    insert 400 (seeded perturbed copies of rows, with labels), delete 300
+    (the medoid among them), searches on the graph and brute routes,
+    ``consolidate``, insert 300 into the reclaimed slots, ``freeze``.
+    Identical words, adjacency, degrees, label words, masks, free list,
+    medoid, statistics and hot-path ids after it, and identical frozen
+    graphs; then a mutable archive saved on the card loads on the CPU."""
+    import numpy as np
+
+    from repro_torch.filter import Any
+    from repro_torch.stream import MutableQuIVerIndex
+
+    n, dim = cpu.vectors.shape
+    rng = np.random.default_rng(5)
+    fresh = cpu.vectors.numpy()[rng.choice(n, 700, replace=False)] \
+        + 0.05 * rng.standard_normal((700, dim)).astype(np.float32)
+    new_labels = label_rows(np.stack([rng.random(700) < p
+                                      for p in FILTER_RATES], axis=1))
+    dead = np.r_[cpu.medoid, rng.choice(n, 299, replace=False)]
+    runs = {}
+    for name, index in (("cpu", cpu), ("card", gpu)):
+        t0 = time.perf_counter()
+        mut = MutableQuIVerIndex.from_index(index)
+        ids = []
+
+        def search(target=mut, **kw):
+            ids.append(target.search(queries[:32], k=10, ef=64,
+                                     rerank=False, **kw)[0])
+
+        mut.insert(fresh[:400], labels=new_labels[:400])
+        mut.delete(dead)
+        for pred in (None, 3, 5):           # label 3: graph, 5: brute
+            search(filter=pred)
+        report = mut.consolidate()
+        search()
+        reused = mut.insert(fresh[400:], labels=new_labels[400:])
+        search(filter=Any(0, 1))
+        frozen = mut.freeze()
+        search(target=frozen)
+        runs[name] = (mut, frozen, ids, report, reused)
+        log(f"  {name}: stream script {time.perf_counter() - t0:.1f} s, "
+            f"consolidate {report}, medoid {mut.medoid}")
+    (c_mut, c_frozen, c_ids, c_rep, c_reused), \
+        (g_mut, g_frozen, g_ids, g_rep, g_reused) = runs["cpu"], runs["card"]
+    assert_same_stream_state(torch, stream_state(c_mut), stream_state(g_mut),
+                             "stream script, CPU against card")
+    if c_rep != g_rep or not np.array_equal(c_reused, g_reused):
+        raise AssertionError("consolidate or slot reuse differs")
+    if not np.isin(g_reused, dead).all():
+        raise AssertionError("the insert did not reuse reclaimed slots")
+    if not all(np.array_equal(a, b) for a, b in zip(c_ids, g_ids)):
+        raise AssertionError("stream search ids differ")
+    if not (torch.equal(c_frozen.adjacency, g_frozen.adjacency.cpu())
+            and c_frozen.medoid == g_frozen.medoid):
+        raise AssertionError("frozen graphs differ")
+    path = ROOT / "build" / "smoke" / "stream.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    g_mut.save(str(path))
+    back = MutableQuIVerIndex.load(str(path), "cpu")
+    assert_same_stream_state(torch, stream_state(back),
+                             {**stream_state(c_mut),
+                              "stats": stream_state(back)["stats"]},
+                             "card archive loaded on the CPU")
+    log(f"  stream: state, {len(g_ids)} searches' ids and the frozen graph "
+        "identical; the card's archive loads on the CPU identically")
 
 
 def parity_lm(torch) -> None:
@@ -1096,7 +1235,8 @@ def phase_main(torch) -> dict:
             raise AssertionError(f"{name} never launched on the main path")
     return {"launches": launches, "recall": recall,
             "build_s": stats.seconds, "qps": n_queries / search_s,
-            "index": index, "data": (base, queries, truth), "ids": ids}
+            "index": index, "data": (base, queries, truth), "ids": ids,
+            "scores": scores}
 
 
 def phase_ivf(torch) -> dict:
@@ -1232,6 +1372,11 @@ def timed_search(index, queries, truth, label: str, **kw):
     return ids, recall
 
 
+# phase 6's bq1 build runs over the first 50 000 rows on every host: the
+# smoke's one fixed cut of depth (its searches and probes stay at 100 000)
+LADDER_BQ1_N = 50_000
+
+
 def phase_ladder(torch, main: dict | None) -> dict:
     """The metric ladder at deployment size; returns its launch counts."""
     import dataclasses
@@ -1256,19 +1401,23 @@ def phase_ladder(torch, main: dict | None) -> dict:
         graph = QuIVerIndex.build(base, BuildParams(), device="cuda")
     torch.cuda.synchronize()
 
+    # the bq1 graph's truth: exact search over its rows
+    truth_bq1, _ = flat_search(base[:LADDER_BQ1_N], queries, 10,
+                               device="cuda")
     kbuild.reset_launches()
-    # 1. the bits ablation at full width: a bq1 graph
+    # 1. the bits ablation at full width: a bq1 graph, over the first
+    # LADDER_BQ1_N rows (the one cut of depth, the same on every host)
     t0 = time.perf_counter()
-    bq1 = QuIVerIndex.build(base, BuildParams(), metric="bq1",
+    bq1 = QuIVerIndex.build(base[:LADDER_BQ1_N], BuildParams(), metric="bq1",
                             device="cuda")
     torch.cuda.synchronize()
     build_wall = time.perf_counter() - t0
     stats = bq1.build_stats
-    log(f"  bq1 build {stats.seconds:.1f} s (wall {build_wall:.1f} s; "
-        f"{stats.chunks} chunks, mean hops {stats.mean_hops:.1f}, "
-        f"{stats.consolidations} consolidations)")
-    _, r_bq1 = timed_search(bq1, queries, truth, 'nav="bq1" on the bq1 graph',
-                            nav="bq1")
+    log(f"  bq1 build N={LADDER_BQ1_N} {stats.seconds:.1f} s (wall "
+        f"{build_wall:.1f} s; {stats.chunks} chunks, mean hops "
+        f"{stats.mean_hops:.1f}, {stats.consolidations} consolidations)")
+    _, r_bq1 = timed_search(bq1, queries, truth_bq1,
+                            'nav="bq1" on the bq1 graph', nav="bq1")
     bq1_launches = {k: v for k, v in kbuild.LAUNCHES.items()
                     if k.startswith("hamming")}
     log(f"  hamming launches of the bq1 build + search: {bq1_launches}")
@@ -1537,6 +1686,245 @@ def phase_filter(torch, main: dict | None, ivf: dict | None) -> dict:
                  "hamming_dist_rows"):
         if launches.get(name, 0) == 0:
             failures.append(f"{name} never launched on the filter path")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"launches": launches}
+
+
+# FreshDiskANN's steady-state churn at the reference benchmark's rate
+# (benchmarks/streaming.py: 5% of the corpus a cycle), two cycles
+STREAM_CHURN, STREAM_CYCLES = 0.05, 2
+
+
+def live_truth(base, queries, slot_row, live, k: int = 10):
+    """Exact cosine top-k over the live slots (``slot_row`` maps a slot to
+    its row of ``base``), as slot ids."""
+    import numpy as np
+
+    from repro_torch.core.baselines import flat_search
+
+    slots = np.nonzero(live)[0]
+    ids, _ = flat_search(base[slot_row[slots]], queries, k, device="cuda")
+    return slots[ids]
+
+
+def phase_stream(torch, main: dict | None) -> dict:
+    """The streaming index at deployment size on phase 4's graph (built
+    here when phase 4 did not run); returns the phase's launch counts."""
+    import numpy as np
+
+    from repro_torch.core.baselines import flat_search, recall_at_k
+    from repro_torch.core.index import QuIVerIndex
+    from repro_torch.core.vamana import BuildParams
+    from repro_torch.data.datasets import make_dataset
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.probe import ProbeAccumulator
+    from repro_torch.stream import MutableQuIVerIndex
+
+    if main is not None:
+        base, queries, truth = main["data"]
+        graph, recall4 = main["index"], main["recall"]
+        ids4, scores4 = main["ids"], main["scores"]
+    else:
+        base, queries = make_dataset("cohere-surrogate", 100_000,
+                                     queries=1000)
+        truth, _ = flat_search(base, queries, 10, device="cuda")
+        log("  (phase 4 did not run: building its bq2 graph first)")
+        graph = QuIVerIndex.build(base, BuildParams(), device="cuda")
+        ids4, scores4 = graph.search(queries, k=10, ef=64)
+        recall4 = recall_at_k(ids4, truth)
+    n, n_queries = len(base), len(queries)
+    torch.cuda.synchronize()
+    t_phase = time.perf_counter()
+    failures = []
+
+    def timed(label, fn, count=None):
+        """``fn()`` and its seconds (synchronized), logged with ``count``
+        a second where a count is given."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rate = f", {count / secs:.1f} a second" if count else ""
+        log(f"  {label}: {secs:.3f} s{rate}")
+        return out, secs
+
+    kbuild.reset_launches()
+    mut = MutableQuIVerIndex.from_index(graph)
+    monitor = mut.attach_drift_monitor(tenant="smoke",
+                                       registry=MetricsRegistry())
+    log(f"  adopted phase 4's graph: capacity {mut.capacity}, "
+        f"{mut.n_live} live, medoid {mut.medoid}, drift band "
+        f"{monitor.band}; memory_breakdown "
+        f"{json.dumps(mut.memory_breakdown())}")
+
+    # zero churn: the mutable search and the frozen snapshot equal phase 4
+    (ids, scores), _ = timed(
+        f"search {n_queries} queries, mutable (direct beam), zero churn",
+        lambda: mut.search(queries, k=10, ef=64), n_queries)
+    if not (np.array_equal(ids, ids4) and np.array_equal(scores, scores4)):
+        failures.append("zero churn: mutable ids or scores differ from "
+                        "phase 4's")
+    frozen = mut.freeze()
+    (f_ids, f_scores), _ = timed(
+        f"search {n_queries} queries, frozen, zero churn",
+        lambda: frozen.search(queries, k=10, ef=64), n_queries)
+    if not (np.array_equal(f_ids, ids4) and np.array_equal(f_scores,
+                                                           scores4)):
+        failures.append("zero churn: frozen ids or scores differ")
+    del frozen
+    # the cost of the plan lowering: the same graph, A B A B
+    pair = {"mutable (direct beam)": [], "immutable (plans)": []}
+    for _ in range(2):
+        for label, index in (("mutable (direct beam)", mut),
+                             ("immutable (plans)", graph)):
+            _, secs = timed(f"search {n_queries} queries, {label}",
+                            lambda: index.search(queries, k=10, ef=64),
+                            n_queries)
+            pair[label].append(secs)
+    log(f"  A B A B on one graph: " + "; ".join(
+        f"{label} {', '.join(f'{s:.3f}' for s in secs)} s"
+        for label, secs in pair.items()))
+
+    # the row of ``base`` each slot holds
+    slot_row = np.full(mut.capacity, -1, dtype=np.int64)
+    slot_row[:n] = np.arange(n)
+
+    def check_acc(step):
+        if mut.probe_acc != ProbeAccumulator.from_words(
+                mut.words[torch.from_numpy(mut.live).cuda()], mut.dim):
+            failures.append(f"{step}: the accumulator differs from the "
+                            "live words'")
+
+    def search_gated(step, dead, gt, ef=64):
+        (got, _), secs = timed(f"{step}: search {n_queries} queries at ef "
+                               f"{ef}", lambda: mut.search(queries, k=10,
+                                                           ef=ef),
+                               n_queries)
+        if dead is not None and np.isin(got, dead).any():
+            failures.append(f"{step}: a deleted id was returned")
+        r = recall_at_k(got, gt)
+        log(f"    recall@10 against the live truth {r:.4f}")
+        return got, r
+
+    def self_hit(step, index, vectors, want, ef):
+        """The share of ``vectors`` whose k = 1 search returns ``want``."""
+        (hit, _), _ = timed(f"{step}: self search of {len(vectors)} at k=1, "
+                            f"ef {ef}", lambda: index.search(vectors, k=1,
+                                                             ef=ef),
+                            len(vectors))
+        share = float((hit[:, 0] == want).mean())
+        log(f"    found at k=1: {share:.4f}")
+        return share
+
+    # the quality bars are held where the reference sets them: at a search
+    # as wide as the insert's own beam (its tests search at ef 48 over
+    # ef_construction 32, its churn benchmark at ef = ef_construction 64).
+    # Every step is also searched at ef 64 and printed.
+    ef_bar = graph.params.ef_construction
+    r_rebuild = recall_at_k(graph.search(queries, k=10, ef=ef_bar)[0], truth)
+    log(f"  phase 4's graph (the rebuild of the churned corpus) at ef "
+        f"{ef_bar}: recall@10 {r_rebuild:.4f}")
+
+    n_churn = int(STREAM_CHURN * n)
+    for cycle in range(STREAM_CYCLES):
+        rng = np.random.default_rng(cycle)
+        dead = rng.choice(np.nonzero(mut.live)[0], n_churn, replace=False)
+        rows = slot_row[dead]
+        log(f"  cycle {cycle} (delete seed {cycle}): {n_churn} deletes")
+        for ef in (64, ef_bar):        # the same vectors before the churn
+            self_hit(f"cycle {cycle} before delete, the first 1000",
+                     mut, base[rows[:1000]], dead[:1000], ef)
+        gone, _ = timed(f"delete {n_churn}", lambda: mut.delete(dead),
+                        n_churn)
+        if gone != n_churn:
+            failures.append(f"cycle {cycle}: {gone} of {n_churn} deleted")
+        check_acc(f"cycle {cycle} delete")
+        gt = live_truth(base, queries, slot_row, mut.live)
+        _, r_before = search_gated(f"cycle {cycle} after delete", dead, gt)
+        report, cons_s = timed("consolidate", mut.consolidate)
+        log(f"    consolidate: {report['repaired_rows']} rows repaired, "
+            f"{report['reclaimed']} slots reclaimed in {cons_s:.3f} s")
+        if report["reclaimed"] != n_churn:
+            failures.append(f"cycle {cycle}: {report['reclaimed']} slots "
+                            "reclaimed")
+        check_acc(f"cycle {cycle} consolidate")
+        _, r_after = search_gated(f"cycle {cycle} after consolidate", dead,
+                                  gt)
+        if r_after < r_before - 0.02:
+            failures.append(f"cycle {cycle}: recall after consolidate "
+                            f"{r_after:.4f} < {r_before:.4f} - 0.02")
+        slots, _ = timed(f"re-insert {n_churn}",
+                         lambda: mut.insert(base[rows]), n_churn)
+        if set(slots.tolist()) != set(dead.tolist()):
+            failures.append(f"cycle {cycle}: the re-insert did not reuse "
+                            "exactly the reclaimed slots")
+        slot_row[slots] = rows
+        check_acc(f"cycle {cycle} re-insert")
+        adj = mut.adjacency
+        indeg = torch.bincount(adj[adj >= 0].long(),
+                               minlength=mut.capacity).cpu().numpy()
+        others = np.setdiff1d(np.nonzero(mut.live)[0], slots)
+        log(f"    in-degree: re-inserted {indeg[slots].mean():.2f}, the "
+            f"other live {indeg[others].mean():.2f}; out-degree "
+            f"re-inserted {mut.deg[torch.from_numpy(slots).cuda()].float().mean():.2f}")
+        self_hit(f"cycle {cycle} re-inserted, the first 1000", mut,
+                 base[rows[:1000]], slots[:1000], 64)
+        hit = self_hit(f"cycle {cycle} re-inserted", mut, base[rows], slots,
+                       ef_bar)
+        if hit <= 0.9:
+            failures.append(f"cycle {cycle}: self-hit {hit:.4f} at ef "
+                            f"{ef_bar}")
+        # the live corpus is phase 4's again, and phase 4's graph is its
+        # rebuild
+        if not np.array_equal(np.sort(slot_row[mut.live]), np.arange(n)):
+            failures.append(f"cycle {cycle}: the live rows are not phase "
+                            "4's corpus")
+        gt = live_truth(base, queries, slot_row, mut.live)
+        _, r_final = search_gated(f"cycle {cycle} after re-insert", None, gt)
+        log(f"    against phase 4's {recall4:.4f} at ef 64: "
+            f"{r_final - recall4:+.4f}")
+        _, r_bar = search_gated(f"cycle {cycle} after re-insert", None, gt,
+                                ef=ef_bar)
+        log(f"    against the rebuild's {r_rebuild:.4f} at ef {ef_bar}: "
+            f"{r_bar - r_rebuild:+.4f}")
+        if r_bar < r_rebuild - 0.03:
+            failures.append(f"cycle {cycle}: recall after re-insert "
+                            f"{r_bar:.4f} at ef {ef_bar} < the rebuild's "
+                            f"{r_rebuild:.4f} - 0.03")
+
+    # freeze the churned index: the frozen search against the mutable one
+    (m_ids, _), _ = timed(f"search {n_queries} queries, mutable after "
+                          "churn", lambda: mut.search(queries, k=10, ef=64),
+                          n_queries)
+    frozen, _ = timed("freeze", mut.freeze)
+    (f_ids, _), _ = timed(f"search {n_queries} queries, frozen after churn",
+                          lambda: frozen.search(queries, k=10, ef=64),
+                          n_queries)
+    live_idx = np.nonzero(mut.live)[0]
+    r_mut = recall_at_k(m_ids, gt)
+    r_frozen = recall_at_k(live_idx[f_ids], gt)
+    log(f"  frozen recall@10 {r_frozen:.4f}, mutable {r_mut:.4f}; ids "
+        f"through live_idx identical: "
+        f"{bool(np.array_equal(live_idx[f_ids], m_ids))}")
+    if abs(r_frozen - r_mut) > 0.005:
+        failures.append(f"frozen recall {r_frozen:.4f} is not within 0.005 "
+                        f"of the mutable {r_mut:.4f}")
+    if monitor.alarms:
+        failures.append(f"drift alarms on green churn: "
+                        f"{[a.message() for a in monitor.alarms]}")
+    torch.cuda.synchronize()
+    launches = dict(kbuild.LAUNCHES)
+    log(f"  stats {mut.stats}; drift band {monitor.band}, "
+        f"{len(monitor.alarms)} alarms; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    log(f"  launches on the stream path: {launches}")
+    log(f"  bq_pairwise launches by pool size: {pool_sizes(launches)}")
+    for name in ("binarize", "bq_dist_rows", "bq_pairwise"):
+        if launches.get(name, 0) == 0:
+            failures.append(f"{name} never launched on the stream path")
     if failures:
         raise AssertionError("; ".join(failures))
     return {"launches": launches}
@@ -1926,6 +2314,10 @@ def main(argv=None) -> int:
         log("phase filter: filtered search and query plans, "
             "cohere-surrogate N=100000, 1000 queries, 8 labels")
         paths.append(phase_filter(torch, main_path, ivf_path))
+    if "stream" in phases:
+        log("phase stream: the streaming index, cohere-surrogate "
+            f"N=100000, {STREAM_CYCLES} cycles of {STREAM_CHURN:.0%} churn")
+        paths.append(phase_stream(torch, main_path))
     if "rag" in phases:
         log("phase 7: LM serving with RAG, minicpm-2b at full width and "
             "depth")

@@ -11,9 +11,11 @@ archive written by either package loads in the other.
 An IVF partition travels as the reference's ``ivf_*`` fields, a nav
 policy as its ``policy_*`` fields, a probe report as its ``probe_*``
 fields and a label store as its ``label_*`` fields (words as uint32);
-``metric_kind`` is any registered kind.  Fields of parts not ported yet
-(graph-health reports, streaming archives) are refused with an error
-rather than dropped.
+``metric_kind`` is any registered kind.  A streaming index travels as the
+reference's ``stream_format`` archive (:func:`mutable_to_numpy` /
+:func:`mutable_from_numpy`), which :func:`index_from_numpy` refuses as
+the reference's ``QuIVerIndex.load`` does.  Graph-health fields, whose
+part is not ported yet, are refused with an error rather than dropped.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ from repro_torch.device import resolve_device
 from repro_torch.filter import LabelStore
 from repro_torch.ivf import IVFPartition
 from repro_torch.models.transformer import DecoderLM
-from repro_torch.probe import CompatibilityReport, NavPolicy
+from repro_torch.probe import CompatibilityReport, NavPolicy, ProbeAccumulator
+from repro_torch.stream.mutable import MutableQuIVerIndex
 
 _PARAM_PREFIX = "param_"
 # npz field prefixes of state this part of the port cannot honour
@@ -60,11 +63,13 @@ def params_from_npz(fields: dict) -> BuildParams:
     return BuildParams(**kw)
 
 
-def index_to_numpy(index: QuIVerIndex) -> dict:
-    """The index as the reference's npz fields."""
-    def host(t):
-        return t.detach().cpu().numpy() if t is not None else np.zeros((0,))
+def _host(t) -> np.ndarray:
+    """A tensor on the host; None as the reference's empty field."""
+    return t.detach().cpu().numpy() if t is not None else np.zeros((0,))
 
+
+def _shared_fields(index) -> dict:
+    """Label, policy and probe-report fields of either kind of index."""
     extra = {}
     if index.labels is not None:
         extra.update(index.labels.to_npz_fields())
@@ -72,15 +77,48 @@ def index_to_numpy(index: QuIVerIndex) -> dict:
         extra.update(index.policy.to_npz_fields())
     if index.report is not None:
         extra.update(index.report.to_npz_fields())
+    return extra
+
+
+def _refuse_unported(fields: dict) -> None:
+    unported = sorted(k for k in fields if k.startswith(_UNPORTED_PREFIXES))
+    if unported:
+        raise NotImplementedError(
+            f"archive carries graph-health state, which the port cannot "
+            f"honour yet (ROADMAP modules item 12): {unported}"
+        )
+
+
+def _metric_kind(fields: dict) -> str:
+    metric_kind = str(fields.get("metric_kind", "bq2"))
+    if metric_kind not in registered_kinds():
+        raise ValueError(f"unknown metric_kind {metric_kind!r}; "
+                         f"registered: {registered_kinds()}")
+    return metric_kind
+
+
+def _tensor_or_none(a: np.ndarray, dtype, device) -> torch.Tensor | None:
+    return torch.tensor(a, dtype=dtype, device=device) if a.size else None
+
+
+def _words(fields: dict, device) -> torch.Tensor:
+    """The uint32 signature words as int32 views on ``device``."""
+    words = np.ascontiguousarray(fields["words"]).view(np.int32)
+    return torch.tensor(words, dtype=torch.int32, device=device)
+
+
+def index_to_numpy(index: QuIVerIndex) -> dict:
+    """The index as the reference's npz fields."""
+    extra = _shared_fields(index)
     if index.ivf is not None:
         extra.update(index.ivf.to_npz_fields())
     return {
-        "words": host(index.sigs.words).view(np.uint32),
+        "words": _host(index.sigs.words).view(np.uint32),
         "dim": np.asarray(index.sigs.dim),
-        "adjacency": host(index.adjacency),
+        "adjacency": _host(index.adjacency),
         "medoid": np.asarray(index.medoid),
-        "vectors": host(index.vectors),
-        "rotation": host(index.rotation),
+        "vectors": _host(index.vectors),
+        "rotation": _host(index.rotation),
         "metric_kind": np.array(index.metric_kind),
         **params_to_npz(index.params),
         **extra,
@@ -91,37 +129,92 @@ def index_from_numpy(fields: dict, device=None) -> QuIVerIndex:
     """An index from the reference's npz fields, on ``device`` (default:
     the CUDA card)."""
     if "stream_format" in fields:
-        raise NotImplementedError("streaming archives are not ported yet")
-    unported = sorted(k for k in fields if k.startswith(_UNPORTED_PREFIXES))
-    if unported:
-        raise NotImplementedError(
-            f"archive carries state this port cannot honour yet: {unported}"
+        raise ValueError(
+            "this is a streaming archive; load it with "
+            "repro_torch.stream.MutableQuIVerIndex.load (freeze() it for "
+            "an immutable QuIVerIndex)"
         )
-    metric_kind = str(fields.get("metric_kind", "bq2"))
-    if metric_kind not in registered_kinds():
-        raise ValueError(f"unknown metric_kind {metric_kind!r}; "
-                         f"registered: {registered_kinds()}")
+    _refuse_unported(fields)
+    metric_kind = _metric_kind(fields)
     device = resolve_device(device)
-
-    def dev(a, dtype):
-        return torch.tensor(a, dtype=dtype, device=device) if a.size \
-            else None
-
-    words = np.ascontiguousarray(fields["words"]).view(np.int32)
     return QuIVerIndex(
-        sigs=bq.Signature(words=dev(words, torch.int32),
+        sigs=bq.Signature(words=_words(fields, device),
                           dim=int(fields["dim"])),
-        adjacency=dev(fields["adjacency"], torch.int32),
+        adjacency=torch.tensor(fields["adjacency"], dtype=torch.int32,
+                               device=device),
         medoid=int(fields["medoid"]),
         params=params_from_npz(fields),
-        vectors=dev(fields["vectors"], torch.float32),
-        rotation=dev(fields["rotation"], torch.float32),
+        vectors=_tensor_or_none(fields["vectors"], torch.float32, device),
+        rotation=_tensor_or_none(fields["rotation"], torch.float32, device),
         metric_kind=metric_kind,
         labels=LabelStore.from_npz(fields, device),
         policy=NavPolicy.from_npz(fields),
         report=CompatibilityReport.from_npz(fields),
         ivf=IVFPartition.from_npz(fields, device),
     )
+
+
+def mutable_to_numpy(index: MutableQuIVerIndex) -> dict:
+    """A streaming index as the reference's ``stream_format`` npz fields
+    (``repro/stream/mutable.py``'s ``save``)."""
+    return {
+        "stream_format": np.int64(1),
+        **_shared_fields(index),
+        "words": _host(index.words).view(np.uint32),
+        "dim": np.int64(index.dim),
+        "adjacency": _host(index.adjacency),
+        "deg": _host(index.deg),
+        "vectors": _host(index.vectors),
+        "rotation": _host(index.rotation),
+        "live": index.live.copy(),
+        "allocated": index.allocated.copy(),
+        "free": np.asarray(index._free, dtype=np.int64),
+        "size": np.int64(index.size),
+        "medoid": np.int64(index.medoid),
+        "generation": np.int64(index.generation),
+        "metric_kind": np.array(index.metric_kind),
+        **params_to_npz(index.params),
+    }
+
+
+def mutable_from_numpy(fields: dict, device=None) -> MutableQuIVerIndex:
+    """A streaming index from the reference's ``stream_format`` npz fields,
+    on ``device`` (default: the CUDA card).  The probe accumulator is
+    derived state: it is recomputed from the live rows."""
+    if "stream_format" not in fields:
+        raise ValueError("not a streaming archive (no stream_format field)")
+    _refuse_unported(fields)
+    device = resolve_device(device)
+    dim = int(fields["dim"])
+    vectors = fields["vectors"]
+    out = MutableQuIVerIndex(
+        capacity=fields["words"].shape[0],
+        dim=dim,
+        params=params_from_npz(fields),
+        metric_kind=_metric_kind(fields),
+        keep_vectors=bool(vectors.size),
+        rotation=_tensor_or_none(fields["rotation"], torch.float32, device),
+        policy=NavPolicy.from_npz(fields),
+        report=CompatibilityReport.from_npz(fields),
+        device=device,
+    )
+    out.words = _words(fields, device)
+    out.adjacency = torch.tensor(fields["adjacency"], dtype=torch.int32,
+                                 device=device)
+    out.deg = torch.tensor(fields["deg"], dtype=torch.int32, device=device)
+    if vectors.size:
+        out.vectors = torch.tensor(vectors, dtype=torch.float32,
+                                   device=device)
+    out.live = np.asarray(fields["live"]).astype(bool)
+    out.allocated = np.asarray(fields["allocated"]).astype(bool)
+    out.labels = LabelStore.from_npz(fields, device)
+    out._free = [int(i) for i in fields["free"]]
+    out.size = int(fields["size"])
+    out.medoid = int(fields["medoid"])
+    out.generation = int(fields["generation"])
+    out.probe_acc = ProbeAccumulator.from_words(
+        np.asarray(fields["words"])[out.live], dim)
+    return out
 
 
 # -- LM parameters ------------------------------------------------------------

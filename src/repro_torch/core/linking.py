@@ -1,11 +1,16 @@
 """Vamana linking primitives (QuIVer §4.1): the chunk-level graph surgery.
 
-Counterpart of ``repro/core/linking.py`` for the batch build: beam-search
-a chunk of nodes, alpha-prune their candidate pools, install forward
-edges, scatter-append reverse edges, re-prune overflowing rows, scan for
-the medoid, and pick each IVF list's medoid.  ``chunk_ids`` / ``row_ids``
-may hold ``-1`` padding; padded entries scatter into a trash row and leave
-the graph untouched.
+Counterpart of ``repro/core/linking.py``, shared by the batch build and the
+streaming index (``repro_torch.stream``): beam-search a chunk of nodes,
+alpha-prune their candidate pools, install forward edges, scatter-append
+reverse edges, re-prune overflowing rows, scan for the medoid, and pick
+each IVF list's medoid.  ``chunk_ids`` / ``row_ids`` may hold ``-1``
+padding; padded entries scatter into a trash row and leave the graph
+untouched.
+
+``node_valid`` (the live mask of a mutable index) restricts beam-search
+candidates and re-prune pools to live nodes; dead nodes are still
+traversed.  ``None`` (the batch build) means all nodes.
 
 Every function returns new tensors and leaves its inputs as they were, as
 the reference's do.
@@ -34,6 +39,7 @@ def chunk_forward(
     alpha: float,
     n: int,
     expand: int = 1,
+    node_valid: torch.Tensor | None = None,
 ):
     """Beam-search a chunk of nodes and alpha-prune their candidates.
 
@@ -45,7 +51,7 @@ def chunk_forward(
     queries = backend.query_repr(chunk_ids.clamp_min(0))
     res = beam_search(
         queries, adj, medoid, dist_fn=backend.dist_many, ef=ef, n=n,
-        expand=expand,
+        expand=expand, node_valid=node_valid,
     )
     # remove self from each candidate list, keep the best ``pool``
     drop = (res.ids == chunk_ids[:, None]) | pad_row
@@ -125,12 +131,17 @@ def reverse_append(adj, deg, chunk_ids, fwd_ids, *, r_total):
 
 
 def consolidate_rows(backend: MetricSpace, adj, deg, row_ids, *,
-                     r: int, alpha: float, r_total: int):
-    """Re-prune rows back down to <= r edges (degree overflow).  Padded
-    ``row_ids`` entries leave the graph alone."""
+                     r: int, alpha: float, r_total: int,
+                     node_valid: torch.Tensor | None = None):
+    """Re-prune rows back down to <= r edges (degree overflow).  With
+    ``node_valid``, dead neighbours leave the pool before the prune.
+    Padded ``row_ids`` entries leave the graph alone."""
     safe_row_ids = row_ids.clamp_min(0)
     rows = adj[safe_row_ids.long()]                        # (B, r_total)
     ok = rows >= 0
+    if node_valid is not None:
+        ok &= node_valid[rows.clamp_min(0).long()]
+        rows = torch.where(ok, rows, -1)
     safe = rows.clamp_min(0)
     # distance of each neighbour to the row's own node
     dists = backend.dist_many(backend.query_repr(safe_row_ids), safe)

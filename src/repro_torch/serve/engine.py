@@ -13,8 +13,7 @@ Counterpart of the LM half of ``repro/serve/engine.py``:
 
 Every attention call goes through the hand-written flash kernel on the card.
 Not ported: ``QueryEngine`` (the retrieval serving queue, ROADMAP modules
-item 11), so ``Retriever(engine=...)`` raises; streaming indexes (item 10),
-so ``add_documents`` raises.
+item 11), so ``Retriever(engine=...)`` raises.
 """
 
 from __future__ import annotations
@@ -33,6 +32,10 @@ from repro_torch.models import transformer as tf
 class Retriever:
     """QuIVer index + token store for RAG.
 
+    ``index`` may be an immutable :class:`QuIVerIndex` or a streaming
+    :class:`repro_torch.stream.MutableQuIVerIndex`; with the latter the
+    corpus can grow *while serving* through :meth:`add_documents`.
+
     ``embed_fn`` maps (B, S) tokens (a numpy array) to (B, D) embeddings
     (a tensor or array); ``nav=None`` navigates in the metric the index was
     built in; ``expand`` is the beam expansion width; ``pad_token`` fills
@@ -46,7 +49,7 @@ class Retriever:
     language, tenant, source tags).  The index needs labels attached
     (``attach_labels``); ``augment(filter=...)`` overrides it per call.
     """
-    index: Any                      # QuIVerIndex
+    index: Any                      # QuIVerIndex | MutableQuIVerIndex
     doc_tokens: np.ndarray          # (n_docs, doc_len) int32
     embed_fn: Callable              # (B, S) tokens -> (B, D) embeddings
     k: int = 2
@@ -86,11 +89,35 @@ class Retriever:
         ctx = ctx.reshape(len(tokens), -1)
         return np.concatenate([ctx, tokens], axis=1)
 
-    def add_documents(self, doc_tokens, embeddings=None, *, labels=None):
-        """Growing the corpus while serving needs a streaming index."""
-        raise NotImplementedError(
-            "add_documents needs the streaming index, which is not ported "
-            "yet (ROADMAP modules item 10)")
+    def add_documents(self, doc_tokens, embeddings=None, *,
+                      labels=None) -> np.ndarray:
+        """Insert documents into a *mutable* index while serving.
+
+        Returns the slot ids the index assigned.  The token store is
+        slot-addressed: it is grown to the index capacity on first use, so
+        reclaimed slots (delete + consolidate) are overwritten in place.
+        ``labels`` tags the new documents for filtered retrieval (one int
+        or iterable of ints per document).  ``embeddings`` default to
+        ``embed_fn`` of the tokens.
+        """
+        if not hasattr(self.index, "insert"):
+            raise TypeError(
+                "add_documents needs a mutable index (repro_torch.stream); "
+                f"got {type(self.index).__name__}"
+            )
+        doc_tokens = np.atleast_2d(np.asarray(doc_tokens, dtype=np.int32))
+        if embeddings is None:
+            embeddings = self.embed_fn(doc_tokens)
+        ids = np.asarray(self.index.insert(embeddings, labels=labels))
+        cap = self.index.capacity
+        if len(self.doc_tokens) < cap:
+            pad = np.full(
+                (cap - len(self.doc_tokens), self.doc_tokens.shape[1]),
+                self.pad_token, dtype=self.doc_tokens.dtype,
+            )
+            self.doc_tokens = np.concatenate([self.doc_tokens, pad])
+        self.doc_tokens[ids] = doc_tokens
+        return ids
 
 
 class ServeEngine:

@@ -114,11 +114,12 @@ def test_pairwise_tiles_match_plain(cuda, c, dim, b, dup):
 
 
 @pytest.mark.parametrize("b", [1, 3, 256])
-@pytest.mark.parametrize("k", [1, 31, 72, 288, 34_080])
+@pytest.mark.parametrize("k", [1, 31, 72, 288, 5256, 34_080])
 @pytest.mark.parametrize("dim", [17, 64, 100, 768, 3072])
 def test_dist_rows_gathers_match_plain(cuda, dim, k, b):
     # 4-byte words (W = 1, 2) and 16-byte vectors (W = 4, 24, 96: groups of
-    # 1, 2 and 8 lanes), one row a group up to 8 rows a group (K = 34 080)
+    # 1, 2 and 8 lanes), one row a group up to 8 rows a group (K = 34 080);
+    # K = 5 256 = 72 + 72 * 72 is the streaming repair's candidate row
     table = _table(5000, dim, dim + k + b, cuda)
     g = torch.Generator().manual_seed(k * 3 + b)
     ids = torch.randint(0, 5000, (b, k), generator=g,
@@ -350,6 +351,73 @@ def test_card_ivf_build_equals_cpu_build(cuda):
     assert torch.equal(gpu.adjacency.cpu(), cpu.adjacency)
     assert gpu.medoid == cpu.medoid
     np.testing.assert_array_equal(g_ids, c_ids)
+
+
+def _stream_script(index, base, queries, member):
+    """The streaming mutation script of ``chip_smoke.py``'s parity phase on
+    ``index`` (labelled): adopt, insert 10% with labels, delete 7.5% (the
+    medoid among them), a filtered search, consolidate, insert into the
+    reclaimed slots, freeze.  Returns the mutable index, the frozen one and
+    each search's hot-path ids."""
+    from repro_torch.stream import MutableQuIVerIndex
+
+    n = index.adjacency.shape[0]
+    mut = MutableQuIVerIndex.from_index(index)
+    ids = []
+
+    def search(**kw):
+        ids.append(mut.search(queries, k=10, ef=32, rerank=False, **kw)[0])
+
+    extra = len(base) - n
+    mut.insert(base[n:n + extra // 2],
+               labels=[np.nonzero(m)[0].tolist() for m in member[n:]][
+                   :extra // 2])
+    dead = np.r_[mut.medoid, np.arange(0, 3 * n // 40)]
+    mut.delete(dead)
+    search()
+    search(filter=0)
+    search(filter=2)
+    mut.consolidate()
+    search()
+    mut.insert(base[n + extra // 2:])
+    search(filter=1)
+    return mut, mut.freeze(), ids
+
+
+def test_card_stream_script_equals_cpu(cuda, tmp_path):
+    from repro_torch.stream import MutableQuIVerIndex
+
+    base, queries = make_dataset("cohere-surrogate", 1650, queries=40)
+    params = BuildParams(m=6, ef_construction=32, prune_pool=32, chunk=128)
+    member = np.stack([np.random.default_rng(0).random(len(base)) < p
+                       for p in (0.5, 0.2, 0.01)], axis=1)
+    cpu = QuIVerIndex.build(base[:1500], params, device="cpu")
+    from repro_torch import convert
+    gpu = convert.index_from_numpy(convert.index_to_numpy(cpu), cuda)
+    for index in (cpu, gpu):
+        index.attach_labels([np.nonzero(m)[0].tolist()
+                             for m in member[:1500]], n_labels=3)
+    build.reset_launches()
+    g_mut, g_frozen, g_ids = _stream_script(gpu, base, queries, member)
+    assert all(build.LAUNCHES[k] > 0
+               for k in ("binarize", "bq_dist_rows", "bq_pairwise"))
+    c_mut, c_frozen, c_ids = _stream_script(cpu, base, queries, member)
+    for name in ("words", "adjacency", "deg"):
+        assert torch.equal(getattr(g_mut, name).cpu(),
+                           getattr(c_mut, name)), name
+    assert torch.equal(g_mut.labels.words.cpu(), c_mut.labels.words)
+    np.testing.assert_array_equal(g_mut.live, c_mut.live)
+    np.testing.assert_array_equal(g_mut.allocated, c_mut.allocated)
+    assert g_mut._free == c_mut._free and g_mut.medoid == c_mut.medoid
+    for g, c in zip(g_ids, c_ids):
+        np.testing.assert_array_equal(g, c)
+    assert torch.equal(g_frozen.adjacency.cpu(), c_frozen.adjacency)
+    assert g_frozen.medoid == c_frozen.medoid
+    # an archive saved on the card loads on the CPU
+    g_mut.save(str(tmp_path / "stream.npz"))
+    back = MutableQuIVerIndex.load(str(tmp_path / "stream.npz"), "cpu")
+    assert torch.equal(back.adjacency, c_mut.adjacency)
+    assert back.probe_acc == c_mut.probe_acc
 
 
 @pytest.fixture(scope="module")

@@ -53,6 +53,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.plan.cache", "repro_torch.plan.trace",
             "repro_torch.filter.labels", "repro_torch.filter.predicate",
             "repro_torch.filter.search"} <= set(mods)
+    assert {"repro_torch.stream", "repro_torch.stream.mutable",
+            "repro_torch.stream.consolidate", "repro_torch.obs.drift",
+            "repro_torch.data.dedup"} <= set(mods)
     _run_fresh(
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
