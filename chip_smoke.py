@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases build,kernels,ladder
     python3 chip_smoke.py --phases build,kernels,filter
     python3 chip_smoke.py --phases build,kernels,stream
+    python3 chip_smoke.py --phases build,kernels,engine
     python3 chip_smoke.py --phases build,kernels,rag
     python3 chip_smoke.py --phases build,profile      # opt-in breakdown
 
@@ -64,7 +65,16 @@ Phases, in order; any failure raises and the script exits nonzero:
               400, delete 300 with the medoid, graph and brute searches,
               consolidate, insert into the reclaimed slots, freeze):
               identical state, ids and frozen graph, and the card's
-              mutable archive loaded on the CPU; and ``minicpm-2b`` at
+              mutable archive loaded on the CPU; ``graph_report()`` (S =
+              256, k = 8) of the beam-built graph and of the stream
+              script's mutated graph: integer fields and verdicts
+              identical, edge agreement within 2 / (S k); one
+              ``QueryEngine`` request script (``parity_engine``: three
+              tenants, a quota, deadlines, a shadow lane at rate 4)
+              under the same scripted clock: identical tickets (status,
+              degrade rungs, latency, plan signature, ids; scores within
+              1e-6), identical sampled rows and drained recalls, each the
+              row's exact recall; and ``minicpm-2b`` at
               full width and 2 layers,
               drawn on the CPU and copied to the card: 2 prompts of 48
               tokens, prefill and 8 greedy decode steps (the card fed the
@@ -150,9 +160,45 @@ stream      — the streaming index on phase 4's graph (built here when
               step is also searched at ef = 64 and printed, beside the
               self-hit of the first 1 000 of them before the churn (at
               both widths) and the re-inserted rows' in-degree.  Then ``freeze``: its recall
-              within 0.005 of the mutable search's.
+              within 0.005 of the mutable search's.  A graph monitor is
+              armed (``attach_graph_monitor``): each consolidation's
+              X-ray band and score are printed, and its ``n_live`` must
+              be the live count.
               Launch counts as in 4: binarize, ``bq_dist_rows`` and
               ``bq_pairwise`` must have launched.
+engine      — the serving engine on phase 4's graph (built here when
+              phase 4 did not run): ``QueryEngine(index, shadow={"rate":
+              8})`` with ``RemediationPolicy(engine, auto=True)``, warmed
+              at the buckets 8-256 for ef 64 and its deadline rungs 32
+              and 16; phase 4's first 1 000 queries as 640 requests of
+              three tenants, submitted in order and pumped every 64:
+              ``rag`` 512 singletons (``recall_slo`` 0.75), ``batch`` 24
+              requests of 16 (half with ``deadline_ms`` 1), ``capped``
+              104 singletons (``set_quota(qps=50, burst=8)``); twice.
+              Gates: every undegraded ``done`` request's ids equal phase
+              4's direct search (``ids_match``); rejected and dropped
+              tickets -1 / -inf, rejections on ``capped`` only, requests
+              = done + dropped + rejected; every drained shadow recall
+              its row's exact recall against phase 4's truth,
+              ``host_shadow_bytes`` > 0; ``recall_slo`` green, then
+              ``batch``'s SLO armed at ``ENGINE_FORCED_SLO`` = 1.001
+              (recall@10 here is 0.0 or 1.0 a query, so the ledger's
+              median rule breaches no floor <= 1.0) and its requests
+              served again: the breach re-probes (green) and escalates
+              ef 64 -> 128, then ``resolve()``; the second pass 0 retraces; the
+              swap onto phase 5's IVF index (built here when phase 5 did
+              not run) with its warmup, 256 ``rag`` singletons at the
+              default nav and 256 at ``nav="ivf"``: its direct-search
+              ids, 0 retraces; ``graph_report()`` of phase 4's graph (S =
+              256, k = 8): out- and in-degree means and reciprocity equal
+              to the host adjacency's, unreachable rows and hop radius to
+              a host BFS from the medoid (scipy), verdict and score
+              printed.  Printed: requests/s and queries/s a pass, the
+              window's split (coalesce, launch, finalize, shadow), p50 /
+              p99 by tenant, the same 64 singletons through
+              ``index.search`` one at a time, the re-probe's and the
+              X-ray's seconds.  Launch counts as in 4: binarize,
+              ``bq_dist_rows`` and ``list_scan`` must have launched.
 7. rag      — LM serving with RAG: ``minicpm-2b`` at full width and depth
               (40 layers, d 2304, 36 heads, vocab 122 880, bf16, weights
               drawn from seed 0) on the card; embed 8 192 + 256 seeded
@@ -170,9 +216,12 @@ stream      — the streaming index on phase 4's graph (built here when
               the tensor-core kernel and every decode launch on the
               split-KV kernel, and the bq kernels in the build.  Each
               step's ms a call is printed with the flash kernel's share
-              (its launches x its phase-2 device time).  Then two labels on
-              the 8 192 documents and one filtered ``Retriever.augment``
-              of the 8 prompts: every retrieved document carries label 1.
+              (its launches x its phase-2 device time).  One retrieval
+              of the 8 prompts through ``Retriever(engine=QueryEngine(
+              index, obs=False))``: the direct ``Retriever``'s documents.
+              Then two labels on the 8 192 documents and one filtered
+              ``Retriever.augment`` of the 8 prompts: every retrieved
+              document carries label 1.
 An opt-in eighth phase, ``profile``, is not run by default: it profiles a
 few build chunks at the main path's size with ``torch.profiler`` and
 prints the device's busy share, device time by kernel, and the port's own
@@ -180,7 +229,7 @@ kernels' share of it.
 
 The last three lines of standard output are the card's name and power
 limit (``nvidia-smi``), one JSON line of per-kernel numbers (``launches``
-sums phases 4, 5, 6, filter, stream and 7), and
+sums phases 4, 5, 6, filter, stream, engine and 7), and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits nonzero and prints no result.
 """
@@ -198,7 +247,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "parity", "main", "ivf", "ladder", "filter",
-          "stream", "rag")
+          "stream", "engine", "rag")
 OPT_IN = ("profile",)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the float32
@@ -871,8 +920,11 @@ def phase_parity(torch) -> None:
     tied = ids_match(cpu[2], gpu[2], cpu[3], gpu[3])
     log(f"  signatures, adjacency, medoid and beam ids identical; reranked "
         f"ids identical up to {tied} rows of scores within 1e-6")
+    parity_graph(cpu[0], gpu[0], "beam-built graph")
+    parity_engine(torch, cpu[0], gpu[0], queries)
     parity_filter(torch, cpu[0], gpu[0], queries)
-    parity_stream(torch, cpu[0], gpu[0], queries)
+    c_mut, g_mut = parity_stream(torch, cpu[0], gpu[0], queries)
+    parity_graph(c_mut, g_mut, "stream script's mutated graph")
     for name, want in (("sift-like", "float32"), ("cohere-surrogate", "bq2")):
         parity_auto(torch, name, want, params)
     parity_lm(torch)
@@ -959,7 +1011,7 @@ def assert_same_stream_state(torch, a: dict, b: dict, what: str) -> None:
             raise AssertionError(f"{what}: {key} differs")
 
 
-def parity_stream(torch, cpu, gpu, queries) -> None:
+def parity_stream(torch, cpu, gpu, queries) -> tuple:
     """The streaming mutation script on the N = 4000 graph (with the
     filter phase's labels), on the CPU and on the card: ``from_index``,
     insert 400 (seeded perturbed copies of rows, with labels), delete 300
@@ -967,7 +1019,8 @@ def parity_stream(torch, cpu, gpu, queries) -> None:
     ``consolidate``, insert 300 into the reclaimed slots, ``freeze``.
     Identical words, adjacency, degrees, label words, masks, free list,
     medoid, statistics and hot-path ids after it, and identical frozen
-    graphs; then a mutable archive saved on the card loads on the CPU."""
+    graphs; then a mutable archive saved on the card loads on the CPU.
+    Returns the two mutated indexes (CPU, card)."""
     import numpy as np
 
     from repro_torch.filter import Any
@@ -1026,6 +1079,200 @@ def parity_stream(torch, cpu, gpu, queries) -> None:
                              "card archive loaded on the CPU")
     log(f"  stream: state, {len(g_ids)} searches' ids and the frozen graph "
         "identical; the card's archive loads on the CPU identically")
+    return c_mut, g_mut
+
+
+# -- the serving engine: request scripts, shared by phase 3 and the engine
+# phase -------------------------------------------------------------------
+
+
+class StepClock:
+    """A scripted clock: each read returns the time, then moves it on by
+    ``step`` seconds, so two engines driven by the same script see the
+    same times (deadlines, latencies, the EWMA that degrades requests)."""
+
+    def __init__(self, step: float):
+        self.t, self.step = 0.0, step
+
+    def __call__(self) -> float:
+        now = self.t
+        self.t += self.step
+        return now
+
+
+def engine_requests(n_rag: int, n_batch: int, batch_size: int,
+                    n_capped: int, deadlines=(None, 1.0)) -> list:
+    """The three tenants' requests in submission order, as (tenant, first
+    row, rows, submit kwargs): ``rag``'s singletons, then ``batch``'s
+    requests of ``batch_size`` (deadlines cycling through ``deadlines``,
+    in ms), then ``capped``'s singletons, on consecutive query rows."""
+    reqs, row = [], 0
+    for _ in range(n_rag):
+        reqs.append(("rag", row, 1, {}))
+        row += 1
+    for i in range(n_batch):
+        ms = deadlines[i % len(deadlines)]
+        reqs.append(("batch", row, batch_size,
+                     {} if ms is None else {"deadline_ms": ms}))
+        row += batch_size
+    for _ in range(n_capped):
+        reqs.append(("capped", row, 1, {}))
+        row += 1
+    return reqs
+
+
+def drive_engine(engine, queries, reqs, every: int) -> list:
+    """Submit ``reqs`` in order, pumping a window every ``every``
+    requests and once at the end; returns the ticket ids."""
+    tickets = []
+    for i, (tenant, row, count, kw) in enumerate(reqs):
+        q = queries[row] if count == 1 else queries[row:row + count]
+        tickets.append(engine.submit(q, tenant=tenant, **kw))
+        if (i + 1) % every == 0:
+            engine.pump()
+    engine.pump()
+    return tickets
+
+
+def tap_shadow(sampler) -> tuple[list, list]:
+    """Record what a ``ShadowSampler`` is offered (queries, served ids)
+    and what it drains, in order; returns the two lists."""
+    import numpy as np
+
+    offers, drained = [], []
+    offer, drain = sampler.offer, sampler.drain
+
+    def tapped_offer(queries, served_ids, **kw):
+        offers.append((np.atleast_2d(np.array(queries, np.float32)),
+                       np.atleast_2d(np.array(served_ids))))
+        return offer(queries, served_ids, **kw)
+
+    def tapped_drain(max_rows=None):
+        out = drain(max_rows)
+        drained.extend(out)
+        return out
+
+    sampler.offer, sampler.drain = tapped_offer, tapped_drain
+    return offers, drained
+
+
+def shadow_expected(offers, row_of, truth, rate: int, k: int = 10) -> list:
+    """The recall of every offered row that hashes into the shadow lane,
+    in offer order, against ``truth`` (exact ids by query row; ``row_of``
+    maps a query's float32 bytes to its row)."""
+    from repro_torch.obs.quality import should_sample
+
+    want = []
+    for queries, served in offers:
+        for q, ids in zip(queries, served):
+            if should_sample(q, rate):
+                hits = set(ids[:k].tolist()) & set(
+                    truth[row_of[q.tobytes()]].tolist())
+                want.append(len(hits) / k)
+    return want
+
+
+def ticket_record(engine, t) -> tuple:
+    tk = engine.ticket(t)
+    return (tk.status, tk.degraded, tk.latency,
+            tk.plan.signature() if tk.plan is not None else None)
+
+
+def parity_engine(torch, cpu, gpu, queries) -> None:
+    """One request script (phase 3's 100 queries: ``rag`` 40 singletons,
+    ``batch`` 6 requests of 5 with deadlines of none, 1 and 30 ms, and
+    ``capped`` 30 singletons at ``set_quota(qps=50, burst=8)``; a window
+    every 16 requests; shadow lane at rate 4) through a ``QueryEngine``
+    on each device under the same scripted clock (2 ms a read, latency
+    slack 10, so deadlines degrade and drop).  The tickets' statuses,
+    degrade rungs, latencies, plan signatures and ids identical, scores
+    within 1e-6; the shadow lane's sampled rows and drained recalls
+    identical, and each recall the one exact search gives the row."""
+    import numpy as np
+
+    from repro_torch.core.baselines import flat_search
+    from repro_torch.obs import MetricsRegistry, ObsHub
+    from repro_torch.serve.engine import QueryEngine
+
+    reqs = engine_requests(40, 6, 5, 30, deadlines=(None, 1.0, 30.0))
+    runs = {}
+    for name, index in (("cpu", cpu), ("card", gpu)):
+        t0 = time.perf_counter()
+        engine = QueryEngine(index, clock=StepClock(0.002),
+                             latency_slack=10.0,
+                             obs=ObsHub(MetricsRegistry()),
+                             shadow={"rate": 4})
+        engine.set_quota("rag", qps=1e6, recall_slo=0.75)
+        engine.set_quota("capped", qps=50.0, burst=8)
+        offers, drained = tap_shadow(engine.shadow)
+        tickets = drive_engine(engine, queries, reqs, every=16)
+        runs[name] = (engine, tickets, offers, drained)
+        log(f"  {name}: engine script {time.perf_counter() - t0:.2f} s")
+    (c_eng, c_ts, c_offers, c_drained), (g_eng, g_ts, g_offers,
+                                         g_drained) = runs["cpu"], \
+        runs["card"]
+    statuses = {}
+    for t in g_ts:
+        c_rec, g_rec = ticket_record(c_eng, t), ticket_record(g_eng, t)
+        if c_rec != g_rec:
+            raise AssertionError(f"engine ticket {t}: {c_rec} vs {g_rec}")
+        (c_ids, c_sc), (g_ids, g_sc) = c_eng.poll(t), g_eng.poll(t)
+        finite = np.isfinite(c_sc)
+        if not (np.array_equal(c_ids, g_ids)
+                and np.array_equal(finite, np.isfinite(g_sc))
+                and np.abs(c_sc[finite] - g_sc[finite]).max(initial=0.0)
+                <= 1e-6):
+            raise AssertionError(f"engine ticket {t}: results differ")
+        statuses[g_rec[0]] = statuses.get(g_rec[0], 0) + 1
+    degraded = sum(g_eng.ticket(t).degraded > 0 for t in g_ts)
+    sampled = [[q.tobytes() for q in qs] for qs, _ in g_offers]
+    if sampled != [[q.tobytes() for q in qs] for qs, _ in c_offers] \
+            or g_eng.shadow.sampled != c_eng.shadow.sampled:
+        raise AssertionError("the shadow lane sampled other rows")
+    g_rec = [d["recall"] for d in g_drained]
+    if g_rec != [d["recall"] for d in c_drained]:
+        raise AssertionError("drained shadow recalls differ")
+    truth, _ = flat_search(cpu.vectors, queries, 10, device="cpu")
+    row_of = {q.tobytes(): i for i, q in enumerate(
+        np.asarray(queries, np.float32))}
+    if g_rec != shadow_expected(g_offers, row_of, truth, 4):
+        raise AssertionError("a drained recall is not its row's exact "
+                             "recall")
+    log(f"  engine: {len(g_ts)} tickets identical ({statuses}, {degraded} "
+        f"degraded); shadow lane {g_eng.shadow.sampled} rows sampled, "
+        f"{len(g_rec)} recalls drained, identical and exact (mean "
+        f"{np.mean(g_rec):.4f})")
+
+
+# the graph report's fields held exactly between two devices (the edge
+# agreement is held within 2 / (S k): its float32 cosine sums in each
+# device's order)
+GRAPH_EXACT = ("n_live", "n_allocated", "degree_bound", "out_degree_mean",
+               "in_degree_mean", "saturation", "reciprocity",
+               "n_unreachable", "unreachable_frac", "hop_p50", "hop_p99",
+               "hop_max", "tombstone_density", "n_sampled", "agreement_k",
+               "seed", "out_degree_hist", "in_degree_hist")
+
+
+def parity_graph(cpu, gpu, what: str) -> None:
+    """``graph_report()`` (S = 256, k = 8) of one graph on the CPU and on
+    the card: integer and host-side fields and the verdict identical, the
+    edge agreement within 2 / (S k)."""
+    from repro_torch.obs import MetricsRegistry
+
+    c = cpu.graph_report(registry=MetricsRegistry())
+    g = gpu.graph_report(registry=MetricsRegistry())
+    for name in GRAPH_EXACT:
+        if getattr(c, name) != getattr(g, name):
+            raise AssertionError(f"{what}: graph report {name} differs: "
+                                 f"{getattr(c, name)} vs {getattr(g, name)}")
+    tol = 2 / (c.n_sampled * c.agreement_k)
+    if c.verdict != g.verdict \
+            or not abs(c.edge_agreement - g.edge_agreement) <= tol:
+        raise AssertionError(f"{what}: {c.summary()} vs {g.summary()}")
+    log(f"  graph X-ray of the {what}: identical ({g.summary()}; agreement "
+        f"{c.edge_agreement:.4f} / {g.edge_agreement:.4f}, tolerance "
+        f"{tol:.5f})")
 
 
 def parity_lm(torch) -> None:
@@ -1328,29 +1575,20 @@ def phase_ivf(torch) -> dict:
             "ivf_recall": runs[1][2]}
 
 
-class SmokeHub:
-    """What ``PlanCache.obs`` reads: a metrics registry of its own and a
-    tracer with a clock and spans (the port has no ObsHub yet)."""
+def smoke_hub():
+    """An ``ObsHub`` over a registry of its own, for a plan cache's
+    ``obs``: its counters belong to one phase."""
+    from repro_torch.obs import MetricsRegistry, ObsHub
 
-    def __init__(self):
-        from repro_torch.obs.metrics import MetricsRegistry
+    return ObsHub(MetricsRegistry())
 
-        self.registry = MetricsRegistry()
-        self.tracer = self
 
-    @staticmethod
-    def clock() -> float:
-        return time.perf_counter()
-
-    @contextlib.contextmanager
-    def span(self, name, **attrs):
-        yield
-
-    def escalated(self) -> float:
-        """Queries escalated so far under this hub."""
-        counter = self.registry.counter("quiver_escalated_queries_total",
-                                        labels=("plan",))
-        return float(sum(slot[0] for slot in counter.series().values()))
+def escalated(hub) -> float:
+    """Queries escalated so far under ``hub`` (the plan cache's
+    ``quiver_escalated_queries_total``)."""
+    counter = hub.registry.counter("quiver_escalated_queries_total",
+                                   labels=("plan",))
+    return float(sum(slot[0] for slot in counter.series().values()))
 
 
 def timed_search(index, queries, truth, label: str, **kw):
@@ -1432,14 +1670,14 @@ def phase_ladder(torch, main: dict | None) -> dict:
                                        f'nav="{nav}" on the bq2 graph',
                                        nav=nav)
     # the escalation counter lives on the plan cache's hub
-    graph.plans.obs = hub = SmokeHub()
+    graph.plans.obs = hub = smoke_hub()
     _, r_adaptive = timed_search(graph, queries, truth,
                                  'nav="bq2" adaptive=True on the bq2 graph',
                                  nav="bq2", adaptive=True)
     graph.plans.obs = None
-    escalated = hub.escalated()
-    log(f"  adaptive: {int(escalated)} of {n_queries} queries escalated "
-        f"({escalated / n_queries:.1%}) at the default margin 0.15, ef x4")
+    n_escalated = escalated(hub)
+    log(f"  adaptive: {int(n_escalated)} of {n_queries} queries escalated "
+        f"({n_escalated / n_queries:.1%}) at the default margin 0.15, ef x4")
 
     # 3. the probe, on the card and on the CPU
     verdicts = {}
@@ -1612,7 +1850,7 @@ def phase_filter(torch, main: dict | None, ivf: dict | None) -> dict:
             want_ids, want_scores = truth, None
         hub = None
         if plan.adaptive:
-            index.plans.obs = hub = SmokeHub()
+            index.plans.obs = hub = smoke_hub()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ids, scores = index.search(queries, k=10, ef=64, filter=pred, **kw)
@@ -1621,7 +1859,7 @@ def phase_filter(torch, main: dict | None, ivf: dict | None) -> dict:
         recall = recall_at_k(ids, want_ids)
         note = ""
         if hub is not None:
-            note = f", {int(hub.escalated())} escalated at ef {plan.ef} x " \
+            note = f", {int(escalated(hub))} escalated at ef {plan.ef} x " \
                 f"{plan.escalate_mult}"
         log(f"  {name}: route {plan.route}, ef {plan.ef}"
             f"{f', probes {plan.probes}' if plan.route == 'ivf' else ''}, "
@@ -1755,6 +1993,12 @@ def phase_stream(torch, main: dict | None) -> dict:
     mut = MutableQuIVerIndex.from_index(graph)
     monitor = mut.attach_drift_monitor(tenant="smoke",
                                        registry=MetricsRegistry())
+    graph_monitor, _ = timed(
+        "attach_graph_monitor (the X-ray of the adopted graph)",
+        lambda: mut.attach_graph_monitor(tenant="smoke",
+                                         registry=MetricsRegistry()))
+    log(f"    graph band {graph_monitor.band}, score "
+        f"{graph_monitor.last_score:.4f}")
     log(f"  adopted phase 4's graph: capacity {mut.capacity}, "
         f"{mut.n_live} live, medoid {mut.medoid}, drift band "
         f"{monitor.band}; memory_breakdown "
@@ -1844,9 +2088,17 @@ def phase_stream(torch, main: dict | None) -> dict:
         check_acc(f"cycle {cycle} delete")
         gt = live_truth(base, queries, slot_row, mut.live)
         _, r_before = search_gated(f"cycle {cycle} after delete", dead, gt)
-        report, cons_s = timed("consolidate", mut.consolidate)
+        report, cons_s = timed("consolidate (with the graph X-ray)",
+                               mut.consolidate)
         log(f"    consolidate: {report['repaired_rows']} rows repaired, "
-            f"{report['reclaimed']} slots reclaimed in {cons_s:.3f} s")
+            f"{report['reclaimed']} slots reclaimed in {cons_s:.3f} s; "
+            f"graph band {report['health_band']}, score "
+            f"{report['health_score']:.4f}, delta "
+            f"{report.get('health_delta', 0.0):+.4f}")
+        if mut.graph_health.n_live != mut.n_live:
+            failures.append(f"cycle {cycle}: the X-ray's n_live "
+                            f"{mut.graph_health.n_live} is not the live "
+                            f"count {mut.n_live}")
         if report["reclaimed"] != n_churn:
             failures.append(f"cycle {cycle}: {report['reclaimed']} slots "
                             "reclaimed")
@@ -1930,6 +2182,302 @@ def phase_stream(torch, main: dict | None) -> dict:
     return {"launches": launches}
 
 
+# the engine phase's traffic: phase 4's first 1 000 queries as three
+# tenants' requests, a window pumped every ENGINE_EVERY requests
+ENGINE_RAG, ENGINE_BATCH, ENGINE_BATCH_SIZE, ENGINE_CAPPED = 512, 24, 16, 104
+ENGINE_EVERY = 64
+# every bucket of the ladder the traffic reaches (query_batch 256)
+ENGINE_BUCKETS = (8, 32, 128, 256)
+# the forced breach's recall floor.  Recall@10 on cohere-surrogate is all
+# or nothing a query (the beam finds a query's ten neighbours, which sit
+# in one tight subcluster, or none of them: 0.0 or 1.0, ~85% 1.0), so a
+# tenant's window median is 1.0, and the ledger's rule (median < floor)
+# breaches no floor <= 1.0; a floor above every recall forces the breach
+ENGINE_FORCED_SLO = 1.001
+
+
+def stage_totals(registry) -> dict:
+    """Per-stage (count, seconds) of the engine's lifecycle spans, from
+    the tracer's ``quiver_stage_seconds`` histogram."""
+    hist = registry.histogram("quiver_stage_seconds",
+                              labels=("stage",))
+    return {key[0]: (slot.count, slot.sum)
+            for key, slot in hist.series().items()}
+
+
+def host_graph_check(index, report) -> None:
+    """The X-ray against plain host computations on the adjacency: mean
+    out- and in-degree, reciprocity (an edge whose reverse edge exists),
+    and a host BFS from the medoid (``scipy.sparse.csgraph``) for the
+    unreachable rows and the hop radius."""
+    import numpy as np
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import breadth_first_order
+
+    adj = index.adjacency.cpu().numpy()
+    n = adj.shape[0]
+    rows, cols = np.nonzero(adj >= 0)
+    dst = adj[rows, cols].astype(np.int64)
+    out_mean = float((adj >= 0).sum(1).mean())
+    in_mean = float(np.bincount(dst, minlength=n).mean())
+    keys = rows.astype(np.int64) * n + dst
+    recip = float(np.isin(dst * n + rows, keys).sum() / len(keys))
+    graph = csr_matrix((np.ones(len(dst), np.int8), (rows, dst)),
+                       shape=(n, n))
+    order, pred = breadth_first_order(graph, index.medoid, directed=True,
+                                      return_predecessors=True)
+    hop = np.full(n, -1, np.int64)
+    hop[order[0]] = 0
+    for node in order[1:]:
+        hop[node] = hop[pred[node]] + 1
+    got = (report.out_degree_mean, report.in_degree_mean,
+           report.reciprocity, report.n_unreachable, report.hop_max)
+    want = (out_mean, in_mean, recip, n - len(order), float(hop.max()))
+    for name, a, b in zip(("out_degree_mean", "in_degree_mean",
+                           "reciprocity", "n_unreachable", "hop_max"),
+                          got, want):
+        if abs(a - b) > 1e-9 * max(1.0, abs(b)):
+            raise AssertionError(f"X-ray {name} {a} vs the host's {b}")
+    log(f"  X-ray against the host: out-degree {out_mean:.4f}, in-degree "
+        f"{in_mean:.4f}, reciprocity {recip:.6f}, {n - len(order)} "
+        f"unreachable, hop radius {hop.max()} (scipy BFS): equal")
+
+
+def phase_engine(torch, main: dict | None, ivf: dict | None) -> dict:
+    """The serving engine at deployment size on phase 4's graph, then
+    swapped onto phase 5's IVF index (each built here when its phase did
+    not run); returns the phase's launch counts."""
+    import numpy as np
+
+    from repro_torch.core.baselines import flat_search
+    from repro_torch.core.index import QuIVerIndex
+    from repro_torch.core.vamana import BuildParams
+    from repro_torch.data.datasets import make_dataset
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.obs import MetricsRegistry, ObsHub, RemediationPolicy
+    from repro_torch.plan import trace
+    from repro_torch.serve.engine import QueryEngine
+
+    n, n_queries = 100_000, 1000
+    if main is not None:
+        base, queries, truth = main["data"]
+        graph, ids4, scores4 = main["index"], main["ids"], main["scores"]
+    else:
+        base, queries = make_dataset("cohere-surrogate", n, queries=n_queries)
+        truth, _ = flat_search(base, queries, 10, device="cuda")
+        log("  (phase 4 did not run: building its bq2 graph first)")
+        graph = QuIVerIndex.build(base, BuildParams(), device="cuda")
+        ids4, scores4 = graph.search(queries, k=10, ef=64)
+    if ivf is not None:
+        ivf_index = ivf["index"]
+    else:
+        log("  (phase 5 did not run: building its IVF index first)")
+        ivf_index = QuIVerIndex.build(base, BuildParams(ivf_candidates=True),
+                                      device="cuda")
+    queries = np.asarray(queries, np.float32)
+    row_of = {q.tobytes(): i for i, q in enumerate(queries)}
+    torch.cuda.synchronize()
+    t_phase = time.perf_counter()
+    kbuild.reset_launches()
+    failures = []
+
+    reprobe_s = []
+
+    class TimedPolicy(RemediationPolicy):
+        """The remediation policy, its re-probes timed."""
+
+        def _reprobe(self):
+            t0 = time.perf_counter()
+            report = super()._reprobe()
+            torch.cuda.synchronize()
+            reprobe_s.append(time.perf_counter() - t0)
+            return report
+
+    registry = MetricsRegistry()
+    engine = QueryEngine(graph, shadow={"rate": 8}, obs=ObsHub(registry))
+    policy = TimedPolicy(engine, auto=True)
+    engine.set_quota("rag", qps=1e9, recall_slo=0.75)
+    engine.set_quota("capped", qps=50.0, burst=8)
+    offers, drained = tap_shadow(engine.shadow)
+    configs = ({}, {"ef": 32}, {"ef": 16})       # the deadline ladder
+    t0 = time.perf_counter()
+    warmed = engine.warmup(buckets=ENGINE_BUCKETS, configs=configs)
+    torch.cuda.synchronize()
+    log(f"  warmup: {warmed} (stage, bucket) programs, plans "
+        f"{[engine.default_ef] + [c['ef'] for c in configs[1:]]} at "
+        f"buckets {ENGINE_BUCKETS}: {time.perf_counter() - t0:.2f} s")
+
+    reqs = engine_requests(ENGINE_RAG, ENGINE_BATCH, ENGINE_BATCH_SIZE,
+                           ENGINE_CAPPED)
+    passes = []
+    for attempt in range(2):
+        before = (dict(vars(engine.stats)), stage_totals(registry))
+        snap = trace.snapshot(graph.plans.trace_prefix())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tickets = drive_engine(engine, queries, reqs, ENGINE_EVERY)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        retraces = snap.delta()
+        passes.append(tickets)
+        stats, stages = vars(engine.stats), stage_totals(registry)
+        split = {st: stages.get(st, (0, 0.0))[1]
+                 - before[1].get(st, (0, 0.0))[1]
+                 for st in ("window", "coalesce", "launch", "finalize",
+                            "shadow")}
+        count = {key: stats[key] - before[0][key]
+                 for key in ("requests", "queries", "windows", "batches",
+                             "done", "dropped", "degraded", "rejected")}
+        tenants = engine.tenants.report()["tenants"]
+        log(f"  pass {attempt + 1}: {secs:.3f} s, "
+            f"{count['requests'] / secs:.1f} requests/s, "
+            f"{count['queries'] / secs:.1f} queries/s; {count}; "
+            f"retraces {retraces}")
+        log(f"    window split (s): " + ", ".join(
+            f"{st} {v:.4f}" for st, v in split.items())
+            + " (coalesce = plan resolution and degradation)")
+        log(f"    latency by tenant (ms, cumulative): " + "; ".join(
+            f"{t} p50 {r['p50_ms']} p99 {r['p99_ms']}"
+            for t, r in sorted(tenants.items())))
+        if attempt == 1 and retraces:
+            failures.append(f"pass 2: {retraces} retraces "
+                            f"({snap.delta_by_program()})")
+
+    # gates 1 and 2: ids against direct search, rejections, counters
+    undegraded = rejected = 0
+    for tickets in passes:
+        for t, (tenant, row, count, _) in zip(tickets, reqs):
+            tk = engine.ticket(t)
+            ids, scores = engine.poll(t)
+            if tk.status in ("rejected", "dropped"):
+                rejected += tk.status == "rejected"
+                if not ((ids == -1).all() and np.isneginf(scores).all()):
+                    failures.append(f"ticket {t}: {tk.status} with results")
+                if tk.status == "rejected" and tenant != "capped":
+                    failures.append(f"ticket {t}: {tenant} rejected")
+                continue
+            if tk.status != "done":
+                failures.append(f"ticket {t}: {tk.status}")
+            elif not tk.degraded:
+                undegraded += 1
+                try:
+                    ids_match(ids, ids4[row:row + count], scores,
+                              scores4[row:row + count])
+                except AssertionError as e:
+                    failures.append(f"ticket {t} against direct search: "
+                                    f"{e}")
+    rep = engine.stats_report()
+    if rep["requests"] != rep["done"] + rep["dropped"] + rep["rejected"]:
+        failures.append(f"counters do not add up: {rep}")
+    if rep["tenant_report"]["quota_violations"]:
+        failures.append("a quota violation")
+    log(f"  {undegraded} undegraded done requests equal to direct search; "
+        f"{rejected} rejections, all capped; stats {json.dumps({k: rep[k] for k in ('requests', 'done', 'dropped', 'degraded', 'rejected', 'windows', 'batches')})}")
+
+    # gate 3: every drained shadow recall is its row's exact recall
+    want = shadow_expected(offers, row_of, truth, engine.shadow.rate)
+    got = [d["recall"] for d in drained]
+    if got != want:
+        failures.append(f"shadow recalls: {len(got)} drained, {len(want)} "
+                        "expected, or a value differs")
+    host_bytes = graph.memory_breakdown()["host_shadow_bytes"]
+    if host_bytes <= 0:
+        failures.append("host_shadow_bytes is 0")
+    shadow_s = stage_totals(registry).get("shadow", (0, 0.0))
+    log(f"  shadow lane: {engine.shadow.sampled} sampled, {len(got)} "
+        f"recalls drained, each its row's exact recall (mean "
+        f"{np.mean(got):.4f}); drains {shadow_s[0]} x, {shadow_s[1]:.3f} s; "
+        f"host_shadow_bytes {host_bytes}")
+
+    # gate 4: health, then a forced recall-SLO breach on a green corpus
+    verdicts = engine.health_verdicts()
+    if verdicts.get("recall_slo") != "green":
+        failures.append(f"health_verdicts {verdicts} with rag's SLO only")
+
+    def recall_state(tenant):
+        rec = engine.tenants.report()["tenants"][tenant]
+        return {key: rec[key] for key in ("recall_p50", "recall_n")}
+
+    log(f"  before arming: batch {recall_state('batch')}, rag "
+        f"{recall_state('rag')}")
+    engine.set_quota("batch", qps=1e9, recall_slo=ENGINE_FORCED_SLO)
+    events = len(policy.events)
+    breach = [r for r in reqs if r[0] == "batch" and not r[3]]
+    t0 = time.perf_counter()
+    drive_engine(engine, queries, breach, ENGINE_EVERY)
+    torch.cuda.synchronize()
+    breach_s = time.perf_counter() - t0
+    fired = [e for e in list(policy.events)[events:]]
+    actions = [(e["action"], e.get("ef")) for e in fired]
+    log(f"  health_verdicts {verdicts}; batch's SLO {ENGINE_FORCED_SLO} "
+        f"armed, "
+        f"{len(breach)} batch requests ({breach_s:.3f} s, the re-probe "
+        f"{sum(reprobe_s):.3f} s): remediation {actions}, "
+        f"default_ef {engine.default_ef}")
+    if actions != [("reprobe", None), ("escalate_ef", "64->128")] \
+            or engine.default_ef != 128:
+        failures.append(f"the breach fired {actions}, default_ef "
+                        f"{engine.default_ef}; expected reprobe, "
+                        "escalate_ef 64->128")
+    policy.resolve()
+
+    # the baseline: 64 rag singletons through index.search, one at a time
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for row in range(64):
+        graph.search(queries[row], k=10, ef=64)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    log(f"  baseline: 64 singletons through index.search one at a time "
+        f"{single_s:.3f} s, {64 / single_s:.1f} queries/s")
+
+    # gate 6: the swap onto phase 5's IVF index, default nav and ivf
+    t0 = time.perf_counter()
+    engine.swap_index(ivf_index, warmup=True)
+    engine.warmup(buckets=ENGINE_BUCKETS, configs=({}, {"nav": "ivf"}))
+    torch.cuda.synchronize()
+    swap_s = time.perf_counter() - t0
+    swap = [("rag", row, 1, {}) for row in range(256)] \
+        + [("rag", row, 1, {"nav": "ivf"}) for row in range(256)]
+    t0 = time.perf_counter()
+    with trace.assert_no_retrace(ivf_index.plans.trace_prefix(),
+                                 "after the swap") as snap:
+        tickets = drive_engine(engine, queries, swap, ENGINE_EVERY)
+    torch.cuda.synchronize()
+    served_s = time.perf_counter() - t0
+    for nav, part in ((None, tickets[:256]), ("ivf", tickets[256:])):
+        want_ids, want_sc = ivf_index.search(queries[:256], k=10, ef=64,
+                                             nav=nav)
+        got_ids = np.concatenate([engine.poll(t)[0] for t in part])
+        got_sc = np.concatenate([engine.poll(t)[1] for t in part])
+        ids_match(got_ids, want_ids, got_sc, want_sc)
+    log(f"  swap onto phase 5's index with warmup {swap_s:.3f} s; 2 x 256 "
+        f"singletons (default nav, nav=ivf) {served_s:.3f} s, ids equal to "
+        f"its direct search, {snap.delta()} retraces")
+
+    # gate 7: the X-ray of phase 4's graph against the host
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xray = graph.graph_report(sample=256, agreement_k=8)
+    torch.cuda.synchronize()
+    xray_s = time.perf_counter() - t0
+    log(f"  graph_report (S=256, k=8) {xray_s:.3f} s: {xray.summary()}; "
+        f"verdict {xray.verdict}, score {xray.health_score:.4f} (printed, "
+        "not gated)")
+    host_graph_check(graph, xray)
+
+    torch.cuda.synchronize()
+    launches = dict(kbuild.LAUNCHES)
+    log(f"  launches on the engine path: {launches}")
+    log(f"  phase {time.perf_counter() - t_phase:.1f} s")
+    for name in ("binarize", "bq_dist_rows", "list_scan"):
+        if launches.get(name, 0) == 0:
+            failures.append(f"{name} never launched on the engine path")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"launches": launches}
+
+
 def phase_rag(torch, kernels: dict) -> dict:
     """LM serving with RAG at full width and depth; returns its launch
     counts.  ``kernels`` holds phase 2's records, whose device times give
@@ -1946,8 +2494,8 @@ def phase_rag(torch, kernels: dict) -> dict:
     from repro_torch.models.model import build_model
     from repro_torch.models.transformer import matrix_param_count
     from repro_torch.probe import probe_corpus, select_policy
-    from repro_torch.serve.engine import Retriever, ServeEngine, \
-        mean_pool_embedder
+    from repro_torch.serve.engine import QueryEngine, Retriever, \
+        ServeEngine, mean_pool_embedder
 
     n_docs, n_held, doc_len, batch = 8192, 256, 64, 64
     n_prompts, prompt_len, max_new, max_seq, k = 8, 64, 32, 384, 4
@@ -2084,6 +2632,17 @@ def phase_rag(torch, kernels: dict) -> dict:
         raise AssertionError("a context row is not its document's tokens")
     log(f"  retrieval: {hits.size} ids in range, every context row its "
         f"document's tokens; first prompt's ids {hits[0].tolist()}")
+    # the same retrieval through the serving engine's admission queue
+    routed = Retriever(index=index, doc_tokens=docs[:n_docs],
+                       embed_fn=embed_fn, k=k, ef=64,
+                       engine=QueryEngine(index, obs=False))
+    if not np.array_equal(routed.augment(prompts),
+                          retriever.augment(prompts)):
+        raise AssertionError("Retriever(engine=...) retrieved other "
+                             "documents than the direct Retriever")
+    log(f"  Retriever(engine=QueryEngine(index, obs=False)): the "
+        f"{n_prompts} prompts' retrieved documents equal the direct "
+        "Retriever's")
 
     # filtered retrieval: two labels on the indexed documents, and the
     # prompts served documents of label 1 only
@@ -2318,6 +2877,10 @@ def main(argv=None) -> int:
         log("phase stream: the streaming index, cohere-surrogate "
             f"N=100000, {STREAM_CYCLES} cycles of {STREAM_CHURN:.0%} churn")
         paths.append(phase_stream(torch, main_path))
+    if "engine" in phases:
+        log("phase engine: the serving engine (QueryEngine) and obs/, "
+            "cohere-surrogate N=100000, 1000 queries, three tenants")
+        paths.append(phase_engine(torch, main_path, ivf_path))
     if "rag" in phases:
         log("phase 7: LM serving with RAG, minicpm-2b at full width and "
             "depth")

@@ -10,12 +10,12 @@ archive written by either package loads in the other.
 
 An IVF partition travels as the reference's ``ivf_*`` fields, a nav
 policy as its ``policy_*`` fields, a probe report as its ``probe_*``
-fields and a label store as its ``label_*`` fields (words as uint32);
-``metric_kind`` is any registered kind.  A streaming index travels as the
-reference's ``stream_format`` archive (:func:`mutable_to_numpy` /
-:func:`mutable_from_numpy`), which :func:`index_from_numpy` refuses as
-the reference's ``QuIVerIndex.load`` does.  Graph-health fields, whose
-part is not ported yet, are refused with an error rather than dropped.
+fields, a label store as its ``label_*`` fields (words as uint32) and a
+graph X-ray as its ``graph_*`` fields; ``metric_kind`` is any registered
+kind.  A streaming index travels as the reference's ``stream_format``
+archive (:func:`mutable_to_numpy` / :func:`mutable_from_numpy`), which
+:func:`index_from_numpy` refuses as the reference's ``QuIVerIndex.load``
+does.
 """
 
 from __future__ import annotations
@@ -33,12 +33,11 @@ from repro_torch.device import resolve_device
 from repro_torch.filter import LabelStore
 from repro_torch.ivf import IVFPartition
 from repro_torch.models.transformer import DecoderLM
+from repro_torch.obs.graph import GraphHealthReport
 from repro_torch.probe import CompatibilityReport, NavPolicy, ProbeAccumulator
 from repro_torch.stream.mutable import MutableQuIVerIndex
 
 _PARAM_PREFIX = "param_"
-# npz field prefixes of state this part of the port cannot honour
-_UNPORTED_PREFIXES = ("graph_",)
 
 
 def params_to_npz(params: BuildParams) -> dict:
@@ -69,7 +68,8 @@ def _host(t) -> np.ndarray:
 
 
 def _shared_fields(index) -> dict:
-    """Label, policy and probe-report fields of either kind of index."""
+    """Label, policy, probe-report and graph-health fields of either kind
+    of index."""
     extra = {}
     if index.labels is not None:
         extra.update(index.labels.to_npz_fields())
@@ -77,16 +77,9 @@ def _shared_fields(index) -> dict:
         extra.update(index.policy.to_npz_fields())
     if index.report is not None:
         extra.update(index.report.to_npz_fields())
+    if index.graph_health is not None:
+        extra.update(index.graph_health.to_npz_fields())
     return extra
-
-
-def _refuse_unported(fields: dict) -> None:
-    unported = sorted(k for k in fields if k.startswith(_UNPORTED_PREFIXES))
-    if unported:
-        raise NotImplementedError(
-            f"archive carries graph-health state, which the port cannot "
-            f"honour yet (ROADMAP modules item 12): {unported}"
-        )
 
 
 def _metric_kind(fields: dict) -> str:
@@ -134,7 +127,6 @@ def index_from_numpy(fields: dict, device=None) -> QuIVerIndex:
             "repro_torch.stream.MutableQuIVerIndex.load (freeze() it for "
             "an immutable QuIVerIndex)"
         )
-    _refuse_unported(fields)
     metric_kind = _metric_kind(fields)
     device = resolve_device(device)
     return QuIVerIndex(
@@ -151,6 +143,7 @@ def index_from_numpy(fields: dict, device=None) -> QuIVerIndex:
         policy=NavPolicy.from_npz(fields),
         report=CompatibilityReport.from_npz(fields),
         ivf=IVFPartition.from_npz(fields, device),
+        graph_health=GraphHealthReport.from_npz(fields),
     )
 
 
@@ -183,7 +176,6 @@ def mutable_from_numpy(fields: dict, device=None) -> MutableQuIVerIndex:
     derived state: it is recomputed from the live rows."""
     if "stream_format" not in fields:
         raise ValueError("not a streaming archive (no stream_format field)")
-    _refuse_unported(fields)
     device = resolve_device(device)
     dim = int(fields["dim"])
     vectors = fields["vectors"]
@@ -212,6 +204,7 @@ def mutable_from_numpy(fields: dict, device=None) -> MutableQuIVerIndex:
     out.size = int(fields["size"])
     out.medoid = int(fields["medoid"])
     out.generation = int(fields["generation"])
+    out.graph_health = GraphHealthReport.from_npz(fields)
     out.probe_acc = ProbeAccumulator.from_words(
         np.asarray(fields["words"])[out.live], dim)
     return out

@@ -86,6 +86,9 @@ class QuIVerIndex:
     # the coarse partition, present when built with ``ivf_candidates`` or
     # attached by ``build_ivf``; enables ``nav="ivf"``
     ivf: IVFPartition | None = None
+    # the last structural X-ray (``graph_report``,
+    # ``repro_torch.obs.graph``); persists through save/load
+    graph_health: "object | None" = None
     # one backend per nav kind, built on first use
     _backends: dict = dataclasses.field(
         default_factory=dict, repr=False, compare=False
@@ -346,6 +349,43 @@ class QuIVerIndex:
         )
         return self.plans.run(plan, ctx, queries)
 
+    # -- structural health (graph X-ray) ------------------------------------
+
+    def graph_report(
+        self,
+        *,
+        sample: int = 256,
+        agreement_k: int = 8,
+        max_hops: int = 64,
+        seed: int = 0,
+        thresholds=None,
+        registry=None,
+    ):
+        """Compute (and cache as ``graph_health``) the structural
+        :class:`~repro_torch.obs.graph.GraphHealthReport`: degree
+        structure, reciprocity, medoid reachability, and (when cold
+        vectors are present) the sampled BQ-float32 edge-agreement score,
+        on the index's device.  The cached report persists through
+        :meth:`save`/:meth:`load`."""
+        from repro_torch.obs.graph import (
+            DEFAULT_GRAPH_THRESHOLDS,
+            graph_health_report,
+        )
+        self.graph_health = graph_health_report(
+            self.adjacency,
+            medoid=self.medoid,
+            words=self.sigs.words if self.vectors is not None else None,
+            dim=self.sigs.dim,
+            vectors=self.vectors,
+            sample=sample,
+            agreement_k=agreement_k,
+            max_hops=max_hops,
+            seed=seed,
+            thresholds=thresholds or DEFAULT_GRAPH_THRESHOLDS,
+            registry=registry,
+        )
+        return self.graph_health
+
     # -- accounting (paper Table 2) -----------------------------------------
 
     def memory_breakdown(self) -> dict:
@@ -358,6 +398,10 @@ class QuIVerIndex:
         # the IVF tier rides the hot path: every ivf search gathers from it
         ivf_bytes = self.ivf.memory_bytes() if self.ivf is not None else 0
         cold = self.vectors.numel() * 4 if self.vectors is not None else 0
+        # shadow-sampler host state (pending ground-truth copies and the
+        # recall window), attached by repro_torch.obs.quality.ShadowSampler
+        shadow = getattr(self, "shadow", None)
+        shadow_bytes = shadow.memory_bytes() if shadow is not None else 0
         hot = sig_bytes + adj_bytes + label_bytes + ivf_bytes
         out = {
             "hot_signature_bytes": int(sig_bytes),
@@ -366,8 +410,8 @@ class QuIVerIndex:
             "hot_ivf_bytes": int(ivf_bytes),
             "hot_total_bytes": int(hot),
             "cold_vector_bytes": int(cold),
-            "host_shadow_bytes": 0,
-            "total_bytes": int(hot + cold),
+            "host_shadow_bytes": int(shadow_bytes),
+            "total_bytes": int(hot + cold + shadow_bytes),
         }
         if self.policy is not None:
             # the serving policy beside the bytes it costs: a red-zone
@@ -375,6 +419,11 @@ class QuIVerIndex:
             out["nav_policy"] = self.policy.describe()
             out["probe_verdict"] = (
                 self.report.verdict if self.report is not None else "n/a"
+            )
+        if self.graph_health is not None:
+            out["graph_verdict"] = self.graph_health.verdict
+            out["graph_health_score"] = round(
+                self.graph_health.health_score, 4
             )
         return out
 

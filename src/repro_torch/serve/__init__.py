@@ -1,2 +1,2 @@
-"""LM serving with QuIVer retrieval: the port's counterpart of the LM half
-of ``repro/serve``."""
+"""Retrieval serving (``QueryEngine``) and LM serving with QuIVer
+retrieval: the port's counterpart of ``repro/serve``."""

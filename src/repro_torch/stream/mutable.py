@@ -77,10 +77,6 @@ from repro_torch.stream.consolidate import (
     repair_rows,
 )
 
-_GRAPH_HEALTH = ("the graph X-ray is not ported yet (ROADMAP modules "
-                 "item 12)")
-
-
 @dataclasses.dataclass
 class StreamStats:
     """Cumulative mutation accounting (since construction or load)."""
@@ -158,6 +154,10 @@ class MutableQuIVerIndex:
         # optional probe-drift monitor: re-scores the accumulator against
         # the calibrated bands after every mutation
         self.drift_monitor = None
+        # structural X-ray: the last GraphHealthReport plus the optional
+        # band-crossing monitor that consolidate() re-checks every cycle
+        self.graph_health = None
+        self.graph_monitor = None
 
     # -- constructors ------------------------------------------------------
 
@@ -191,6 +191,7 @@ class MutableQuIVerIndex:
         out.allocated[:n] = True
         out.size = n
         out.medoid = int(index.medoid)
+        out.graph_health = index.graph_health
         if index.labels is not None:
             out.labels = index.labels.padded_to(capacity)
         return out
@@ -326,13 +327,63 @@ class MutableQuIVerIndex:
         monitor.check()                     # establish the current band
         return monitor
 
-    def graph_report(self, **kw):
-        """The structural X-ray of the live graph: not ported yet."""
-        raise NotImplementedError(_GRAPH_HEALTH)
+    # -- structural health (graph X-ray) ------------------------------------
 
-    def attach_graph_monitor(self, monitor=None, **kw):
-        """Graph-health banding on every consolidation: not ported yet."""
-        raise NotImplementedError(_GRAPH_HEALTH)
+    def graph_report(
+        self,
+        *,
+        sample: int = 256,
+        agreement_k: int = 8,
+        max_hops: int = 64,
+        seed: int = 0,
+        thresholds=None,
+        registry=None,
+    ):
+        """Compute (and cache as ``graph_health``) the structural
+        :class:`~repro_torch.obs.graph.GraphHealthReport` over the live
+        set: tombstoned rows route in the BFS but never count as
+        unreachable, and tombstone density itself is one of the banded
+        statistics."""
+        if self.n_live == 0:
+            raise ValueError("cannot X-ray an empty index")
+        from repro_torch.obs.graph import (
+            DEFAULT_GRAPH_THRESHOLDS,
+            graph_health_report,
+        )
+        self.graph_health = graph_health_report(
+            self.adjacency,
+            medoid=max(self.medoid, 0),
+            words=self.words if self.vectors is not None else None,
+            dim=self.dim,
+            vectors=self.vectors,
+            live=self.live,
+            allocated=self.allocated,
+            sample=sample,
+            agreement_k=agreement_k,
+            max_hops=max_hops,
+            seed=seed,
+            thresholds=thresholds or DEFAULT_GRAPH_THRESHOLDS,
+            registry=registry,
+        )
+        return self.graph_health
+
+    def attach_graph_monitor(self, monitor=None, *, tenant="default",
+                             registry=None, **monitor_kw):
+        """Arm graph-health banding: every :meth:`consolidate` cycle
+        re-X-rays the live graph and band *worsenings* raise
+        :class:`~repro_torch.obs.graph.GraphHealthAlarm` events (what
+        ``RemediationPolicy.attach_graph`` subscribes to).  The first
+        check runs now, so arming an already degraded graph alarms
+        immediately.  Returns the monitor."""
+        if monitor is None:
+            from repro_torch.obs.graph import GraphHealthMonitor
+            monitor = GraphHealthMonitor(
+                tenant=tenant, registry=registry, **monitor_kw,
+            )
+        self.graph_monitor = monitor
+        if self.n_live:
+            monitor.check(self.graph_report(registry=registry))
+        return monitor
 
     def replan(
         self,
@@ -415,6 +466,8 @@ class MutableQuIVerIndex:
             self.labels.memory_bytes() if self.labels is not None else 0
         )
         cold = self.vectors.numel() * 4 if self.vectors is not None else 0
+        shadow = getattr(self, "shadow", None)
+        shadow_bytes = shadow.memory_bytes() if shadow is not None else 0
         hot = sig_bytes + adj_bytes + mask_bytes + label_bytes
         out = {
             "hot_signature_bytes": int(sig_bytes),
@@ -423,13 +476,18 @@ class MutableQuIVerIndex:
             "hot_label_bytes": int(label_bytes),
             "hot_total_bytes": int(hot),
             "cold_vector_bytes": int(cold),
-            "host_shadow_bytes": 0,
-            "total_bytes": int(hot + cold),
+            "host_shadow_bytes": int(shadow_bytes),
+            "total_bytes": int(hot + cold + shadow_bytes),
         }
         if self.policy is not None:
             out["nav_policy"] = self.policy.describe()
             out["probe_verdict"] = (
                 self.report.verdict if self.report is not None else "n/a"
+            )
+        if self.graph_health is not None:
+            out["graph_verdict"] = self.graph_health.verdict
+            out["graph_health_score"] = round(
+                self.graph_health.health_score, 4
             )
         return out
 
@@ -624,6 +682,17 @@ class MutableQuIVerIndex:
         self.stats.slots_reclaimed += report["reclaimed"]
         self.generation += 1
         self._note_mutation("consolidate", 1)
+        # per-cycle health delta: re-X-ray the repaired graph so the
+        # monitor's delta gauge tracks what each consolidation bought and
+        # band worsenings reach the remediation ladder
+        if self.graph_monitor is not None and self.n_live:
+            prev = self.graph_monitor.last_score
+            rep = self.graph_report()
+            self.graph_monitor.check(rep)
+            report["health_score"] = rep.health_score
+            report["health_band"] = rep.verdict
+            if prev is not None:
+                report["health_delta"] = rep.health_score - prev
         return report
 
     def _live_medoid(self) -> int:
@@ -795,6 +864,7 @@ class MutableQuIVerIndex:
             policy=self.policy,
             report=self.report,
             ivf=ivf,
+            graph_health=self.graph_health,
         )
 
     # -- persistence -------------------------------------------------------

@@ -694,3 +694,102 @@ def test_card_minicpm_two_layers_matches_cpu(cuda):
     e_cpu = mean_pool_embedder(bundle, cpu)(prompts)
     e_gpu = mean_pool_embedder(bundle, gpu)(prompts).cpu()
     assert torch.nn.functional.cosine_similarity(e_cpu, e_gpu).min() >= 0.999
+
+
+# -- the serving engine and the graph X-ray, card against CPU ----------------
+
+
+class _StepClock:
+    """A scripted clock: each read returns the time, then adds ``step``."""
+
+    def __init__(self, step):
+        self.t, self.step = 0.0, step
+
+    def __call__(self):
+        now = self.t
+        self.t += self.step
+        return now
+
+
+def _serve(index, queries):
+    """One request script (three tenants, a quota, deadlines that degrade
+    and drop under the scripted clock) through a ``QueryEngine``; returns
+    every ticket's fields and results."""
+    from repro_torch.obs import MetricsRegistry, ObsHub
+    from repro_torch.serve.engine import QueryEngine
+
+    clock = _StepClock(0.002)
+    eng = QueryEngine(index, default_k=10, default_ef=32, clock=clock,
+                      obs=ObsHub(MetricsRegistry()), shadow={"rate": 4})
+    eng.set_quota("capped", qps=20.0, burst=3)
+    ts = []
+    for w in range(4):
+        for i in range(6):
+            row = 6 * w + i
+            if i % 3 == 0:
+                ts.append(eng.submit(queries[row], tenant="rag"))
+            elif i % 3 == 1:
+                ts.append(eng.submit(queries[row:row + 3], tenant="batch",
+                                     deadline_ms=11 if w % 2 else None))
+            else:
+                ts.append(eng.submit(queries[row], tenant="capped"))
+        if w == 3:
+            clock.t += 0.5
+        eng.pump()
+    out = []
+    for t in ts:
+        tk = eng.ticket(t)
+        ids, scores = eng.poll(t)
+        out.append((tk.status, tk.degraded, tk.latency,
+                    tk.plan.signature() if tk.plan else None, ids, scores))
+    return out, eng.shadow.report()["drained"], list(
+        eng.shadow.recalls.array())
+
+
+def test_card_engine_equals_cpu(cuda):
+    from repro_torch import convert
+
+    base, queries = make_dataset("cohere-surrogate", 1500, queries=40)
+    params = BuildParams(m=6, ef_construction=32, prune_pool=32, chunk=128)
+    cpu = QuIVerIndex.build(base, params, device="cpu")
+    gpu = convert.index_from_numpy(convert.index_to_numpy(cpu), cuda)
+    build.reset_launches()
+    got, g_drained, g_recalls = _serve(gpu, queries)
+    assert build.LAUNCHES["binarize"] > 0
+    assert build.LAUNCHES["bq_dist_rows"] > 0
+    want, c_drained, c_recalls = _serve(cpu, queries)
+    statuses = set()
+    for g, c in zip(got, want):
+        assert g[:4] == c[:4]
+        np.testing.assert_array_equal(g[4], c[4])
+        np.testing.assert_allclose(g[5], c[5], rtol=0, atol=1e-6)
+        statuses.add(g[0])
+    assert statuses == {"done", "rejected", "dropped"}
+    assert g_drained == c_drained > 0 and g_recalls == c_recalls
+
+
+@pytest.mark.parametrize("mutated", [False, True])
+def test_card_graph_report_equals_cpu(cuda, mutated):
+    from repro_torch import convert
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.stream import MutableQuIVerIndex
+
+    base, _ = make_dataset("cohere-surrogate", 1500, queries=4)
+    params = BuildParams(m=8, ef_construction=48, prune_pool=48, chunk=128)
+    cpu = QuIVerIndex.build(base, params, device="cpu")
+    gpu = convert.index_from_numpy(convert.index_to_numpy(cpu), cuda)
+    if mutated:
+        dead = np.random.default_rng(4).choice(1500, 200, replace=False)
+        cpu, gpu = (MutableQuIVerIndex.from_index(i) for i in (cpu, gpu))
+        for m in (cpu, gpu):
+            m.delete(dead)
+    build.reset_launches()
+    g = gpu.graph_report(sample=64, registry=MetricsRegistry())
+    # one bq_dist_rows launch: the agreement probe's (S, R) gather
+    assert build.LAUNCHES["bq_dist_rows"] == 1
+    c = cpu.graph_report(sample=64, registry=MetricsRegistry())
+    gd, cd = g.to_dict(), c.to_dict()
+    tol = 2 / (c.n_sampled * c.agreement_k)
+    assert abs(gd.pop("edge_agreement") - cd.pop("edge_agreement")) <= tol
+    gd.pop("health_score"), cd.pop("health_score")
+    assert gd == cd and g.n_sampled == 64

@@ -56,6 +56,10 @@ def test_every_module_imports_without_jax_or_repro():
     assert {"repro_torch.stream", "repro_torch.stream.mutable",
             "repro_torch.stream.consolidate", "repro_torch.obs.drift",
             "repro_torch.data.dedup"} <= set(mods)
+    assert {"repro_torch.obs", "repro_torch.obs.tracing",
+            "repro_torch.obs.tenant", "repro_torch.obs.sinks",
+            "repro_torch.obs.hub", "repro_torch.obs.quality",
+            "repro_torch.obs.graph", "repro_torch.obs.remediate"} <= set(mods)
     _run_fresh(
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"

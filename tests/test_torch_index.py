@@ -127,13 +127,24 @@ def test_convert_round_trips_the_archive(ref):
     {"stream_format": np.int64(1)},
 ], ids=lambda e: next(iter(e)))
 def test_unported_archive_state_is_refused(ref, extra, tmp_path):
-    # graph-health state is not ported yet; a streaming archive is refused
+    # graph-health state, once refused, now cross-loads both ways (the
+    # reference's own X-ray of its index); a streaming archive is refused
     # with the reference's ValueError, as its QuIVerIndex.load refuses it
-    fields = {**ref["fields"], **extra}
     if "stream_format" not in extra:
-        with pytest.raises(NotImplementedError, match="item 12"):
-            convert.index_from_numpy(fields, "cpu")
+        jindex = dataclasses.replace(ref["index"], _backends={},
+                                     _plan_cache=None)
+        report = jindex.graph_report(sample=64)
+        fields = {**ref["fields"], **report.to_npz_fields()}
+        assert "graph_out_degree_mean" in fields
+        port = convert.index_from_numpy(fields, "cpu")
+        assert port.graph_health.to_dict() == report.to_dict()
+        assert convert.index_to_numpy(port).keys() == fields.keys()
+        port.save(str(tmp_path / "port.npz"))
+        back = JaxIndex.load(str(tmp_path / "port.npz"))
+        assert back.graph_health.to_dict() == report.to_dict()
+        assert port.memory_breakdown()["graph_verdict"] == report.verdict
         return
+    fields = {**ref["fields"], **extra}
     path = str(tmp_path / "stream.npz")
     np.savez(path, **fields)
     for load in (lambda: convert.index_from_numpy(fields, "cpu"),

@@ -152,12 +152,25 @@ def test_sampling_is_seeded(lm):
 
 
 def test_unported_options_raise(lm, rag):
-    kw = dict(index=rag["index"], doc_tokens=rag["corpus"],
-              embed_fn=lambda t: t)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        engine.Retriever(engine=object(), **kw)
-    ret = engine.Retriever(**kw)
-    # growing the corpus needs a mutable index, as in the reference
+    """``Retriever(engine=...)``, once refused, routes through the
+    port's ``QueryEngine``: the prompts of the reference's engine-routed
+    retriever, and of the direct one; growing the corpus still needs a
+    mutable index, as in the reference."""
+    def embed_fn(tokens):
+        return np.asarray(rag["jembed"](jnp.asarray(np.asarray(tokens))))
+
+    prompts = _prompts(lm["cfg"], b=6, s=10, seed=8)
+    kw = dict(doc_tokens=rag["corpus"], embed_fn=embed_fn, k=3, ef=16)
+    jeng = jengine.QueryEngine(rag["jindex"], obs=False)
+    peng = engine.QueryEngine(rag["index"], obs=False)
+    want = jengine.Retriever(index=rag["jindex"], engine=jeng,
+                             **kw).augment(prompts)
+    ret = engine.Retriever(index=rag["index"], engine=peng, **kw)
+    got = ret.augment(prompts)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    np.testing.assert_array_equal(
+        got, engine.Retriever(index=rag["index"], **kw).augment(prompts))
+    assert peng.stats.requests == 1 and peng.stats.done == 1
     with pytest.raises(TypeError, match="mutable index"):
         ret.add_documents(rag["corpus"][:2])
 

@@ -451,14 +451,38 @@ def test_archives_cross_load_both_ways(tmp_path):
 
 
 def test_graph_health_state_is_refused(tmp_path):
-    _, pm = _pair("bq2")
-    fields = {**convert.mutable_to_numpy(pm),
-              "graph_out_degree_mean": np.float64(4.0)}
-    with pytest.raises(NotImplementedError, match="item 12"):
-        convert.mutable_from_numpy(fields, "cpu")
-    for call in (pm.graph_report, pm.attach_graph_monitor):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            call()
+    """Graph-health state, once refused, is ported: the live graph's
+    X-ray equals the reference's (edge agreement within 2 / (S k)), the
+    monitor armed by ``attach_graph_monitor`` takes the same band, and
+    the ``graph_*`` fields of a streaming archive load in both
+    packages."""
+    jm, pm = _pair("bq2")
+    dead = np.random.default_rng(2).choice(1200, 150, replace=False)
+    for m in (jm, pm):
+        m.delete(dead)
+    # the build's rows carry ~12 edges: k = 4 arms the agreement probe
+    want = jm.graph_report(sample=64, agreement_k=4)
+    got = pm.graph_report(sample=64, agreement_k=4,
+                          registry=MetricsRegistry())
+    for name in ("n_live", "n_allocated", "n_unreachable", "hop_max",
+                 "out_degree_hist", "in_degree_hist", "reciprocity",
+                 "tombstone_density", "n_sampled"):
+        assert getattr(got, name) == getattr(want, name), name
+    assert got.n_sampled == 64
+    assert abs(got.edge_agreement - want.edge_agreement) <= 2 / (64 * 4)
+    assert got.verdict == want.verdict
+    assert pm.attach_graph_monitor(registry=MetricsRegistry()).band == \
+        jm.attach_graph_monitor().band
+    fields = convert.mutable_to_numpy(pm)
+    assert "graph_out_degree_mean" in fields
+    back = convert.mutable_from_numpy(fields, "cpu")
+    # (assert_equal: the monitor's k = 8 report has a NaN agreement)
+    np.testing.assert_equal(back.graph_health.to_dict(),
+                            pm.graph_health.to_dict())
+    pm.save(str(tmp_path / "port.npz"))
+    np.testing.assert_equal(
+        JaxMutable.load(str(tmp_path / "port.npz")).graph_health.to_dict(),
+        pm.graph_health.to_dict())
 
 
 # -- the reference's streaming cases ---------------------------------------------
