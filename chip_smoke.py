@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases build,kernels,filter
     python3 chip_smoke.py --phases build,kernels,stream
     python3 chip_smoke.py --phases build,kernels,engine
+    python3 chip_smoke.py --phases build,kernels,fleet
     python3 chip_smoke.py --phases build,kernels,rag
     python3 chip_smoke.py --phases build,profile      # opt-in breakdown
 
@@ -48,7 +49,10 @@ Phases, in order; any failure raises and the script exits nonzero:
               ``time_ms``); logged beside them, not in the kernels line:
               ``bq_dist_rows`` at K = 5 256 (the streaming repair's
               candidate row, 72 + 72 x 72), 34 080 and 50 880 (the IVF
-              build chunk and search batch), ``bq_pairwise`` at C = 72,
+              build chunk and search batch, and the fleet's scatter step
+              at the default probes), 151 680 at B = 32 (the scatter step
+              at every probe, its library levels gathered when it is
+              timed), ``bq_pairwise`` at C = 72,
               ``list_scan`` at Q = 8192, ``hamming_pairwise`` at C = 72 and
               ``hamming_dist_rows`` at K = 34 080 (its library bmm over
               26.8 GB of float32 levels, gathered when it is timed).
@@ -74,8 +78,17 @@ Phases, in order; any failure raises and the script exits nonzero:
               under the same scripted clock: identical tickets (status,
               degrade rungs, latency, plan signature, ids; scores within
               1e-6), identical sampled rows and drained recalls, each the
-              row's exact recall; and ``minicpm-2b`` at
-              full width and 2 layers,
+              row's exact recall; the fleet (``parity_fleet``: N = 2 003
+              of cohere-surrogate over 4 shards, one pad row, 2 labels):
+              ``build_sharded``'s stacked fields but the cold vectors
+              identical, the fan-out unfiltered and with label 0,
+              ``build_ivf_sharded``'s placement and its targeted and
+              broadcast scatter, and a ``StreamingShardedIndex`` script
+              (3 shards: insert 1 200, delete 150 with a medoid,
+              consolidate, insert 100, fan-out, ``enable_ivf_routing``,
+              scatter) with every shard's state identical; the searches'
+              ids identical where their scores, within 1e-6, separate
+              them; and ``minicpm-2b`` at full width and 2 layers,
               drawn on the CPU and copied to the card: 2 prompts of 48
               tokens, prefill and 8 greedy decode steps (the card fed the
               CPU's tokens), every logit within 0.1 and equal argmax
@@ -97,8 +110,8 @@ Phases, in order; any failure raises and the script exits nonzero:
               all four kernels must have launched.
 6. ladder   — the metric ladder at the same size (1 000 queries, k = 10,
               ef = 64): a bq1 build (``BuildParams()``) over the first
-              ``LADDER_BQ1_N`` = 50 000 rows (the script's one cut of
-              depth, the same on every host) searched with ``nav="bq1"``
+              ``LADDER_BQ1_N`` = 25 000 rows (a cut of depth, the same
+              on every host) searched with ``nav="bq1"``
               against their exact truth (recall gate 0.50); phase 4's bq2
               graph (built
               again when phase 4 did not run) searched with ``nav`` in
@@ -199,6 +212,38 @@ engine      — the serving engine on phase 4's graph (built here when
               ``index.search`` one at a time, the re-probe's and the
               X-ray's seconds.  Launch counts as in 4: binarize,
               ``bq_dist_rows`` and ``list_scan`` must have launched.
+fleet       — the sharded fleet on phase 4's corpus (made here when phase
+              4 did not run), k = 10: ``build_sharded`` over the first
+              ``FLEET_N`` = 25 003 rows in 4 shards (6 251 rows a shard,
+              one pad row in shard 3; a cut of depth, the same on every
+              host), ``BuildParams()``, 4 labels drawn from seed 0 at
+              ``FLEET_RATES`` (0.5, 0.1, 0.02, 0.005), per-label entries
+              (``min_count=32``); each shard's build seconds and hot
+              bytes printed.  Gates: 25 003 live rows; rows 25 000-25 002
+              found as themselves at k = 1; no id >= 25 003 and none
+              repeated in a row; recall@10 at ef = 64 against exact cosine
+              over the 25 003 >= 0.80; label 1 and ``Any(2, 3)``: every id
+              matches its predicate, recall against the filtered truth >=
+              the unfiltered fleet's - 0.05.  Then ``build_ivf_sharded``
+              over all 100 000 rows in 4 shards: sizes sum to 100 000,
+              every list on one shard; at the default probes and ef = 64
+              the targeted ids equal ``broadcast=True``'s (scores within
+              1e-6), no query contacts more than min(p, 4) shards,
+              ``quiver_ivf_list_routes_total`` sums to Q p; at every probe
+              and ef = 256 recall@10 >= 0.9.  Then the 4 graph shards
+              adopted as ``MutableQuIVerIndex``es (2x headroom, the pad row
+              tombstoned) in a ``StreamingShardedIndex`` with drift
+              monitors: zero churn gives step 1's ids slot for slot; delete
+              5% (1 250, seed 0), search, consolidate (by shard), search,
+              re-insert the same vectors.  Gates: no deleted id returned;
+              1 250 + 1 slots reclaimed; new gids unique; recall after
+              consolidate >= before - 0.02; the re-inserted rows found at
+              k = 1 at ef = ``ef_construction`` in > 0.9 of cases; the
+              scatter after ``enable_ivf_routing`` at every probe >= the
+              fan-out's recall - 0.01; after one more delete no deleted id
+              through the scatter; no drift alarm.  Launch counts as in 4:
+              binarize, ``bq_dist_rows``, ``bq_pairwise`` and
+              ``list_scan`` must have launched.
 7. rag      — LM serving with RAG: ``minicpm-2b`` at full width and depth
               (40 layers, d 2304, 36 heads, vocab 122 880, bf16, weights
               drawn from seed 0) on the card; embed 8 192 + 256 seeded
@@ -229,7 +274,7 @@ kernels' share of it.
 
 The last three lines of standard output are the card's name and power
 limit (``nvidia-smi``), one JSON line of per-kernel numbers (``launches``
-sums phases 4, 5, 6, filter, stream, engine and 7), and
+sums phases 4, 5, 6, filter, stream, engine, fleet and 7), and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits nonzero and prints no result.
 """
@@ -247,7 +292,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "parity", "main", "ivf", "ladder", "filter",
-          "stream", "engine", "rag")
+          "stream", "engine", "fleet", "rag")
 OPT_IN = ("profile",)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the float32
@@ -459,6 +504,39 @@ def phase_kernels(torch) -> dict:
                     "log_only": c != 128,
                 }
 
+    # the fleet's IVF scatter step at every probe: one shard's rows against
+    # its 316 probed lists x cap 480 (its default-probe step, 106 x 480,
+    # is the K = 50 880 above); logged, not in the kernels line.  Its
+    # library levels (14.9 GB) are gathered when phase_times reaches it
+    dim, k, b = 768, 316 * 480, 32
+    table = random_table(torch, n_table, dim, seed=k)
+    mask = bq.valid_mask(dim, device="cuda")
+    w = mask.shape[0]
+    ids = torch.randint(0, n_table, (b, k), generator=g, device="cuda",
+                        dtype=torch.int32)
+    q = table[torch.randint(0, n_table, (b,), generator=g, device="cuda")]
+    got = kd.dist_rows(q, ids, table, mask)
+    want = kd.dist_rows_plain(q, ids, table, mask)
+    if not torch.equal(got, want):
+        raise AssertionError(f"bq_dist_rows differs at B={b} K={k}")
+    log(f"  bq_dist_rows B={b} K={k} D={dim}: exact")
+    nb = torch.unique(ids).numel() * 8 * w + ids.numel() * 4 \
+        + q.numel() * 4 + w * 4 + got.numel() * 4
+    b_ms, b_by = bound(nb, 2 * ids.numel() * dim, INT8_OPS_PER_S)
+    out[f"bq_dist_rows_k{k}"] = {
+        "name": "bq_dist_rows", "route": "cuda",
+        "source": "src/repro_torch/csrc/bq_distance.cu",
+        "replaces": "src/repro/kernels/bq_distance.py:25",
+        "max_abs_err": float((got - want).abs().max()),
+        "fns": (partial(kd.dist_rows, q, ids, table, mask),
+                partial(kd.dist_rows_plain, q, ids, table, mask),
+                partial(bq_library, torch, table, q, ids, mask, got)),
+        "library_gathered_late": True,
+        "bound_ms": b_ms, "bound_by": b_by,
+        "shape": [b, k, dim],
+        "log_only": True,
+    }
+
     # list_scan: one query, ragged Q and L, both tile shapes, and D from 64
     # to 3072 (L = 1000: 768 KB of centroids)
     for dim in (64, 100, 384, 768, 1536, 3072):
@@ -505,6 +583,17 @@ def phase_kernels(torch) -> dict:
     out.update(flash_kernels(torch))
     torch.cuda.synchronize()
     return out
+
+
+def bq_library(torch, table, q, ids, mask, got):
+    """``bq_dist_rows``' library call: one bmm of the gathered float32
+    levels, checked to give the kernel's similarities ``got``."""
+    from repro_torch.kernels import bq_distance as kd
+
+    lr = kd.masked_levels(table, mask)[ids.long()]
+    lq = kd.masked_levels(q, mask)[:, :, None]
+    check_library("bq_dist_rows", torch.bmm(lr, lq)[..., 0], got)
+    return partial(torch.bmm, lr, lq)
 
 
 def sign_levels(torch, words, dim: int):
@@ -925,6 +1014,7 @@ def phase_parity(torch) -> None:
     parity_filter(torch, cpu[0], gpu[0], queries)
     c_mut, g_mut = parity_stream(torch, cpu[0], gpu[0], queries)
     parity_graph(c_mut, g_mut, "stream script's mutated graph")
+    parity_fleet(torch)
     for name, want in (("sift-like", "float32"), ("cohere-surrogate", "bq2")):
         parity_auto(torch, name, want, params)
     parity_lm(torch)
@@ -1415,6 +1505,118 @@ def parity_ivf(torch, base, queries, params) -> None:
     log("  IVF: partition, adjacency, medoid and nav=ivf ids identical")
 
 
+def fleet_fields(fleet) -> dict:
+    """A fleet's stacked fields on the host (``convert.sharded_to_numpy``)
+    without the cold vectors, which each device normalizes in its own
+    float order."""
+    from repro_torch import convert
+
+    out = convert.sharded_to_numpy(fleet)
+    out.pop("vectors")
+    return out
+
+
+def same_fields(a: dict, b: dict, what: str) -> None:
+    import numpy as np
+
+    if a.keys() != b.keys():
+        raise AssertionError(f"{what}: fields {sorted(a)} vs {sorted(b)}")
+    for key in a:
+        if not np.array_equal(a[key], b[key]):
+            raise AssertionError(f"{what}: {key} differs")
+
+
+def parity_fleet(torch) -> None:
+    """The fleet on ``device="cpu"`` and on the card, at N = 2 003 of
+    cohere-surrogate over 4 shards (one pad row): ``build_sharded`` with 2
+    labels (every stacked field but the cold vectors identical), the
+    fan-out unfiltered and with label 0 (ids identical where the scores
+    separate them, scores within 1e-6), ``build_ivf_sharded`` (placement
+    identical) and its targeted and broadcast scatter (ids identical), and
+    one ``StreamingShardedIndex`` script (``empty(n_shards=3)``, insert
+    1 200 with the labels, delete 150 with shard 1's medoid, consolidate,
+    insert 100, fan-out, ``enable_ivf_routing``, scatter): every shard's
+    state and every id identical."""
+    import numpy as np
+
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.vamana import BuildParams
+    from repro_torch.data.datasets import make_dataset
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.stream import StreamingShardedIndex
+
+    n = 2003
+    base, queries = make_dataset("cohere-surrogate", n, queries=100)
+    # small graphs: the CPU side of these builds is phase 3's cost
+    params = BuildParams(m=6, ef_construction=32, prune_pool=32, chunk=128)
+    rng = np.random.default_rng(0)
+    labels = label_rows(np.stack([rng.random(n) < p for p in (0.5, 0.1)],
+                                 axis=1))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        fleet = dist.build_sharded(base, 4, params, labels=labels,
+                                   n_labels=2, label_entry_min=16,
+                                   device=dev)
+        # label 0 (half the rows) widens ef to 128; label 1's 640 would
+        # cover each 501-row shard whole, at a high cost on the CPU
+        searches = [dist.search_sharded(fleet, queries, k=10, ef=64, **kw)
+                    for kw in ({}, {"filter": 0})]
+        ivf = dist.build_ivf_sharded(base, 4, seed=0, device=dev)
+        scatter = [dist.search_ivf_sharded(ivf, queries, k=10, ef=64,
+                                           broadcast=b,
+                                           registry=MetricsRegistry())
+                   for b in (False, True)]
+        stream = StreamingShardedIndex.empty(
+            base.shape[1], n_shards=3, capacity_per_shard=600,
+            params=params, n_labels=2, device=dev)
+        gids = stream.insert(base[:1200], labels=labels[:1200])
+        dead = np.r_[stream.shards[1].medoid + 600, gids[:149]]
+        stream.delete(dead)
+        stream.consolidate()
+        reused = stream.insert(base[1200:1300], labels=labels[1200:1300])
+        fan = stream.search(queries, k=10, ef=64)
+        stream.enable_ivf_routing(seed=0)
+        scat = stream.search(queries, k=10, ef=64, scatter=True,
+                             registry=MetricsRegistry())
+        runs[dev] = (fleet, searches, ivf, scatter, stream, gids, reused,
+                     fan, scat)
+        log(f"  {dev}: fleet build + searches, IVF fleet, streaming fleet "
+            f"{time.perf_counter() - t0:.1f} s; shard medoids "
+            f"{fleet.medoids.tolist()}")
+    cpu, gpu = runs["cpu"], runs["cuda"]
+    same_fields(fleet_fields(cpu[0]), fleet_fields(gpu[0]),
+                "build_sharded, CPU against card")
+    tied = 0
+    pairs = list(zip(cpu[1], gpu[1])) + list(zip(cpu[3], gpu[3])) \
+        + [(cpu[7], gpu[7]), (cpu[8], gpu[8])]
+    for (c_ids, c_scores), (g_ids, g_scores) in pairs:
+        if not np.allclose(c_scores, g_scores, rtol=0, atol=1e-6):
+            raise AssertionError("fleet scores differ between CPU and card")
+        tied += ids_match(c_ids, g_ids, c_scores, g_scores)
+    for field in ("list_shard", "list_local"):
+        if not np.array_equal(getattr(cpu[2], field), getattr(gpu[2], field)):
+            raise AssertionError(f"IVF fleet {field} differs")
+    for c_sh, g_sh in zip(cpu[2].shards, gpu[2].shards):
+        if not (np.array_equal(c_sh.ids, g_sh.ids)
+                and torch.equal(c_sh.list_ids, g_sh.list_ids.cpu())
+                and torch.equal(c_sh.sig_words, g_sh.sig_words.cpu())):
+            raise AssertionError("IVF fleet placement differs")
+    for c_mut, g_mut in zip(cpu[4].shards, gpu[4].shards):
+        assert_same_stream_state(torch, stream_state(c_mut),
+                                 stream_state(g_mut),
+                                 "streaming fleet, CPU against card")
+    if not (np.array_equal(cpu[5], gpu[5]) and np.array_equal(cpu[6],
+                                                              gpu[6])):
+        raise AssertionError("streaming fleet gids differ")
+    same_fields(fleet_fields(cpu[4].snapshot()),
+                fleet_fields(gpu[4].snapshot()),
+                "streaming fleet snapshot, CPU against card")
+    log(f"  fleet: build_sharded fields, IVF placement and the streaming "
+        f"fleet's state identical; {len(pairs)} searches' ids identical up "
+        f"to {tied} rows of scores within 1e-6")
+
+
 def pool_sizes(launches: dict, prefix: str = "bq_pairwise") -> str:
     """``prefix`` launches by pool size C (the ``bq_pairwise`` and
     ``hamming_pairwise`` wrappers count each call under ``<prefix>_c<C>``):
@@ -1610,9 +1812,10 @@ def timed_search(index, queries, truth, label: str, **kw):
     return ids, recall
 
 
-# phase 6's bq1 build runs over the first 50 000 rows on every host: the
-# smoke's one fixed cut of depth (its searches and probes stay at 100 000)
-LADDER_BQ1_N = 50_000
+# phase 6's bq1 build runs over the first 25 000 rows on every host, a cut
+# of depth that pays for the fleet phase (its searches and probes stay at
+# 100 000)
+LADDER_BQ1_N = 25_000
 
 
 def phase_ladder(torch, main: dict | None) -> dict:
@@ -1934,6 +2137,19 @@ def phase_filter(torch, main: dict | None, ivf: dict | None) -> dict:
 STREAM_CHURN, STREAM_CYCLES = 0.05, 2
 
 
+def timed_call(torch, label: str, fn, count=None):
+    """``fn()`` and its seconds (synchronized), logged with ``count`` a
+    second where a count is given."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    rate = f", {count / secs:.1f} a second" if count else ""
+    log(f"  {label}: {secs:.3f} s{rate}")
+    return out, secs
+
+
 def live_truth(base, queries, slot_row, live, k: int = 10):
     """Exact cosine top-k over the live slots (``slot_row`` maps a slot to
     its row of ``base``), as slot ids."""
@@ -1977,18 +2193,7 @@ def phase_stream(torch, main: dict | None) -> dict:
     t_phase = time.perf_counter()
     failures = []
 
-    def timed(label, fn, count=None):
-        """``fn()`` and its seconds (synchronized), logged with ``count``
-        a second where a count is given."""
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        rate = f", {count / secs:.1f} a second" if count else ""
-        log(f"  {label}: {secs:.3f} s{rate}")
-        return out, secs
-
+    timed = partial(timed_call, torch)
     kbuild.reset_launches()
     mut = MutableQuIVerIndex.from_index(graph)
     monitor = mut.attach_drift_monitor(tenant="smoke",
@@ -2478,6 +2683,283 @@ def phase_engine(torch, main: dict | None, ivf: dict | None) -> dict:
     return {"launches": launches}
 
 
+# the fleet phase: 4 graph shards over a fixed cut of phase 4's corpus
+# (6 251 rows a shard, one pad row in shard 3, above DESIGN.md §3's 3 906
+# a chip), the IVF scatter at the full N, and 5% churn on the graph shards
+FLEET_N = 25_003
+FLEET_SHARDS = 4
+FLEET_RATES = (0.5, 0.1, 0.02, 0.005)
+FLEET_CHURN = 0.05
+
+
+def phase_fleet(torch, main: dict | None) -> dict:
+    """The sharded fleet on phase 4's corpus (made here when phase 4 did
+    not run): ``build_sharded`` over the first ``FLEET_N`` rows in
+    ``FLEET_SHARDS`` shards with 4 labels, the fan-out unfiltered and
+    filtered; ``build_ivf_sharded`` and its targeted scatter at the full
+    N; the graph shards adopted as a ``StreamingShardedIndex`` under 5%
+    churn and an IVF routing tier.  Returns the phase's launch counts."""
+    import numpy as np
+
+    from repro_torch.core import bq
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.baselines import flat_search, recall_at_k
+    from repro_torch.core.index import QuIVerIndex
+    from repro_torch.core.vamana import BuildParams
+    from repro_torch.data.datasets import make_dataset
+    from repro_torch.filter import Any
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.stream import MutableQuIVerIndex, StreamingShardedIndex
+
+    if main is not None:
+        base, queries, truth = main["data"]
+    else:
+        base, queries = make_dataset("cohere-surrogate", 100_000,
+                                     queries=1000)
+        truth, _ = flat_search(base, queries, 10, device="cuda")
+    n, nq, n_sh = FLEET_N, len(queries), FLEET_SHARDS
+    sub = base[:n]
+    sub_truth, _ = flat_search(sub, queries, 10, device="cuda")
+    t_phase = time.perf_counter()
+    failures = []
+    kbuild.reset_launches()
+
+    # 1. the graph fleet
+    rng = np.random.default_rng(0)
+    member = np.stack([rng.random(n) < p for p in FLEET_RATES], axis=1)
+    fleet, _ = timed_call(
+        torch, f"build_sharded N={n} over {n_sh} shards, 4 labels",
+        lambda: dist.build_sharded(sub, n_sh, BuildParams(),
+                                   labels=label_rows(member),
+                                   n_labels=len(FLEET_RATES),
+                                   label_entry_min=32, device="cuda"))
+    per = fleet.n_per_shard
+    for s, st in enumerate(fleet.build_stats):
+        hot = sum(t.numel() * 4 for t in (fleet.sig_words[s],
+                                          fleet.adjacency[s],
+                                          fleet.label_words[s]))
+        log(f"    shard {s}: build {st.seconds:.1f} s, {st.chunks} chunks, "
+            f"mean hops {st.mean_hops:.1f}, medoid {fleet.medoids[s]}, "
+            f"{hot} hot bytes")
+    n_live = sum(int(m.sum()) for m in fleet.live)
+    if n_live != n:
+        failures.append(f"fleet: {n_live} live rows, not {n}")
+    tail, _ = dist.search_sharded(fleet, sub[n - 3:], k=1, ef=64)
+    if tail.ravel().tolist() != list(range(n - 3, n)):
+        failures.append(f"fleet: the tail rows came back as "
+                        f"{tail.ravel().tolist()}")
+    (ids, _), secs = timed_call(
+        torch, f"fan-out search {nq} queries at k=10 ef=64",
+        lambda: dist.search_sharded(fleet, queries, k=10, ef=64), nq)
+    fleet_ids = ids
+    recall = recall_at_k(ids, sub_truth)
+    log(f"    recall@10 {recall:.4f} against exact cosine over {n} rows")
+    if ids.min() < 0 or ids.max() >= n:
+        failures.append("fleet: an id out of [0, N) (a pad row?)")
+    if any(len(set(row.tolist())) != len(row) for row in ids):
+        failures.append("fleet: a row repeats an id")
+    if recall < 0.80:
+        failures.append(f"fleet: recall@10 {recall:.4f} < 0.80")
+    for name, pred, mask in (("label 1", 1, member[:, 1]),
+                             ("Any(2, 3)", Any(2, 3),
+                              member[:, 2] | member[:, 3])):
+        (f_ids, _), _ = timed_call(
+            torch, f"fan-out search {nq} queries, filter {name} "
+            f"({mask.mean():.4f} of rows)",
+            lambda: dist.search_sharded(fleet, queries, k=10, ef=64,
+                                        filter=pred), nq)
+        ok = f_ids[f_ids >= 0]
+        if not mask[ok].all():
+            failures.append(f"fleet {name}: an id outside the predicate")
+        gt, _ = filtered_truth(sub, queries, mask)
+        r = recall_at_k(f_ids, gt)
+        log(f"    recall@10 against the filtered truth {r:.4f}")
+        if r < recall - 0.05:
+            failures.append(f"fleet {name}: recall {r:.4f} < {recall:.4f} "
+                            "- 0.05")
+
+    # 2. the IVF targeted scatter at the full N
+    ivf, _ = timed_call(torch, f"build_ivf_sharded N={len(base)} over "
+                        f"{n_sh} shards",
+                        lambda: dist.build_ivf_sharded(base, n_sh, seed=0,
+                                                       device="cuda"))
+    sizes = [sh.ids.size for sh in ivf.shards]
+    owned = np.sort(np.concatenate([sh.lists for sh in ivf.shards]))
+    p = ivf.default_probes
+    log(f"    {ivf.n_lists} lists, default probes {p}; shard sizes "
+        f"{sizes}, lists {[sh.lists.size for sh in ivf.shards]}, list caps "
+        f"{[sh.list_ids.shape[1] for sh in ivf.shards]}")
+    if sum(sizes) != len(base):
+        failures.append(f"ivf fleet: shard sizes sum to {sum(sizes)}")
+    if not np.array_equal(owned, np.arange(ivf.n_lists)):
+        failures.append("ivf fleet: a list is on no shard or on two")
+    runs = {}
+    for label, broadcast in (("targeted", False), ("broadcast", True)):
+        reg = MetricsRegistry()
+        (out, secs) = timed_call(
+            torch, f"{label} scatter {nq} queries at k=10 ef=64, {p} probes",
+            lambda: dist.search_ivf_sharded(ivf, queries, k=10, ef=64,
+                                            broadcast=broadcast,
+                                            registry=reg), nq)
+        runs[label] = (out, reg)
+    (t_ids, t_scores), reg = runs["targeted"]
+    (b_ids, b_scores), _ = runs["broadcast"]
+    if not (np.array_equal(t_ids, b_ids)
+            and np.allclose(t_scores, b_scores, rtol=0, atol=1e-6)):
+        failures.append("ivf fleet: targeted ids differ from broadcast's")
+    contacted = reg.histogram("quiver_ivf_scatter_shards")
+    routes = reg.snapshot()["quiver_ivf_list_routes_total"]
+    log(f"    contacted shards a query: "
+        f"{reg.snapshot()['quiver_ivf_scatter_shards']['']}; max "
+        f"{contacted.percentile(100)}; routes {sum(routes.values())}")
+    if contacted.percentile(100) > min(p, n_sh):
+        failures.append("ivf fleet: a query contacted more than min(p, S)")
+    if sum(routes.values()) != nq * p:
+        failures.append(f"ivf fleet: {sum(routes.values())} routes, not "
+                        f"{nq * p}")
+    (full_ids, _), _ = timed_call(
+        torch, f"targeted scatter {nq} queries at k=10 ef=256, all "
+        f"{ivf.n_lists} probes",
+        lambda: dist.search_ivf_sharded(ivf, queries, k=10, ef=256,
+                                        probes=ivf.n_lists,
+                                        registry=MetricsRegistry()), nq)
+    r_ivf = recall_at_k(full_ids, truth)
+    log(f"    recall@10 {r_ivf:.4f} at full probes (default probes: "
+        f"{recall_at_k(t_ids, truth):.4f})")
+    if r_ivf < 0.9:
+        failures.append(f"ivf fleet: full-probe recall {r_ivf:.4f} < 0.9")
+    del ivf, runs
+
+    # 3. the graph shards adopted as a streaming fleet (2x headroom, the
+    # pad row tombstoned): nothing is built twice
+    cap = 2 * per
+    shards = []
+    for s in range(n_sh):
+        mut = MutableQuIVerIndex.from_index(QuIVerIndex(
+            sigs=bq.Signature(words=fleet.sig_words[s], dim=fleet.dim),
+            adjacency=fleet.adjacency[s], medoid=int(fleet.medoids[s]),
+            params=BuildParams(),
+            vectors=fleet.vectors[s]), capacity=cap)
+        pad = np.nonzero(~fleet.live[s].cpu().numpy())[0]
+        if pad.size:
+            mut.delete(pad)
+        shards.append(mut)
+    stream = StreamingShardedIndex(shards)
+    monitors = stream.attach_drift_monitors(tenant="fleet",
+                                            registry=MetricsRegistry())
+    # the row of ``sub`` each global id holds (-1: none, or a pad row)
+    gid_row = np.full(n_sh * cap, -1, dtype=np.int64)
+    for s in range(n_sh):
+        rows = s * per + np.arange(per)
+        gid_row[s * cap + np.arange(per)] = np.where(rows < n, rows, -1)
+
+    def rows_of(ids):
+        return np.where(ids >= 0, gid_row[np.maximum(ids, 0)], -1)
+
+    def live_gids():
+        return np.concatenate([s * cap + np.nonzero(m.live)[0]
+                               for s, m in enumerate(stream.shards)])
+
+    def live_truth_rows():
+        rows = gid_row[live_gids()]
+        ids, _ = flat_search(sub[rows], queries, 10, device="cuda")
+        return rows[ids]
+
+    def gated(step, dead, gt, ef=64):
+        (got, _), _ = timed_call(torch, f"{step}: search {nq} queries at "
+                                 f"ef {ef}", lambda: stream.search(
+                                     queries, k=10, ef=ef), nq)
+        if dead is not None and np.isin(got, dead).any():
+            failures.append(f"stream fleet {step}: a deleted id returned")
+        r = recall_at_k(rows_of(got), gt)
+        log(f"    recall@10 {r:.4f}")
+        return got, r
+
+    (z_ids, _), _ = timed_call(torch, f"stream fleet, zero churn: search "
+                               f"{nq} queries", lambda: stream.search(
+                                   queries, k=10, ef=64), nq)
+    want = np.where(fleet_ids >= 0,
+                    (fleet_ids // per) * cap + fleet_ids % per, -1)
+    if not np.array_equal(z_ids, want):
+        failures.append("stream fleet: zero-churn ids differ from the "
+                        "graph fleet's, slot for slot")
+    n_churn = int(FLEET_CHURN * n)
+    dead = np.random.default_rng(0).choice(live_gids(), n_churn,
+                                           replace=False)
+    rows = gid_row[dead]
+    gone, _ = timed_call(torch, f"delete {n_churn}",
+                         lambda: stream.delete(dead), n_churn)
+    if gone != n_churn:
+        failures.append(f"stream fleet: {gone} of {n_churn} deleted")
+    gt = live_truth_rows()
+    _, r_before = gated("after delete", dead, gt)
+    reclaimed = 0
+    for i, mut in enumerate(stream.shards):
+        rep, _ = timed_call(torch, f"consolidate shard {i}",
+                            mut.consolidate)
+        log(f"    {rep['repaired_rows']} rows repaired, {rep['reclaimed']} "
+            "slots reclaimed")
+        reclaimed += rep["reclaimed"]
+    if reclaimed != n_churn + n_sh * per - n:
+        failures.append(f"stream fleet: {reclaimed} slots reclaimed")
+    _, r_after = gated("after consolidate", dead, gt)
+    if r_after < r_before - 0.02:
+        failures.append(f"stream fleet: recall after consolidate "
+                        f"{r_after:.4f} < {r_before:.4f} - 0.02")
+    before = set(live_gids().tolist())
+    new, _ = timed_call(torch, f"re-insert {n_churn}",
+                        lambda: stream.insert(sub[rows]), n_churn)
+    if len(set(new.tolist())) != n_churn or before & set(new.tolist()):
+        failures.append("stream fleet: re-inserted gids not unique")
+    gid_row[new] = rows
+    ef_bar = BuildParams().ef_construction
+    (hit, _), _ = timed_call(torch, f"self search of the {n_churn} at k=1, "
+                             f"ef {ef_bar}", lambda: stream.search(
+                                 sub[rows], k=1, ef=ef_bar), n_churn)
+    share = float((hit[:, 0] == new).mean())
+    log(f"    found at k=1: {share:.4f}")
+    if share <= 0.9:
+        failures.append(f"stream fleet: self-hit {share:.4f} at ef {ef_bar}")
+    fan_ids, r_fan = gated("after re-insert", None, sub_truth)
+    n_lists, _ = timed_call(torch, "enable_ivf_routing",
+                            stream.enable_ivf_routing)
+    (sc_ids, _), _ = timed_call(
+        torch, f"scatter search {nq} queries, all {n_lists} probes",
+        lambda: stream.search(queries, k=10, ef=64, scatter=True,
+                              probes=n_lists, registry=MetricsRegistry()),
+        nq)
+    r_sc = recall_at_k(rows_of(sc_ids), sub_truth)
+    log(f"    recall@10 {r_sc:.4f} (fan-out {r_fan:.4f}); rows identical "
+        f"to the fan-out's: {float((sc_ids == fan_ids).all(axis=1).mean()):.4f}")
+    if r_sc < r_fan - 0.01:
+        failures.append(f"stream fleet: scatter recall {r_sc:.4f} < "
+                        f"{r_fan:.4f} - 0.01")
+    kill = sc_ids[0, :3]
+    stream.delete(kill)
+    (sc2, _), _ = timed_call(
+        torch, f"scatter search {nq} queries after one more delete (the "
+        "lazy rebuild)", lambda: stream.search(
+            queries, k=10, ef=64, scatter=True, probes=n_lists,
+            registry=MetricsRegistry()), nq)
+    if np.isin(sc2, kill).any():
+        failures.append("stream fleet: the scatter returned a deleted id")
+    alarms = [a.message() for m in monitors for a in m.alarms]
+    if alarms:
+        failures.append(f"stream fleet: drift alarms {alarms}")
+    torch.cuda.synchronize()
+    launches = dict(kbuild.LAUNCHES)
+    log(f"  drift bands {[m.band for m in monitors]}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    log(f"  launches on the fleet path: {launches}")
+    for name in ("binarize", "bq_dist_rows", "bq_pairwise", "list_scan"):
+        if launches.get(name, 0) == 0:
+            failures.append(f"{name} never launched on the fleet path")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"launches": launches}
+
+
 def phase_rag(torch, kernels: dict) -> dict:
     """LM serving with RAG at full width and depth; returns its launch
     counts.  ``kernels`` holds phase 2's records, whose device times give
@@ -2881,6 +3363,10 @@ def main(argv=None) -> int:
         log("phase engine: the serving engine (QueryEngine) and obs/, "
             "cohere-surrogate N=100000, 1000 queries, three tenants")
         paths.append(phase_engine(torch, main_path, ivf_path))
+    if "fleet" in phases:
+        log(f"phase fleet: the sharded fleet, {FLEET_SHARDS} shards over "
+            f"cohere-surrogate N={FLEET_N}; IVF scatter at N=100000")
+        paths.append(phase_fleet(torch, main_path))
     if "rag" in phases:
         log("phase 7: LM serving with RAG, minicpm-2b at full width and "
             "depth")

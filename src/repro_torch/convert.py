@@ -16,6 +16,14 @@ kind.  A streaming index travels as the reference's ``stream_format``
 archive (:func:`mutable_to_numpy` / :func:`mutable_from_numpy`), which
 :func:`index_from_numpy` refuses as the reference's ``QuIVerIndex.load``
 does.
+
+A fleet travels as numpy arrays under the reference's field names:
+:func:`sharded_to_numpy` / :func:`sharded_from_numpy` stack a
+:class:`~repro_torch.core.distributed.ShardedIndex`'s per-shard tensors on
+a leading shard axis (``sig_words`` and ``label_words`` as uint32) with
+its policy and report as ``policy_*`` / ``probe_*`` fields, and
+:func:`ivf_sharded_from_numpy` takes a list-partitioned fleet.  The
+reference gives its fleets no archive, so neither has one here.
 """
 
 from __future__ import annotations
@@ -26,6 +34,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import bq
+from repro_torch.core.distributed import (
+    IVFShard,
+    IVFShardedIndex,
+    ShardedIndex,
+    shard_devices,
+)
 from repro_torch.core.index import QuIVerIndex
 from repro_torch.core.metric import registered_kinds
 from repro_torch.core.vamana import BuildParams
@@ -208,6 +222,108 @@ def mutable_from_numpy(fields: dict, device=None) -> MutableQuIVerIndex:
     out.probe_acc = ProbeAccumulator.from_words(
         np.asarray(fields["words"])[out.live], dim)
     return out
+
+
+# -- fleets ------------------------------------------------------------------
+
+
+def sharded_to_numpy(index: ShardedIndex) -> dict:
+    """A fleet as the reference's stacked ``ShardedIndex`` fields."""
+    def stack(tensors):
+        return np.stack([_host(t) for t in tensors])
+
+    out = {
+        "sig_words": stack(index.sig_words).view(np.uint32),
+        "adjacency": stack(index.adjacency),
+        "medoids": index.medoids.copy(),
+        "vectors": stack(index.vectors),
+        "dim": np.int64(index.dim),
+        "metric": np.array(index.metric),
+        "n_labels": np.int64(index.n_labels),
+    }
+    if index.live is not None:
+        out["live"] = stack(index.live)
+    if index.label_words is not None:
+        out["label_words"] = stack(index.label_words).view(np.uint32)
+    if index.label_entries is not None:
+        out["label_entries"] = index.label_entries.copy()
+    if index.label_counts is not None:
+        out["label_counts"] = index.label_counts.copy()
+    if index.policy is not None:
+        out.update(index.policy.to_npz_fields())
+    if index.report is not None:
+        out.update(index.report.to_npz_fields())
+    return out
+
+
+def sharded_from_numpy(fields: dict, device=None) -> ShardedIndex:
+    """A fleet from the reference's stacked fields (absent optional
+    fields stay None), shard s on ``device`` as
+    :func:`~repro_torch.core.distributed.shard_devices` places it."""
+    words = np.ascontiguousarray(fields["sig_words"])
+    devices = shard_devices(device, words.shape[0])
+
+    def split(name, dtype, view=None):
+        if fields.get(name) is None:
+            return None
+        a = np.ascontiguousarray(fields[name])
+        if view is not None:
+            a = a.view(view)
+        return tuple(torch.tensor(a[s], dtype=dtype, device=dev)
+                     for s, dev in enumerate(devices))
+
+    def host(name, dtype):
+        a = fields.get(name)
+        return None if a is None else np.asarray(a, dtype=dtype)
+
+    return ShardedIndex(
+        sig_words=split("sig_words", torch.int32, np.int32),
+        adjacency=split("adjacency", torch.int32),
+        medoids=np.asarray(fields["medoids"], dtype=np.int32),
+        vectors=split("vectors", torch.float32),
+        dim=int(fields["dim"]),
+        metric=str(fields.get("metric", "bq2")),
+        live=split("live", torch.bool),
+        label_words=split("label_words", torch.int32, np.int32),
+        n_labels=int(fields.get("n_labels", 0)),
+        label_entries=host("label_entries", np.int32),
+        label_counts=host("label_counts", np.int64),
+        policy=NavPolicy.from_npz(fields),
+        report=CompatibilityReport.from_npz(fields),
+    )
+
+
+def ivf_sharded_from_numpy(fields: dict, device=None) -> IVFShardedIndex:
+    """A list-partitioned fleet from the reference's fields:
+    ``cent_words`` (uint32), ``list_shard``, ``list_local``, ``dim``,
+    ``default_probes`` and ``shards``, one dict a shard with its
+    ``IVFShard`` fields (``sig_words`` uint32).  The routing tier goes to
+    the first shard's device."""
+    devices = shard_devices(device, len(fields["shards"]))
+
+    def words(a, dev):
+        return torch.tensor(np.ascontiguousarray(a).view(np.int32),
+                            device=dev)
+
+    return IVFShardedIndex(
+        cent_words=words(fields["cent_words"], devices[0]),
+        list_shard=np.asarray(fields["list_shard"], dtype=np.int32),
+        list_local=np.asarray(fields["list_local"], dtype=np.int32),
+        shards=tuple(
+            IVFShard(
+                sig_words=words(sh["sig_words"], dev),
+                vectors=torch.tensor(np.asarray(sh["vectors"]),
+                                     dtype=torch.float32, device=dev),
+                ids=np.asarray(sh["ids"], dtype=np.int32),
+                list_ids=torch.tensor(np.asarray(sh["list_ids"]),
+                                      dtype=torch.int32, device=dev),
+                lists=np.asarray(sh["lists"], dtype=np.int32),
+            )
+            for sh, dev in zip(fields["shards"], devices)
+        ),
+        dim=int(fields["dim"]),
+        default_probes=int(fields["default_probes"]),
+    )
 
 
 # -- LM parameters ------------------------------------------------------------

@@ -30,7 +30,10 @@ def record_routes(top, shards_contacted=None, *, registry=None):
 
     ``top`` is the (Q, p) probed-list array of one batch (tensor or
     array); ``shards_contacted`` (optional, (Q,)) is how many shards each
-    query's targeted scatter touched.  Feeds
+    query's targeted scatter touched.  Its callers are the two scatters,
+    ``repro_torch.core.distributed.search_ivf_sharded`` and
+    ``repro_torch.stream.StreamingShardedIndex.search(scatter=True)``.
+    Feeds
     ``quiver_ivf_list_routes_total{list}`` and the
     ``quiver_ivf_scatter_shards`` histogram on ``registry`` (default: the
     process registry).

@@ -793,3 +793,97 @@ def test_card_graph_report_equals_cpu(cuda, mutated):
     assert abs(gd.pop("edge_agreement") - cd.pop("edge_agreement")) <= tol
     gd.pop("health_score"), cd.pop("health_score")
     assert gd == cd and g.n_sampled == 64
+
+
+def _same_fleet(g, c):
+    """Two fleets' fields identical; the cold vectors, normalized on
+    each device, within 1e-6."""
+    assert g.keys() == c.keys()
+    for name in g:
+        if name == "vectors":
+            np.testing.assert_allclose(g[name], c[name], rtol=0, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(g[name], c[name], err_msg=name)
+
+
+def _fleet_labels(n):
+    return list(np.random.default_rng(0).integers(0, 2, n))
+
+
+@pytest.mark.parametrize("placement", ["card", "mixed"])
+def test_card_fleet_equals_cpu(cuda, placement):
+    """``build_sharded`` and the fan-out on the card (or shards 1 and 3 on
+    the card, 0 and 2 on the CPU) against the same fleet on the CPU."""
+    from repro_torch import convert
+    from repro_torch.core import distributed as dist
+
+    base, queries = make_dataset("cohere-surrogate", 2003, queries=40)
+    params = BuildParams(m=6, ef_construction=32, prune_pool=32, chunk=128)
+    device = cuda if placement == "card" else ["cpu", cuda, "cpu", cuda]
+    build.reset_launches()
+    gpu = dist.build_sharded(base, 4, params, labels=_fleet_labels(2003),
+                             label_entry_min=16, device=device)
+    assert all(build.LAUNCHES[k] > 0
+               for k in ("binarize", "bq_dist_rows", "bq_pairwise"))
+    cpu = dist.build_sharded(base, 4, params, labels=_fleet_labels(2003),
+                             label_entry_min=16, device="cpu")
+    _same_fleet(convert.sharded_to_numpy(gpu), convert.sharded_to_numpy(cpu))
+    for kw in ({}, {"filter": 1}, {"nav": "bq1"}):
+        g_ids, g_scores = dist.search_sharded(gpu, queries, k=10, ef=48,
+                                              **kw)
+        c_ids, c_scores = dist.search_sharded(cpu, queries, k=10, ef=48,
+                                              **kw)
+        _ids_match(g_ids, c_ids, g_scores, c_scores)
+        assert (g_ids < 2003).all()
+
+
+def test_card_ivf_fleet_equals_cpu(cuda):
+    from repro_torch.core import distributed as dist
+    from repro_torch.obs import MetricsRegistry
+
+    base, queries = make_dataset("cohere-surrogate", 2003, queries=40)
+    gpu = dist.build_ivf_sharded(base, 4, seed=0, device=cuda)
+    cpu = dist.build_ivf_sharded(base, 4, seed=0, device="cpu")
+    np.testing.assert_array_equal(gpu.list_shard, cpu.list_shard)
+    np.testing.assert_array_equal(gpu.list_local, cpu.list_local)
+    for gs, cs in zip(gpu.shards, cpu.shards):
+        np.testing.assert_array_equal(gs.ids, cs.ids)
+        assert torch.equal(gs.sig_words.cpu(), cs.sig_words)
+        assert torch.equal(gs.list_ids.cpu(), cs.list_ids)
+    for broadcast in (False, True):
+        build.reset_launches()
+        g_ids, g_scores = dist.search_ivf_sharded(
+            gpu, queries, broadcast=broadcast, registry=MetricsRegistry())
+        assert build.LAUNCHES["list_scan"] > 0
+        assert build.LAUNCHES["bq_dist_rows"] > 0
+        c_ids, c_scores = dist.search_ivf_sharded(
+            cpu, queries, broadcast=broadcast, registry=MetricsRegistry())
+        _ids_match(g_ids, c_ids, g_scores, c_scores)
+
+
+def test_card_streaming_fleet_equals_cpu(cuda):
+    from repro_torch import convert
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.stream import StreamingShardedIndex
+
+    base, queries = make_dataset("cohere-surrogate", 1400, queries=40)
+    params = BuildParams(m=6, ef_construction=32, prune_pool=32, chunk=128)
+    out = []
+    for dev in (cuda, "cpu"):
+        fleet = StreamingShardedIndex.empty(
+            base.shape[1], n_shards=3, capacity_per_shard=500,
+            params=params, device=dev)
+        gids = fleet.insert(base[:1200])
+        fleet.delete(np.concatenate([gids[:149], [fleet.shards[1].medoid
+                                                  + 500]]))
+        fleet.consolidate()
+        fleet.insert(base[1200:1300])
+        fan = fleet.search(queries, k=10, ef=48)
+        fleet.enable_ivf_routing(seed=0)
+        scatter = fleet.search(queries, k=10, ef=48, scatter=True,
+                               registry=MetricsRegistry())
+        out.append((fleet, fan, scatter))
+    (g, g_fan, g_sc), (c, c_fan, c_sc) = out
+    _same_fleet(*(convert.sharded_to_numpy(f.snapshot()) for f in (g, c)))
+    for (gi, gsc), (ci, csc) in ((g_fan, c_fan), (g_sc, c_sc)):
+        _ids_match(gi, ci, gsc, csc)

@@ -60,6 +60,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.obs.tenant", "repro_torch.obs.sinks",
             "repro_torch.obs.hub", "repro_torch.obs.quality",
             "repro_torch.obs.graph", "repro_torch.obs.remediate"} <= set(mods)
+    assert {"repro_torch.core.distributed",
+            "repro_torch.stream.sharded"} <= set(mods)
     _run_fresh(
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
