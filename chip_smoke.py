@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases build,kernels,engine
     python3 chip_smoke.py --phases build,kernels,fleet
     python3 chip_smoke.py --phases build,kernels,rag
+    python3 chip_smoke.py --phases build,kernels,train
     python3 chip_smoke.py --phases build,profile      # opt-in breakdown
 
 Phases, in order; any failure raises and the script exits nonzero:
@@ -56,6 +57,15 @@ Phases, in order; any failure raises and the script exits nonzero:
               ``list_scan`` at Q = 8192, ``hamming_pairwise`` at C = 72 and
               ``hamming_dist_rows`` at K = 34 080 (its library bmm over
               26.8 GB of float32 levels, gathered when it is timed).
+              ``flash_attention_backward`` (``FLASH_BWD_CASES``: the
+              train phase's shape, B 4, T 256, 36 heads of 64, causal,
+              bf16; 56 heads over 8 at hd 128; the train shape in
+              float32) against ``flash_attention_backward_plain`` on the
+              same forward output (float32 within 1e-4, bf16 within
+              2^-7, of the largest gradient), two calls bit for bit
+              equal; timed at the train shape, with SDPA's backward
+              (``torch.autograd.grad`` on a saved graph) as the library
+              call.
 3. parity   — the same N = 4000 builds and searches on ``device="cpu"`` and
               on the card, beam-searched and IVF-seeded: identical
               partition, adjacency, medoid and candidate ids; the filter
@@ -93,7 +103,13 @@ Phases, in order; any failure raises and the script exits nonzero:
               tokens, prefill and 8 greedy decode steps (the card fed the
               CPU's tokens), every logit within 0.1 and equal argmax
               where the CPU's top-2 gap exceeds 0.2, mean-pooled
-              embeddings at cosine >= 0.999.
+              embeddings at cosine >= 0.999; then training
+              (``parity_train``): the same model, B 2 x S 64, loss within
+              1e-2 and gradients at relative L2 within 5e-2 (the
+              backward kernel launched once a layer), one train step
+              each (loss and grad norm within 1e-2, updates at cosine >=
+              0.9), and the card's state as a checkpoint restored on the
+              CPU, identical leaf for leaf.
 4. main     — the main path at deployment size: cohere-surrogate (768-d),
               N = 100 000, 1 000 queries, ``BuildParams()`` defaults;
               build, search at k = 10, ef = 64, recall@10 against exact
@@ -154,8 +170,9 @@ stream      — the streaming index on phase 4's graph (built here when
               queries at k = 10, ef = 64, ids and scores equal to phase
               4's, and the frozen snapshot's too; the mutable search
               (direct beam) and phase 4's (plans) timed A B A B on the
-              same graph.  Then ``STREAM_CYCLES`` = 2 cycles (delete
-              seeds 0, 1) of FreshDiskANN churn at the reference
+              same graph.  Then ``STREAM_CYCLES`` = 1 cycle (delete
+              seed 0; a cut of depth, the same on every host) of
+              FreshDiskANN churn at the reference
               benchmark's rate, ``STREAM_CHURN`` = 5%: delete 5 000 live
               ids, search, ``consolidate``, search, re-insert the same 5 000
               vectors, search.  Gates: no deleted id returned; 5 000 slots
@@ -267,6 +284,23 @@ fleet       — the sharded fleet on phase 4's corpus (made here when phase
               Then two labels on the 8 192 documents and one filtered
               ``Retriever.augment`` of the 8 prompts: every retrieved
               document carries label 1.
+train       — training ``minicpm-2b`` at full width and depth (40 layers,
+              remat, bf16 from seed 0, float32 AdamW state) through
+              ``Trainer``: ``TokenPipeline`` (vocab 122 753, T 256,
+              global batch 8), ``TrainConfig(n_micro=2, peak_lr=3e-4,
+              warmup=2, total_steps=10, schedule="wsd")``, 10 steps, no
+              checkpoint.  Gates: every loss and grad norm finite; the
+              mean of the last three losses below the first three's by
+              0.2 (the reference's own bar); ``flash_attention_bwd``
+              launched 40 x 2 x 10 times and ``flash_attention_mma``
+              twice that (each block's forward again in its backward);
+              every attention weight's first moment nonzero.  Printed:
+              seconds a step, tokens/s, ``max_memory_allocated``, the
+              backward kernel's share of a step.  Then a restart on the
+              card with 2 layers at full width: 2 steps and a checkpoint
+              under ``build/`` (deleted after), resumed to step 4, equal
+              bit for bit to 4 uninterrupted steps; then
+              ``launch.train.main`` with ``--smoke --steps 8``.
 An opt-in eighth phase, ``profile``, is not run by default: it profiles a
 few build chunks at the main path's size with ``torch.profiler`` and
 prints the device's busy share, device time by kernel, and the port's own
@@ -274,7 +308,7 @@ kernels' share of it.
 
 The last three lines of standard output are the card's name and power
 limit (``nvidia-smi``), one JSON line of per-kernel numbers (``launches``
-sums phases 4, 5, 6, filter, stream, engine, fleet and 7), and
+sums phases 4, 5, 6, filter, stream, engine, fleet, 7 and train), and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits nonzero and prints no result.
 """
@@ -292,7 +326,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "parity", "main", "ivf", "ladder", "filter",
-          "stream", "engine", "fleet", "rag")
+          "stream", "engine", "fleet", "rag", "train")
 OPT_IN = ("profile",)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the float32
@@ -581,6 +615,7 @@ def phase_kernels(torch) -> dict:
         }
     out.update(hamming_kernels(torch, g))
     out.update(flash_kernels(torch))
+    out.update(flash_bwd_kernels(torch))
     torch.cuda.synchronize()
     return out
 
@@ -869,6 +904,103 @@ def flash_kernels(torch) -> dict:
     return out
 
 
+def flash_bwd_bound(b, tq, tk, h, kvh, hd, causal, q_offset, valid, elem):
+    """(ms, "bytes" or "operations") for one backward call: the five
+    products (S again, dP, dQ, dK, dV), 2 hd flops each for every visible
+    (row, key) pair, at the bf16 tensor-core rate, against q, O, dO, dQ,
+    the visible K/V rows and dK, dV moved once."""
+    rows = [min(valid, q_offset + i + 1) if causal else valid
+            for i in range(tq)]
+    flops = 10 * hd * sum(rows) * b * h
+    nbytes = elem * hd * (4 * b * tq * h + 2 * b * kvh * max(rows)
+                          + 2 * b * kvh * tk)
+    return bound(nbytes, flops, TENSOR_FLOPS_PER_S)
+
+
+# (label, b, tq, tk, h, kv heads, hd, causal, dtype name): the train
+# phase's attention (minicpm-2b, B 4, T 256, bf16), a GQA shape and the
+# train shape in float32
+FLASH_BWD_CASES = [
+    ("train", 4, 256, 256, 36, 36, 64, True, "bfloat16"),
+    ("gqa hd128", 2, 256, 256, 56, 8, 128, True, "bfloat16"),
+    ("train float32", 4, 256, 256, 36, 36, 64, True, "float32"),
+]
+
+
+def flash_bwd_kernels(torch) -> dict:
+    """``flash_attention_backward`` against ``flash_attention_backward_
+    plain`` (float32 within 1e-4, bf16 within 2^-7, of the largest
+    gradient), twice with identical bits, one launch a call; at the train
+    shape its numbers, with SDPA's backward (``torch.autograd.grad`` on a
+    saved graph of ``scaled_dot_product_attention``, within 2e-2 of the
+    largest gradient) as the library call."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels import flash_attention as kf
+
+    g = torch.Generator(device="cuda").manual_seed(22)
+    out = {}
+    for label, b, tq, tk, h, kvh, hd, causal, dname in FLASH_BWD_CASES:
+        dtype = getattr(torch, dname)
+        q, do = (torch.randn((b, tq, h, hd), generator=g, device="cuda",
+                             dtype=dtype) for _ in range(2))
+        k, v = (torch.randn((b, tk, kvh, hd), generator=g, device="cuda",
+                            dtype=dtype) for _ in range(2))
+        kw = dict(causal=causal)
+        o = kf.flash_attention(q, k, v, **kw)
+        before = kbuild.LAUNCHES[kf.BWD]
+        got = kf.flash_attention_backward(q, k, v, o, do, **kw)
+        if kbuild.LAUNCHES[kf.BWD] != before + 1:
+            raise AssertionError(f"flash_attention_bwd {label} did not "
+                                 "launch once")
+        again = kf.flash_attention_backward(q, k, v, o, do, **kw)
+        want = kf.flash_attention_backward_plain(q, k, v, o, do, **kw)
+        rel = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+        err = 0.0
+        for name, a, a2, w in zip("qkv", got, again, want):
+            if not torch.equal(a, a2):
+                raise AssertionError(f"flash_attention_bwd {label}: two "
+                                     f"calls differ in d{name}")
+            e = float((a.float() - w.float()).abs().max())
+            scale = float(w.float().abs().max())
+            if not e <= rel * scale or not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"flash_attention_bwd {label} d{name} "
+                                     f"differs by {e} (largest {scale})")
+            err = max(err, e)
+        log(f"  flash_attention_bwd {label} B={b} T={tq} H={h} K={kvh} "
+            f"hd={hd} {dname}: max |err| {err:.2e}, two calls identical")
+        if label != "train":
+            continue
+        # the library call: SDPA's backward on a saved graph, (B, H, T, hd)
+        leaves = [t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v)]
+        lib_out = sdpa(*leaves, is_causal=True)
+        lib = partial(torch.autograd.grad, lib_out, leaves,
+                      do.transpose(1, 2), retain_graph=True)
+        for name, a, w in zip("qkv", got, lib()):
+            e = float((w.transpose(1, 2).float() - a.float()).abs().max())
+            if e > 2e-2 * float(a.float().abs().max()):
+                raise AssertionError(f"SDPA's backward disagrees with "
+                                     f"flash_attention_bwd in d{name} by {e}")
+        b_ms, b_by = flash_bwd_bound(b, tq, tk, h, kvh, hd, causal, 0, tk,
+                                     q.element_size())
+        out["flash_attention_bwd"] = {
+            "name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/attention.py:49",
+            "max_abs_err": err,
+            "fns": (partial(kf.flash_attention_backward, q, k, v, o, do,
+                            **kw),
+                    partial(kf.flash_attention_backward_plain, q, k, v, o,
+                            do, **kw),
+                    lib),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": [label, b, tq, tk, h, hd, dname],
+        }
+    return out
+
+
 def flash_strided(torch, g) -> None:
     """bf16 K/V read through strides: a layer's slice of the stacked cache
     (``init_caches``' (layers, B, S, K, hd)) and the K half of a fused
@@ -1018,6 +1150,7 @@ def phase_parity(torch) -> None:
     for name, want in (("sift-like", "float32"), ("cohere-surrogate", "bq2")):
         parity_auto(torch, name, want, params)
     parity_lm(torch)
+    parity_train(torch)
 
 
 def parity_filter(torch, cpu, gpu, queries) -> None:
@@ -1436,6 +1569,135 @@ def parity_lm(torch) -> None:
         f"{worst:.4f}; greedy tokens equal at all {compared} of 18 "
         f"(row, step) pairs with a top-2 gap > 0.2; embedding cosine "
         f">= {cos:.6f}")
+
+
+def tree_pairs(a, b, prefix=""):
+    """(path, a leaf, b leaf) over two nested dict/list trees of one
+    structure."""
+    if isinstance(a, dict):
+        for k in a:
+            yield from tree_pairs(a[k], b[k], f"{prefix}/{k}")
+    elif isinstance(a, (list, tuple)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            yield from tree_pairs(x, y, f"{prefix}/{i}")
+    else:
+        yield prefix, a, b
+
+
+def cosine(torch, a, b) -> float:
+    a, b = a.float().flatten(), b.float().flatten()
+    return float(a @ b / (a.norm() * b.norm()).clamp_min(1e-30))
+
+
+def parity_train(torch) -> None:
+    """Training, CPU against card: ``minicpm-2b`` at full width and 2 layers
+    in bf16, the same parameters (drawn on the card, copied to the CPU) and
+    batch (B 2, S 64), one ``make_train_step`` step each with bf16 AdamW
+    state.  The loss and grad norm within 1e-2 relative; the gradients,
+    read from the first moment (``mu = 0.1 g`` clipped, one step from zero,
+    in bf16), at a relative L2 within 5e-2 of the CPU's leaf by leaf (bf16
+    products round at other places, the card's forward rounds P to bf16),
+    every attention weight's nonzero; the backward kernel launched once a
+    layer; each matrix's update at cosine >= 0.9 with the CPU's.  Then the
+    card's state saved as a checkpoint (the trainer's tree and format,
+    every matrix and moment a bf16 leaf) under ``build/`` and restored on
+    the CPU: every leaf equal to the card's, bit for bit, and loaded into
+    the CPU's model and optimizer state; the checkpoint is deleted."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+
+    from repro_torch import convert
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    cfg = dataclasses.replace(get_config("minicpm-2b"), n_layers=2)
+    bundle = build_model(cfg)
+    gpu = bundle.init(0, device="cuda")
+    cpu = DecoderLM(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    rng = np.random.default_rng(22)
+    batch = {k: rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    before = {n: p.detach().clone() for n, p in cpu.named_parameters()
+              if p.ndim >= 2}
+    tc = TrainConfig(peak_lr=1e-3, warmup=0, total_steps=10,
+                     adamw=AdamWConfig(state_dtype=torch.bfloat16))
+    step = make_train_step(bundle, tc)
+    stepped = []
+    for model in (cpu, gpu):
+        kbuild.reset_launches()
+        opt = init_opt_state(dict(model.named_parameters()), tc.adamw)
+        t0 = time.perf_counter()
+        model, opt, metrics = step(model, opt, batch)
+        stepped.append((opt, metrics, time.perf_counter() - t0))
+    (c_opt, c_m, c_s), (g_opt, g_m, g_s) = stepped
+    if kbuild.LAUNCHES["flash_attention_bwd"] != cfg.n_layers:
+        raise AssertionError("the card's backward did not launch "
+                             "flash_attention_bwd once a layer")
+    for key in ("loss", "grad_norm"):
+        if abs(g_m[key].item() / c_m[key].item() - 1) > 1e-2:
+            raise AssertionError(f"train step {key}: CPU {c_m[key].item()} "
+                                 f"card {g_m[key].item()}")
+    worst_g, worst_u = 0.0, 1.0
+    g_params = dict(gpu.named_parameters())
+    for n, p in cpu.named_parameters():
+        want, got = c_opt["mu"][n].float(), g_opt["mu"][n].cpu().float()
+        rel = float((got - want).norm() / want.norm().clamp_min(1e-30))
+        worst_g = max(worst_g, rel)
+        if rel > 5e-2:
+            raise AssertionError(f"gradient {n} at relative L2 {rel}")
+        if ".attn." in n and not bool((got != 0).any()):
+            raise AssertionError(f"gradient {n} is zero on the card")
+        if n in before:
+            c = cosine(torch, g_params[n].detach().cpu().float()
+                       - before[n].float(), p.detach().float()
+                       - before[n].float())
+            worst_u = min(worst_u, c)
+            if c < 0.9:
+                raise AssertionError(f"update of {n} at cosine {c}")
+    log(f"  train parity, minicpm-2b x 2 layers, B 2 x S 64, one step: "
+        f"CPU {c_s:.1f} s, card {g_s:.2f} s; loss CPU "
+        f"{c_m['loss'].item():.5f} card {g_m['loss'].item():.5f}, grad "
+        f"norm {c_m['grad_norm'].item():.4f} / "
+        f"{g_m['grad_norm'].item():.4f}; gradients at relative L2 <= "
+        f"{worst_g:.2e}; updates at cosine >= {worst_u:.4f}")
+    del before, stepped, c_opt
+    path = ROOT / "build" / "parity_ckpt"
+    shutil.rmtree(path, ignore_errors=True)
+    t0 = time.perf_counter()
+    state = {"params": convert.lm_params_to_numpy(gpu, keep_bf16=True),
+             "opt": convert.opt_state_to_numpy(g_opt, gpu, keep_bf16=True)}
+    checkpoint.save(str(path), state, step=1)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored, at = checkpoint.restore(str(path),
+                                      convert.train_state_like(cpu, g_opt))
+    convert.load_lm_params(cpu, restored["params"])
+    c_opt = convert.opt_state_from_numpy(restored["opt"], cpu)
+    t_load = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in path.iterdir())
+    shutil.rmtree(path)
+    for key, a, b in tree_pairs(state, restored):
+        a, b = torch.as_tensor(a), torch.as_tensor(b)
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"checkpoint leaf {key} differs")
+    for n, p in cpu.named_parameters():
+        if not torch.equal(p, g_params[n].cpu()) or not torch.equal(
+                c_opt["nu"][n], g_opt["nu"][n].cpu()):
+            raise AssertionError(f"{n} or its moment differs once loaded")
+    if at != 1 or int(c_opt["count"]) != 1 or \
+            state["params"]["embed"]["w"].dtype != torch.bfloat16:
+        raise AssertionError("checkpoint step or bf16 leaves lost")
+    log(f"  checkpoint of the card's state ({size} bytes) saved in "
+        f"{t_save:.1f} s, restored on the CPU in {t_load:.1f} s: every "
+        "leaf identical, bf16 kept")
 
 
 def parity_auto(torch, name: str, want: str, params) -> None:
@@ -2133,8 +2395,10 @@ def phase_filter(torch, main: dict | None, ivf: dict | None) -> dict:
 
 
 # FreshDiskANN's steady-state churn at the reference benchmark's rate
-# (benchmarks/streaming.py: 5% of the corpus a cycle), two cycles
-STREAM_CHURN, STREAM_CYCLES = 0.05, 2
+# (benchmarks/streaming.py: 5% of the corpus a cycle); one cycle, a fixed
+# cut of depth on every host (two cycles cost ~30 s more and the train
+# phase needs the time)
+STREAM_CHURN, STREAM_CYCLES = 0.05, 1
 
 
 def timed_call(torch, label: str, fn, count=None):
@@ -3180,6 +3444,146 @@ def phase_rag(torch, kernels: dict) -> dict:
     return {"launches": dict(launches)}
 
 
+TRAIN_STEPS, TRAIN_MICRO, TRAIN_BATCH, TRAIN_SEQ = 10, 2, 8, 256
+
+
+def phase_train(torch, kernels: dict) -> dict:
+    """Training at full width and depth; returns the launch counts of the
+    full-depth run (reset just before it, read just after).  ``kernels``
+    holds phase 2's records, whose device time gives the backward kernel's
+    share of a step (not measured without them)."""
+    import dataclasses
+    import math
+    import shutil
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import TrainConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_config("minicpm-2b")
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    tc = TrainConfig(n_micro=TRAIN_MICRO, peak_lr=3e-4, warmup=2,
+                     total_steps=TRAIN_STEPS, schedule="wsd",
+                     adamw=AdamWConfig())
+
+    def trainer(arch, steps, **kw):
+        return Trainer(build_model(arch), tc,
+                       TrainerConfig(steps=steps, log_every=1, **kw),
+                       TokenPipeline(data), seed=0, device="cuda")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = trainer(cfg, TRAIN_STEPS, ckpt_dir=None)
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    result = run.run()
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = dict(kbuild.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log_ = result["metrics"]
+    for m in log_:
+        log(f"  step {m['step']}: loss {m['loss']:.4f}, grad norm "
+            f"{m['grad_norm']:.4f}, {m['seconds']:.3f} s")
+    losses = [m["loss"] for m in log_]
+    if len(losses) != TRAIN_STEPS or not all(
+            math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+            for m in log_):
+        raise AssertionError("a loss or grad norm is not finite")
+    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    if not last < first - 0.2:
+        raise AssertionError(f"loss did not fall by 0.2: {first} -> {last}")
+    n_calls = cfg.n_layers * TRAIN_MICRO * TRAIN_STEPS
+    if launches.get("flash_attention_bwd", 0) != n_calls:
+        raise AssertionError(f"flash_attention_bwd launched "
+                             f"{launches.get('flash_attention_bwd', 0)} "
+                             f"times, not {n_calls}")
+    # each block's forward runs twice: once, and again in its backward
+    if launches.get("flash_attention_mma", 0) != 2 * n_calls:
+        raise AssertionError(f"flash_attention_mma launched "
+                             f"{launches.get('flash_attention_mma', 0)} "
+                             f"times, not {2 * n_calls} (remat)")
+    opt = result["opt_state"]
+    for n, mu in opt["mu"].items():
+        if ".attn.w" in n and not bool((mu != 0).any()):
+            raise AssertionError(f"{n} got no gradient in {TRAIN_STEPS} "
+                                 "steps (its first moment is zero)")
+    step_s = sum(m["seconds"] for m in log_[1:]) / (len(log_) - 1)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"  {cfg.name} at full width and depth ({cfg.n_layers} layers, "
+        f"remat), global batch {TRAIN_BATCH} x {TRAIN_SEQ} in "
+        f"{TRAIN_MICRO} microbatches, {TRAIN_STEPS} steps in {t_run:.1f} s "
+        f"(model and optimizer state drawn included): loss {first:.4f} -> "
+        f"{last:.4f} (means of the first and last three); "
+        f"{step_s:.3f} s a step after the first ({log_[0]['seconds']:.3f} "
+        f"s), {tokens / step_s:.0f} tokens/s; max_memory_allocated {peak} "
+        f"bytes; launches {launches}")
+    rec = kernels.get("flash_attention_bwd")
+    per_step = cfg.n_layers * TRAIN_MICRO
+    if rec:
+        share = per_step * rec["ms"] / 1e3 / step_s
+        log(f"  flash_attention_bwd: {per_step} launches a step x "
+            f"{rec['ms']:.4f} ms (phase 2's device time at this shape) = "
+            f"{share:.1%} of a step")
+    else:
+        log("  flash_attention_bwd's share of a step: not measured (phase "
+            "2 did not run)")
+    del run, result, opt
+    torch.cuda.empty_cache()
+
+    # restart on the card: 2 steps, a checkpoint, resumed to 4 == 4 at once
+    small = dataclasses.replace(cfg, n_layers=2)
+    path = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(path, ignore_errors=True)
+    whole = trainer(small, 4, ckpt_dir=None).run()
+    t0 = time.perf_counter()
+    trainer(small, 2, ckpt_dir=str(path), ckpt_every=2).run()
+    t_first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resumed = trainer(small, 4, ckpt_dir=str(path), ckpt_every=100).run()
+    t_resume = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in (path / "step_2").iterdir())
+    shutil.rmtree(path)
+    if [m["step"] for m in resumed["metrics"]] != [2, 3] or [
+            m["loss"] for m in resumed["metrics"]] != [
+            m["loss"] for m in whole["metrics"][2:]]:
+        raise AssertionError("the resumed run's losses differ")
+    pairs = [(n, p, dict(whole["model"].named_parameters())[n])
+             for n, p in resumed["model"].named_parameters()]
+    for key in ("mu", "nu"):
+        pairs += [(f"{key} {n}", t, whole["opt_state"][key][n])
+                  for n, t in resumed["opt_state"][key].items()]
+    pairs.append(("count", resumed["opt_state"]["count"],
+                  whole["opt_state"]["count"]))
+    for n, a, b in pairs:
+        if not torch.equal(a, b):
+            raise AssertionError(f"resumed {n} differs from the "
+                                 "uninterrupted run's")
+    log(f"  restart, {small.name} x 2 layers: 2 steps + a checkpoint "
+        f"({size} bytes) in {t_first:.1f} s, resumed to 4 in "
+        f"{t_resume:.1f} s: parameters, moments and count identical to "
+        "4 uninterrupted steps")
+    del whole, resumed, pairs
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    out = launch_train.main(["--arch", "minicpm-2b", "--smoke", "--steps",
+                             "8"])
+    if out["final_step"] != 8:
+        raise AssertionError("launch.train --smoke did not reach step 8")
+    log(f"  launch.train --arch minicpm-2b --smoke --steps 8 on the card: "
+        f"{time.perf_counter() - t0:.1f} s")
+    del out
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
 def phase_profile(torch, chunks: int = 8) -> None:
     """Where a build's time goes at the main path's size (N = 100 000,
     D = 768, ``BuildParams()``): ``chunks`` chunks and the consolidation
@@ -3371,6 +3775,10 @@ def main(argv=None) -> int:
         log("phase 7: LM serving with RAG, minicpm-2b at full width and "
             "depth")
         paths.append(phase_rag(torch, kernels))
+    if "train" in phases:
+        log(f"phase train: training minicpm-2b at full width and depth, "
+            f"{TRAIN_STEPS} steps")
+        paths.append(phase_train(torch, kernels))
     if "profile" in phases:
         log("phase 8: profile of build chunks at N=100000")
         phase_profile(torch)

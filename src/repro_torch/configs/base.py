@@ -3,7 +3,9 @@
 Counterpart of ``repro/configs/base.py``, copied so the port imports
 nothing of ``repro``: every architecture is an :class:`ArchConfig` in its
 own module under ``repro_torch/configs``, and ``get_config(name)`` resolves
-it.  ``smoke()`` derives a reduced config of the same family for CPU tests.
+it.  ``smoke()`` derives a reduced config of the same family for CPU tests;
+:class:`ShapeConfig` and :data:`SHAPES` are the reference's workload
+shapes (``input_specs``, ``suggest_n_micro``).
 The port carries the configs whose family it runs: ``minicpm-2b`` (dense
 MHA) and ``yi-34b`` (dense GQA).  The other eight come with their families
 (ROADMAP, modules item 14).
@@ -65,6 +67,12 @@ class ArchConfig:
     @property
     def head_dim_(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def seq_sharded_residual(self) -> bool:
+        """The reference's sequence-parallel residual stream (attention-
+        dominant stacks); read by ``train.train_step.suggest_n_micro``."""
+        return self.family in ("dense", "moe", "vlm", "encdec")
 
     @property
     def padded_vocab(self) -> int:
@@ -164,6 +172,29 @@ class ArchConfig:
             kv_chunk=64,
             remat=False,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def cell_is_supported(cfg: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether this (arch x shape) cell runs or is a documented skip."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, "skip(full-attn): quadratic attention at 500k"
+    return True, ""
 
 
 _REGISTRY: dict[str, ArchConfig] = {}

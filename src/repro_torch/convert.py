@@ -24,6 +24,11 @@ a leading shard axis (``sig_words`` and ``label_words`` as uint32) with
 its policy and report as ``policy_*`` / ``probe_*`` fields, and
 :func:`ivf_sharded_from_numpy` takes a list-partitioned fleet.  The
 reference gives its fleets no archive, so neither has one here.
+
+An LM's parameters travel as the reference's pytree (layers stacked on a
+leading axis, ``models/transformer.py::reference_leaves``), its optimizer
+state as ``{"mu", "nu", "count"[, "ef"]}`` in the same layout: the tree a
+checkpoint of ``ckpt/checkpoint.py`` stores under ``params`` and ``opt``.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ from repro_torch.core.vamana import BuildParams
 from repro_torch.device import resolve_device
 from repro_torch.filter import LabelStore
 from repro_torch.ivf import IVFPartition
-from repro_torch.models.transformer import DecoderLM
+from repro_torch.models.transformer import DecoderLM, reference_leaves
 from repro_torch.obs.graph import GraphHealthReport
 from repro_torch.probe import CompatibilityReport, NavPolicy, ProbeAccumulator
 from repro_torch.stream.mutable import MutableQuIVerIndex
@@ -329,23 +334,6 @@ def ivf_sharded_from_numpy(fields: dict, device=None) -> IVFShardedIndex:
 # -- LM parameters ------------------------------------------------------------
 
 
-def _block_leaves(blk) -> dict:
-    """One block's tensors under the reference's pytree paths."""
-    leaves = {("ln1", "scale"): blk.ln1.scale, ("ln2", "scale"): blk.ln2.scale}
-    for name in ("wq", "wk", "wv", "wo"):
-        leaves[("attn", name, "w")] = getattr(blk.attn, name).w
-    for name in ("w1", "w3", "w2"):
-        if hasattr(blk.mlp, name):
-            leaves[("mlp", name, "w")] = getattr(blk.mlp, name).w
-    return leaves
-
-
-def _top_leaves(model) -> dict:
-    return {("embed", "w"): model.embed.w,
-            ("final_norm", "scale"): model.final_norm.scale,
-            ("lm_head", "w"): model.lm_head.w}
-
-
 def _get(tree, path):
     for key in path:
         tree = tree[key]
@@ -353,9 +341,12 @@ def _get(tree, path):
 
 
 def _tensor(a) -> torch.Tensor:
-    """A numpy array as a tensor; bfloat16 (``ml_dtypes``, as
-    ``np.asarray`` of a JAX bf16 array gives it) through its 16 bits,
-    recognised by name, since ``torch.from_numpy`` refuses it."""
+    """A numpy array (or a tensor, as it is) as a tensor; bfloat16
+    (``ml_dtypes``, as ``np.asarray`` of a JAX bf16 array gives it)
+    through its 16 bits, recognised by name, since ``torch.from_numpy``
+    refuses it."""
+    if isinstance(a, torch.Tensor):
+        return a
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:           # a JAX array's host view
         a = a.copy()
@@ -364,7 +355,82 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _put(tree: dict, path: tuple, value) -> None:
+    """Set ``tree[path]``, making the dicts on the way and the stacked
+    group's one-element ``layers`` list."""
+    for key, nxt in zip(path[:-1], path[1:]):
+        if isinstance(tree, list):
+            tree = tree[key]
+            continue
+        if key not in tree:
+            tree[key] = [{}] if isinstance(nxt, int) else {}
+        tree = tree[key]
+    tree[path[-1]] = value
+
+
+def _host_copy(t: torch.Tensor, keep_bf16: bool):
+    """A copy of a tensor on the host (a copy even of a CPU tensor, so that
+    an async checkpoint write never sees the next step's in-place update):
+    numpy, or (bfloat16 with ``keep_bf16``) a CPU tensor, since numpy has
+    no bfloat16 of its own; otherwise bfloat16 comes out as float32
+    (exactly)."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t if keep_bf16 else t.float().numpy()
+    return t.numpy()
+
+
+def _reference_tree(model: DecoderLM, named: dict, leaf) -> dict:
+    """``named`` ({parameter name: tensor}, e.g. a moment of the
+    optimizer) in the reference's pytree layout: ``leaf(tensors)`` of the
+    tensors that form each of its leaves (one, or every block's, in layer
+    order)."""
+    out: dict = {}
+    for path, names in reference_leaves(model).items():
+        _put(out, path, leaf([named[n] for n in names], path[0] == "layers"))
+    return out
+
+
+def _stack_host(keep_bf16: bool):
+    def leaf(ts, stacked):
+        if not stacked:
+            return _host_copy(ts[0], keep_bf16)
+        hs = [_host_copy(t, keep_bf16) for t in ts]
+        if isinstance(hs[0], torch.Tensor):
+            return torch.stack(hs)
+        return np.stack(hs)
+    return leaf
+
+
+def _cut(model: DecoderLM, tree: dict):
+    """Inverse of :func:`_reference_tree`: (parameter name, tensor) pairs of
+    a reference-layout ``tree``, a stacked leaf cut by layer (views, no
+    copy)."""
+    for path, names in reference_leaves(model).items():
+        a = _get(tree, path)
+        for i, n in enumerate(names):
+            yield n, _tensor(a[i] if path[0] == "layers" else a)
+
+
 @torch.no_grad()
+def load_lm_params(model: DecoderLM, params: dict) -> DecoderLM:
+    """Copy the reference's parameter pytree (numpy arrays or tensors, as
+    :func:`lm_params_to_numpy` or ``ckpt.checkpoint.restore`` give it) into
+    ``model``'s parameters, each cast to its slot's dtype."""
+    if len(params["layers"]) != 1:
+        raise NotImplementedError(
+            f"a layer pattern of period {len(params['layers'])} (hybrid, MoE, "
+            "xLSTM stacks) is not ported yet")
+    slots = dict(model.named_parameters())
+    for n, t in _cut(model, params):
+        p = slots[n]
+        if t.shape != p.shape:
+            raise ValueError(f"parameter of shape {tuple(t.shape)} for "
+                             f"{n} of {tuple(p.shape)}")
+        p.copy_(t.to(p.dtype))
+    return model
+
+
 def lm_params_from_numpy(params: dict, cfg, *, dtype=None,
                          device=None) -> DecoderLM:
     """The reference's parameter pytree (numpy arrays, e.g.
@@ -372,47 +438,64 @@ def lm_params_from_numpy(params: dict, cfg, *, dtype=None,
     ``device`` (default: the CUDA card).  The matrices keep their dtype
     unless ``dtype`` is given; norm scales stay float32."""
     device = resolve_device(device)
-    layers = params["layers"]
-    if len(layers) != 1:
-        raise NotImplementedError(
-            f"a layer pattern of period {len(layers)} (hybrid, MoE, xLSTM "
-            "stacks) is not ported yet")
     if dtype is None:
         dtype = _tensor(params["embed"]["w"]).dtype
-    model = DecoderLM(cfg, device=device, dtype=dtype)
-    pairs = [(p, _get(params, path)) for path, p in _top_leaves(model).items()]
-    for g, blk in enumerate(model.blocks):
-        pairs += [(p, np.asarray(_get(layers[0], path))[g])
-                  for path, p in _block_leaves(blk).items()]
-    for p, a in pairs:
-        t = _tensor(a)
-        if t.shape != p.shape:
-            raise ValueError(f"parameter of shape {tuple(t.shape)} for a "
-                             f"slot of {tuple(p.shape)}")
-        p.copy_(t.to(p.dtype))
-    return model
+    return load_lm_params(DecoderLM(cfg, device=device, dtype=dtype), params)
 
 
-def lm_params_to_numpy(model: DecoderLM) -> dict:
-    """The module's parameters as the reference's pytree of numpy arrays.
+def named_to_numpy(named: dict, model: DecoderLM, *,
+                   keep_bf16: bool = False) -> dict:
+    """``{parameter name: tensor}`` (the parameters, their gradients, a
+    moment of the optimizer) as the reference's pytree of ``model``'s
+    parameters (layers stacked on a leading axis) of numpy arrays.
     bfloat16 tensors come out as float32 (exactly: every bf16 value is a
-    float32), since numpy has no bfloat16 of its own."""
-    def host(t):
-        t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    float32), since numpy has no bfloat16 of its own; with ``keep_bf16``
+    they stay bfloat16, as CPU tensors, so a checkpoint stores them as the
+    reference's bf16 leaves."""
+    return _reference_tree(model, named, _stack_host(keep_bf16))
 
-    def put(tree, path, value):
-        for key in path[:-1]:
-            tree = tree.setdefault(key, {})
-        tree[path[-1]] = value
 
-    out: dict = {}
-    for path, p in _top_leaves(model).items():
-        put(out, path, host(p))
-    group: dict = {}
-    per_block = [_block_leaves(blk) for blk in model.blocks]
-    for path in per_block[0]:
-        put(group, path, np.stack([host(leaves[path])
-                                   for leaves in per_block]))
-    out["layers"] = [group]
+def lm_params_to_numpy(model: DecoderLM, *, keep_bf16: bool = False) -> dict:
+    """The module's parameters as the reference's pytree: see
+    :func:`named_to_numpy`."""
+    return named_to_numpy(dict(model.named_parameters()), model,
+                          keep_bf16=keep_bf16)
+
+
+def opt_state_to_numpy(opt_state: dict, model: DecoderLM, *,
+                       keep_bf16: bool = False) -> dict:
+    """The optimizer state of ``optim/adamw.py`` (and the error feedback of
+    ``optim/compress.py``) in the reference's layout: ``{"mu", "nu"[,
+    "ef"]}`` as :func:`lm_params_to_numpy` lays out the parameters, and
+    ``"count"`` a 0-d int32 array."""
+    out = {k: named_to_numpy(opt_state[k], model, keep_bf16=keep_bf16)
+           for k in ("mu", "nu", "ef") if k in opt_state}
+    out["count"] = np.asarray(int(opt_state["count"]), dtype=np.int32)
     return out
+
+
+def opt_state_from_numpy(tree: dict, model: DecoderLM, *,
+                         device=None) -> dict:
+    """Inverse of :func:`opt_state_to_numpy` on ``device`` (default: the
+    model's), each moment in its stored dtype."""
+    device = model.device if device is None else resolve_device(device)
+    out = {k: {n: t.to(device, copy=True) for n, t in _cut(model, tree[k])}
+           for k in ("mu", "nu", "ef") if k in tree}
+    out["count"] = torch.tensor(int(np.asarray(tree["count"])),
+                                dtype=torch.int32, device=device)
+    return out
+
+
+def train_state_like(model: DecoderLM, opt_state: dict) -> dict:
+    """``{"params", "opt"}`` in the reference's layout with a stand-in of
+    each leaf's shape and dtype (a meta tensor): the ``like`` of
+    ``ckpt.checkpoint.restore``, made without copying."""
+    def leaf(ts, stacked):
+        shape = ((len(ts),) if stacked else ()) + tuple(ts[0].shape)
+        return torch.empty(shape, dtype=ts[0].dtype, device="meta")
+
+    named = dict(model.named_parameters())
+    opt = {k: _reference_tree(model, opt_state[k], leaf)
+           for k in ("mu", "nu", "ef") if k in opt_state}
+    opt["count"] = torch.empty((), dtype=torch.int32, device="meta")
+    return {"params": _reference_tree(model, named, leaf), "opt": opt}

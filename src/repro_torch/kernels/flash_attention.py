@@ -43,6 +43,17 @@ vectors, so they raise on a pointer, or a batch, position or head stride,
 that does not keep every row on a 16-byte boundary.  Each call adds one
 to ``build.LAUNCHES["flash_attention"]`` and one to the count of the
 kernel it took (:data:`VARIANTS`).
+
+Gradients.  On the CPU autograd differentiates the plain version.  On the
+card a call whose q, k or v needs a gradient (with grad mode on) goes
+through :class:`FlashAttentionFn`: its forward is the kernel above, its
+backward :func:`flash_attention_backward`, which launches the two kernels
+of ``csrc/flash_attention_bwd.cu`` (``LAUNCHES["flash_attention_bwd"]``);
+:func:`flash_attention_backward_plain` is its arithmetic in float32.  The
+gradients are those of the float32 function: the tensor-core forward
+rounds P to bf16 before P V, the backward recomputes P in float32.  A
+checkpointed (remat) block runs the forward kernel again in its backward,
+and counts it again.
 """
 
 from __future__ import annotations
@@ -65,6 +76,8 @@ LOG2E = 1.4426950408889634
 VARIANTS = {"mma": "flash_attention_mma",
             "split_kv": "flash_attention_split_kv",
             "fma": "flash_attention_fma"}
+# launch-count key of the backward (its two kernels count as one call)
+BWD = "flash_attention_bwd"
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, q_offset: int = 0,
@@ -89,6 +102,46 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, q_offset: int = 0,
     s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+
+
+def flash_attention_backward_plain(q, k, v, out, dout, *,
+                                   causal: bool = True, q_offset: int = 0,
+                                   kv_valid_len: int | None = None
+                                   ) -> tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """dQ, dK, dV of :func:`flash_attention_plain` in float32, as the
+    backward kernel computes them: P recomputed from each row's
+    log-sum-exp, ``D = rowsum(dO * O)`` from the forward's output ``out``,
+    ``dS = P * (dP - D)``; dK and dV summed over each KV head's group.
+    Returns q's, k's and v's dtypes."""
+    b, tq, h, hd = q.shape
+    tk, kh = k.shape[1], k.shape[2]
+    kv_valid_len = tk if kv_valid_len is None else kv_valid_len
+    g = h // kh
+    scale = hd ** -0.5
+    qf, kf, vf = q.float(), k.float(), v.float()
+    if g > 1:
+        kf = kf.repeat_interleave(g, dim=2)
+        vf = vf.repeat_interleave(g, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    k_pos = torch.arange(tk, device=q.device)
+    q_pos = q_offset + torch.arange(tq, device=q.device)
+    mask = (k_pos < kv_valid_len)[None, :]
+    if causal:
+        mask = mask & (k_pos[None, :] <= q_pos[:, None])
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    do = dout.float()
+    d = (do * out.float()).sum(dim=-1).permute(0, 2, 1)[..., None]
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, vf)
+    ds = p * (dp - d)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    if g > 1:
+        dk = dk.reshape(b, tk, kh, g, hd).sum(dim=3)
+        dv = dv.reshape(b, tk, kh, g, hd).sum(dim=3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_decode_split_plain(q, k, v, *, causal: bool = True,
@@ -178,19 +231,34 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load("flash_attention_bwd")
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_float
+    lib.quiver_flash_attention_bwd.argtypes = [
+        p, p, p, p, p,                # q, k, v, out, dout
+        p, p, p, p, p, i,             # dq, dk, dv, lse, d scratch, dtype
+        i, i, i, i, i, i,             # b, tq, tk, h, kh, hd
+        *[ll] * 9, i, i, i, f, p]     # strides, masking, scale, stream
+    lib.quiver_flash_attention_bwd.restype = i
+    return lib
+
+
 def _check_vectors(*named) -> None:
-    """The bf16 kernels copy rows in 16-byte vectors (8 bf16): each base
-    pointer, and each stride of a batch, position or head axis longer than
-    1, must keep rows on a 16-byte boundary."""
+    """The bf16 kernels (and the backward in either dtype) copy rows in
+    16-byte vectors: each base pointer, and each stride of a batch,
+    position or head axis longer than 1, must keep rows on a 16-byte
+    boundary."""
     for name, t in named:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}'s data pointer is not 16-byte aligned, "
-                             "which the bf16 kernels' 16-byte copies need")
+                             "which the kernels' 16-byte copies need")
+        per = 16 // t.element_size()
         for dim in range(3):
-            if t.shape[dim] > 1 and t.stride(dim) % 8:
+            if t.shape[dim] > 1 and t.stride(dim) % per:
                 raise ValueError(
                     f"{name}'s stride {t.stride(dim)} of axis {dim} is not a "
-                    "multiple of 8 elements (16 bytes), which the bf16 "
+                    f"multiple of {per} elements (16 bytes), which the "
                     "kernels' 16-byte copies need")
 
 
@@ -199,7 +267,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kv_valid_len: int | None = None) -> torch.Tensor:
     """(B, Tq, H, hd) x (B, Tk, K, hd) x2 -> (B, Tq, H, hd) in ``q``'s
     dtype.  ``kv_valid_len`` defaults to Tk; ``q_offset`` is the position
-    of query row 0 (the cache position in prefill and decode)."""
+    of query row 0 (the cache position in prefill and decode).  On the
+    card, a call whose inputs need a gradient goes through
+    :class:`FlashAttentionFn`."""
     kv_valid_len = k.shape[1] if kv_valid_len is None else int(kv_valid_len)
     q_offset = int(q_offset)
     _check(q, k, v, q_offset, kv_valid_len)
@@ -207,6 +277,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal=causal,
                                      q_offset=q_offset,
                                      kv_valid_len=kv_valid_len)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        _check_backward(q, k, v)
+        return FlashAttentionFn.apply(q, k, v, causal, q_offset,
+                                      kv_valid_len)
+    return _forward(q, k, v, causal, q_offset, kv_valid_len)
+
+
+def _forward(q, k, v, causal: bool, q_offset: int,
+             kv_valid_len: int) -> torch.Tensor:
+    """Launch the forward kernel that ``q``'s dtype and Tq select."""
     b, tq, h, hd = q.shape
     tk, kh = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS:
@@ -252,3 +333,99 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     build.LAUNCHES[VARIANTS[variant]] += 1
     build.check(status, f"flash_attention ({variant})")
     return out
+
+
+def _check_backward(q, k, v) -> None:
+    """What the backward kernel takes: q, k and v of one dtype (float32 or
+    bfloat16), a head width of :data:`HEAD_DIMS`, the head axis contiguous
+    and rows on 16-byte boundaries."""
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"the backward takes q, k, v of one dtype, float32 "
+                         f"or bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"head width {q.shape[3]} not in {HEAD_DIMS}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name}'s head axis must be contiguous")
+    _check_vectors(("q", q), ("k", k), ("v", v))
+
+
+def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
+                             q_offset: int = 0,
+                             kv_valid_len: int | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """dQ, dK, dV of :func:`flash_attention` for the forward's output
+    ``out`` and its incoming gradient ``dout`` (both (B, Tq, H, hd) in q's
+    dtype).  A CPU tensor takes :func:`flash_attention_backward_plain`; a
+    CUDA tensor launches ``csrc/flash_attention_bwd.cu`` (its dQ kernel,
+    then its dK/dV kernel) or raises: on a dtype or head width it does not
+    take, or on an ``out``/``dout`` that is not contiguous and 16-byte
+    aligned."""
+    kv_valid_len = k.shape[1] if kv_valid_len is None else int(kv_valid_len)
+    q_offset = int(q_offset)
+    _check(q, k, v, q_offset, kv_valid_len)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout "
+                         f"{tuple(dout.shape)} must be q's {tuple(q.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(
+            q, k, v, out, dout, causal=causal, q_offset=q_offset,
+            kv_valid_len=kv_valid_len)
+    _check_backward(q, k, v)
+    for name, t in (("out", out), ("dout", dout)):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}; q is "
+                             f"{q.dtype} on {q.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte "
+                             "aligned")
+    b, tq, h, hd = q.shape
+    tk, kh = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty((b, tk, kh, hd), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, tk, kh, hd), dtype=v.dtype, device=v.device)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    dd = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    strides = (q.stride(0), q.stride(1), q.stride(2),
+               k.stride(0), k.stride(1), k.stride(2),
+               v.stride(0), v.stride(1), v.stride(2))
+    status = _bwd_lib().quiver_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        lse.data_ptr(), dd.data_ptr(), _DTYPES[q.dtype], b, tq, tk, h, kh,
+        hd, *strides, int(causal), q_offset, kv_valid_len, hd ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.LAUNCHES[BWD] += 1
+    build.check(status, "flash_attention_bwd")
+    return dq, dk, dv
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and on a 16-byte boundary (a copy only where it is
+    not): autograd may hand the backward a strided or offset gradient."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """:func:`flash_attention` on the card with a gradient: the forward is
+    the forward kernel, the backward the backward kernel; q, k, v and the
+    output are saved for it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, q_offset: int,
+                kv_valid_len: int):
+        out = _forward(q, k, v, causal, q_offset, kv_valid_len)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.masking = (causal, q_offset, kv_valid_len)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        causal, q_offset, kv_valid_len = ctx.masking
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, _aligned(dout), causal=causal, q_offset=q_offset,
+            kv_valid_len=kv_valid_len)
+        return dq, dk, dv, None, None, None

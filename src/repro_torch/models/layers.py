@@ -6,7 +6,8 @@ tensors keep the reference's layout, so ``x @ w`` is the same product:
 a linear's ``w`` is ``(d_in, d_out)``, an embedding's ``(vocab, d)``.  The
 functions take those modules where the reference takes its param dicts.
 Compute follows the reference: matrices in their own dtype (bf16 by
-default), norms and rotary in float32 and cast back.
+default), norms and rotary in float32 and cast back.  Parameters are
+trainable; the serving entry points run under ``torch.no_grad``.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ class Linear(nn.Module):
 
     def __init__(self, w: torch.Tensor):
         super().__init__()
-        self.w = nn.Parameter(w, requires_grad=False)
+        self.w = nn.Parameter(w)
 
 
 class Norm(nn.Module):
@@ -28,7 +29,7 @@ class Norm(nn.Module):
 
     def __init__(self, scale: torch.Tensor):
         super().__init__()
-        self.scale = nn.Parameter(scale, requires_grad=False)
+        self.scale = nn.Parameter(scale)
 
 
 class Embedding(nn.Module):
@@ -36,7 +37,7 @@ class Embedding(nn.Module):
 
     def __init__(self, w: torch.Tensor):
         super().__init__()
-        self.w = nn.Parameter(w, requires_grad=False)
+        self.w = nn.Parameter(w)
 
 
 def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:

@@ -1,17 +1,22 @@
-"""Model dispatcher: one uniform serving bundle per architecture.
+"""Model dispatcher: one uniform bundle per architecture.
 
 Counterpart of ``repro/models/model.py``.  ``build_model(cfg)`` returns a
 :class:`ModelBundle` exposing
 
     init(seed, device=None, dtype=bf16) -> DecoderLM
+    loss(model, batch)                  -> (loss, metrics)
     prefill(model, batch, caches)       -> (last_logits, caches)
     decode(model, tokens, caches, pos)  -> (logits, caches)
     init_caches(b, max_seq, device=None) -> KVCache (written in place)
+    input_specs(shape)                  -> {name: (shape, dtype)} (global)
 
-for the dense decoder family; ``device=None`` means the CUDA card.  Batch
-layout: ``{"tokens": (B, S) integers}``.  The reference's ``loss`` and
-``input_specs`` come with the training slice; the encoder-decoder bundle
-(whisper) is not ported and raises.
+for the dense decoder family; ``device=None`` means the CUDA card.  The
+module takes the place of the reference's parameter pytree.  Batch layout:
+``{"tokens": (B, S) integers, "labels": (B, S) integers}`` (labels for
+``loss`` only; numpy arrays or tensors).  ``loss`` runs with gradients (a
+caller calls ``backward()`` on it); prefill and decode run under
+``torch.no_grad``.  The encoder-decoder bundle (whisper) is not ported
+and raises.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
 
@@ -28,9 +33,26 @@ from repro_torch.models import transformer as tf
 class ModelBundle(NamedTuple):
     cfg: ArchConfig
     init: Callable
+    loss: Callable
     prefill: Callable
     decode: Callable
     init_caches: Callable
+    input_specs: Callable
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token-mean CE with label mask (labels < 0 ignored), float32; returns
+    (loss, number of counted tokens).  ``vocab`` is unused, as in the
+    reference (the padded slots' -1e30 logits add nothing)."""
+    del vocab
+    logits = logits.float()
+    mask = (labels >= 0).float()
+    safe = labels.clamp_min(0)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    n = mask.sum()
+    return ((logz - ll) * mask).sum() / n.clamp_min(1.0), n
 
 
 def _as_tokens(tokens, device) -> torch.Tensor:
@@ -49,22 +71,47 @@ def _decoder_bundle(cfg: ArchConfig) -> ModelBundle:
         return tf.init_decoder(cfg, generator=gen, device=device,
                                dtype=dtype)
 
+    def loss(model, batch):
+        device = model.device
+        x = tf.embed_tokens(model, _as_tokens(batch["tokens"], device))
+        h = tf.forward_hidden(model, x)
+        logits = tf.logits_from_hidden(model, h)
+        ce, n_tok = cross_entropy(logits, _as_tokens(batch["labels"], device),
+                                  cfg.vocab_size)
+        # a dense stack has no MoE auxiliary loss and drops no token
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        total = ce + 0.01 * zero
+        return total, {"ce": ce, "tokens": n_tok, "load_balance_loss": zero,
+                       "dropped_fraction": zero}
+
+    def input_specs(shape: ShapeConfig) -> dict:
+        b, s = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"tokens": ((b, 1), torch.int32)}
+        specs = {"tokens": ((b, s), torch.int32)}
+        if shape.kind == "train":
+            specs["labels"] = ((b, s), torch.int32)
+        return specs
+
     def init_caches(b: int, max_seq: int, *, device=None):
         return tf.init_caches(cfg, b, max_seq, device=resolve_device(device))
 
+    @torch.no_grad()
     def prefill(model, batch, caches):
         x = tf.embed_tokens(model, _as_tokens(batch["tokens"], model.device))
         h, caches = tf.forward_with_cache(model, x, caches, 0)
         logits = tf.logits_from_hidden(model, h[:, -1:])
         return logits[:, 0], caches
 
+    @torch.no_grad()
     def decode(model, tokens, caches, pos: int):
         x = tf.embed_tokens(model, _as_tokens(tokens, model.device))
         h, caches = tf.forward_with_cache(model, x, caches, int(pos))
         logits = tf.logits_from_hidden(model, h[:, -1:])
         return logits[:, 0], caches
 
-    return ModelBundle(cfg, init, prefill, decode, init_caches)
+    return ModelBundle(cfg, init, loss, prefill, decode, init_caches,
+                       input_specs)
 
 
 def build_model(cfg: ArchConfig) -> ModelBundle:

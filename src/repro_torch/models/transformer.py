@@ -4,20 +4,26 @@ Counterpart of ``repro/models/transformer.py`` for ``layer_kind == "attn"``
 with a dense FFN (MiniCPM, Yi, the llama-like stacks).  The reference scans
 over groups of layers with remat; here :class:`DecoderLM` is an
 ``nn.Module`` and the forward passes loop over its blocks in Python (no
-scan, no remat).  Parameters keep the reference's layout and distributions
+scan).  With ``cfg.remat`` and grad mode on, :func:`forward_hidden` wraps
+each block in ``torch.utils.checkpoint`` (non-reentrant), the reference's
+``jax.checkpoint(..., nothing_saveable)`` around a group (a dense group is
+one layer): only the block's input is kept, and its backward runs the
+block again.  Parameters keep the reference's layout and distributions
 (:func:`init_decoder`), and :mod:`repro_torch.convert` carries the
-reference's parameter pytree onto the module.
+reference's parameter pytree onto the module.  The parameters are
+trainable; the serving passes (``models/model.py``' prefill and decode,
+:func:`forward_with_cache`, ``serve/engine.py``'s embedder) run under
+``torch.no_grad``.
 
 Not ported: MoE layers (qwen2-moe, qwen3-moe), mamba (jamba), xLSTM and the
 vlm front end; each raises ``NotImplementedError`` naming its ROADMAP item.
-The module serves (no gradients): its backward comes with the training
-slice.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
@@ -87,6 +93,26 @@ class DecoderLM(nn.Module):
         return self.embed.w.device
 
 
+def reference_leaves(model: nn.Module) -> dict:
+    """{path in the reference's parameter pytree: the names of
+    ``model.named_parameters()`` that form it}.  A top-level tensor is one
+    name (``("embed", "w")``); a block's tensor is every block's, in layer
+    order, under the reference's stacked group (``("layers", 0, "attn",
+    "wq", "w")``: ``blocks.0.attn.wq.w``, ``blocks.1.attn.wq.w``, ...)."""
+    out: dict = {}
+    for name, _ in model.named_parameters():
+        parts = tuple(name.split("."))
+        path = ("layers", 0, *parts[2:]) if parts[0] == "blocks" else parts
+        out.setdefault(path, []).append(name)
+    return out
+
+
+def param_groups(model: nn.Module) -> list:
+    """The parameter names grouped by the reference's pytree leaves (see
+    :func:`reference_leaves`): what the reference treats as one tensor."""
+    return list(reference_leaves(model).values())
+
+
 def matrix_param_count(model: nn.Module) -> int:
     """Elements of the model's matrices: what ``ArchConfig.param_count()``
     counts (it leaves out the norm scales)."""
@@ -146,24 +172,31 @@ def embed_tokens(model: DecoderLM, tokens: torch.Tensor) -> torch.Tensor:
     return embed(model.embed, tokens)
 
 
-@torch.no_grad()
 def forward_hidden(model: DecoderLM, x: torch.Tensor) -> torch.Tensor:
-    """Scoring forward through the stack (causal, no cache); x: (B, S, d).
-    Returns the final-normed hidden state.  (The reference also returns
-    the MoE auxiliary losses, which a dense stack does not have.)"""
+    """Training/scoring forward through the stack (causal, no cache); x:
+    (B, S, d).  Returns the final-normed hidden state.  With
+    ``cfg.remat`` and grad mode on, each block is checkpointed.  (The
+    reference also returns the MoE auxiliary losses, which a dense stack
+    does not have.)"""
     cfg = model.cfg
+    remat = cfg.remat and torch.is_grad_enabled()
     for blk in model.blocks:
-        x = _apply_block(blk, x, cfg)
+        if remat:
+            x = checkpoint(_apply_block, blk, x, cfg, use_reentrant=False)
+        else:
+            x = _apply_block(blk, x, cfg)
     return rmsnorm(model.final_norm, x, cfg.norm_eps)
 
 
-@torch.no_grad()
 def logits_from_hidden(model: DecoderLM, x: torch.Tensor) -> torch.Tensor:
-    """float32 logits; padded vocabulary slots are -1e30."""
+    """float32 logits; padded vocabulary slots are -1e30 (out of place, as
+    the reference's ``jnp.where``)."""
     cfg = model.cfg
     logits = linear(model.lm_head, x).float()
     if cfg.padded_vocab != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = -1e30
+        pad = torch.arange(cfg.padded_vocab,
+                           device=logits.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e30)
     return logits
 
 

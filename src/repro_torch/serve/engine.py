@@ -815,6 +815,7 @@ def mean_pool_embedder(bundle, model) -> Callable:
     and rounded to the state's dtype before the cast to float32."""
     del bundle
 
+    @torch.no_grad()
     def embed(tokens) -> torch.Tensor:
         x = tf.embed_tokens(
             model, torch.as_tensor(tokens, device=model.device).long())

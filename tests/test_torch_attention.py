@@ -28,6 +28,15 @@ jax.config.update("jax_platform_name", "cpu")
 torch.set_num_threads(1)
 
 
+@pytest.fixture(autouse=True)
+def _inference():
+    """These tests hold inference numerics: the port's parameters are
+    trainable, so each test runs under ``torch.no_grad``, as the serving
+    entry points do (the backward is ``tests/test_torch_flash_bwd.py``'s)."""
+    with torch.no_grad():
+        yield
+
+
 def _qkv(rng, b, tq, tk, h, kh, hd, dtype=np.float32):
     q = rng.standard_normal((b, tq, h, hd)).astype(dtype)
     k = rng.standard_normal((b, tk, kh, hd)).astype(dtype)

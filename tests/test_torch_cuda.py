@@ -887,3 +887,149 @@ def test_card_streaming_fleet_equals_cpu(cuda):
     _same_fleet(*(convert.sharded_to_numpy(f.snapshot()) for f in (g, c)))
     for (gi, gsc), (ci, csc) in ((g_fan, c_fan), (g_sc, c_sc)):
         _ids_match(gi, ci, gsc, csc)
+
+
+# -- the flash-attention backward and training, card against CPU ----------
+
+# (b, tq, tk, h, kv heads, hd, causal, q_offset, kv_valid_len)
+BWD_CASES = {
+    "train_shape": (4, 256, 256, 36, 36, 64, True, 0, 256),
+    "gqa_hd128": (1, 100, 100, 56, 8, 128, True, 0, 100),
+    "hd16": (2, 70, 70, 4, 4, 16, True, 0, 70),
+    "hd32_bidirectional": (2, 100, 100, 8, 2, 32, False, 0, 100),
+    "offset_ragged": (2, 65, 130, 4, 2, 64, True, 50, 115),
+    "hd128_offset": (1, 37, 100, 4, 2, 128, True, 20, 57),
+    "masked_keys_bidirectional": (1, 45, 45, 8, 2, 64, False, 0, 40),
+    "long_cache": (1, 128, 4096, 4, 4, 64, True, 3968, 4096),
+}
+
+
+def _bwd_inputs(case, dtype, device):
+    b, tq, tk, h, kvh, hd = BWD_CASES[case][:6]
+    g = torch.Generator().manual_seed(tk + h)
+    q, do = (torch.randn((b, tq, h, hd), generator=g).to(device, dtype)
+             for _ in range(2))
+    k, v = (torch.randn((b, tk, kvh, hd), generator=g).to(device, dtype)
+            for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_flash_bwd_matches_plain(cuda, case, dtype):
+    """The backward kernel against ``flash_attention_backward_plain`` on the
+    same inputs and forward output: float32 within 1e-4 of the largest
+    gradient (float32 sums in another order, CUDA's expf), bf16 within one
+    bf16 rounding of it (2^-7); two calls bitwise equal."""
+    causal, q_offset, valid = BWD_CASES[case][6:]
+    q, k, v, do = _bwd_inputs(case, dtype, cuda)
+    kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=valid)
+    out = kf.flash_attention(q, k, v, **kw)
+    build.reset_launches()
+    got = kf.flash_attention_backward(q, k, v, out, do, **kw)
+    assert build.LAUNCHES[kf.BWD] == 1
+    again = kf.flash_attention_backward(q, k, v, out, do, **kw)
+    want = kf.flash_attention_backward_plain(q, k, v, out, do, **kw)
+    rel = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    for a, b, w, t in zip(got, again, want, (q, k, v)):
+        assert a.dtype == t.dtype and a.shape == t.shape
+        assert torch.equal(a, b)
+        tol = rel * max(float(w.float().abs().max()), 1e-6)
+        torch.testing.assert_close(a.float(), w.float(), rtol=0, atol=tol)
+
+
+def test_flash_bwd_kernel_takes_every_gradient(cuda):
+    """On the card a call whose inputs need a gradient returns a tensor
+    with a ``grad_fn``, and its backward launches the backward kernel
+    once (a strided incoming gradient is copied first)."""
+    q, k, v, do = _bwd_inputs("gqa_hd128", torch.bfloat16, cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    build.reset_launches()
+    out = kf.flash_attention(*leaves)
+    assert out.grad_fn is not None
+    assert build.LAUNCHES["flash_attention_mma"] == 1
+    wide = torch.cat([do, do], dim=-1)[..., :do.shape[-1]]
+    out.backward(wide)
+    assert build.LAUNCHES[kf.BWD] == 1
+    want = kf.flash_attention_backward(q, k, v, out.detach(), do)
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
+    with torch.no_grad():
+        assert kf.flash_attention(*leaves).grad_fn is None
+
+
+def test_flash_bwd_rejects_what_it_does_not_take(cuda):
+    q, k, v, do = _bwd_inputs("hd16", torch.bfloat16, cuda)
+    out = kf.flash_attention(q, k, v)
+    flat = torch.zeros(k.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    bad = flat[1:].view(k.shape)
+    build.reset_launches()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kf.flash_attention_backward(q, bad, bad, out, do)
+    with pytest.raises(ValueError, match="one dtype"):
+        kf.flash_attention_backward(q, k.float(), v.float(), out, do)
+    with pytest.raises(ValueError, match="contiguous"):
+        kf.flash_attention_backward(q, k, v, out,
+                                    torch.cat([do, do], -1)[..., :16])
+    wide = torch.zeros((1, 4, 2, 48), device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="head width"):
+        kf.flash_attention(wide, wide, wide)
+    assert build.LAUNCHES[kf.BWD] == 0
+
+
+def _cosine(a, b) -> float:
+    a, b = a.float().flatten(), b.float().flatten()
+    return float(a @ b / (a.norm() * b.norm()).clamp_min(1e-30))
+
+
+def test_card_training_step_matches_cpu(cuda):
+    """minicpm-2b at full width and 2 layers, bf16, the same parameters and
+    batch (B 2, S 64) on the CPU and the card, one train step each: the
+    loss and grad norm within 1e-2 relative; the gradients, read from the
+    first moment (``mu = 0.1 g`` clipped, one step from zero), at a
+    relative L2 within 5e-2 of the CPU's leaf by leaf (bf16 products round
+    at other places; the card's forward rounds P to bf16), every attention
+    weight's nonzero; the backward kernel launched once a layer and the
+    forward twice (remat); each matrix's update at cosine >= 0.9 with the
+    CPU's."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    cfg = dataclasses.replace(get_config("minicpm-2b"), n_layers=2)
+    bundle = build_model(cfg)
+    cpu = bundle.init(0, device="cpu")
+    gpu = DecoderLM(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(1)
+    batch = {k: rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    before = {n: p.detach().clone() for n, p in cpu.named_parameters()
+              if p.ndim >= 2}
+    tc = TrainConfig(peak_lr=1e-3, warmup=0, total_steps=10)
+    step = make_train_step(bundle, tc)
+    out = []
+    for model in (cpu, gpu):
+        build.reset_launches()
+        opt = init_opt_state(dict(model.named_parameters()), tc.adamw)
+        model, opt, metrics = step(model, opt, batch)
+        out.append((opt, metrics))
+    assert build.LAUNCHES[kf.BWD] == 2
+    assert build.LAUNCHES["flash_attention_mma"] == 4
+    (c_opt, c_m), (g_opt, g_m) = out
+    for key in ("loss", "grad_norm"):
+        assert abs(g_m[key].item() / c_m[key].item() - 1) <= 1e-2, key
+    g_params = dict(gpu.named_parameters())
+    for n, p in cpu.named_parameters():
+        want, got = c_opt["mu"][n], g_opt["mu"][n].cpu()
+        assert (got - want).norm() <= 5e-2 * want.norm(), n
+        if ".attn." in n:
+            assert got.abs().sum() > 0, n
+        if n in before:
+            assert _cosine(g_params[n].detach().cpu().float()
+                           - before[n].float(),
+                           p.detach().float() - before[n].float()) >= 0.9, n

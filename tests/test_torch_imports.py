@@ -62,6 +62,10 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.obs.graph", "repro_torch.obs.remediate"} <= set(mods)
     assert {"repro_torch.core.distributed",
             "repro_torch.stream.sharded"} <= set(mods)
+    assert {"repro_torch.optim.adamw", "repro_torch.optim.schedule",
+            "repro_torch.optim.compress", "repro_torch.train.train_step",
+            "repro_torch.train.trainer", "repro_torch.ckpt.checkpoint",
+            "repro_torch.data.pipeline", "repro_torch.launch.train"} <= set(mods)
     _run_fresh(
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"

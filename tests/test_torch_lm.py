@@ -18,13 +18,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.base import SHAPES as JSHAPES
+from repro.configs.base import cell_is_supported as jax_cell_is_supported
 from repro.configs.base import get_config as jax_get_config
 from repro.models import ffn as jffn
 from repro.models import layers as jlayers
 from repro.models import transformer as jtf
 from repro.models.model import build_model as jax_build_model
 from repro_torch import convert
-from repro_torch.configs.base import get_config
+from repro_torch.configs.base import SHAPES, cell_is_supported, get_config
 from repro_torch.models import ffn, layers
 from repro_torch.models import transformer as tf
 from repro_torch.models.model import build_model
@@ -34,6 +36,15 @@ jax.config.update("jax_platform_name", "cpu")
 torch.set_num_threads(1)
 
 ARCHS = ("minicpm-2b", "yi-34b")
+
+
+@pytest.fixture(autouse=True)
+def _inference():
+    """These tests hold inference numerics: the port's parameters are
+    trainable, so each test runs under ``torch.no_grad``, as the serving
+    entry points do (the gradients are ``tests/test_torch_train.py``'s)."""
+    with torch.no_grad():
+        yield
 
 
 @pytest.mark.parametrize("name", ARCHS)
@@ -47,6 +58,12 @@ def test_configs_are_copies(name):
         assert cfg_g.param_count() == cfg_w.param_count()
         assert cfg_g.padded_vocab == cfg_w.padded_vocab
         assert cfg_g.pattern() == cfg_w.pattern()
+        assert cfg_g.seq_sharded_residual == cfg_w.seq_sharded_residual
+    for key, shape in JSHAPES.items():
+        assert dataclasses.asdict(SHAPES[key]) == dataclasses.asdict(shape)
+        assert cell_is_supported(got, SHAPES[key]) == \
+            jax_cell_is_supported(want, shape)
+    assert set(SHAPES) == set(JSHAPES)
 
 
 @pytest.mark.parametrize("name", ARCHS)
