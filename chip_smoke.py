@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases build,kernels,rag
     python3 chip_smoke.py --phases build,kernels,train
     python3 chip_smoke.py --phases build,profile      # opt-in breakdown
+    python3 chip_smoke.py --phases build,kernels,train,trainprof
 
 Phases, in order; any failure raises and the script exits nonzero:
 
@@ -59,13 +60,24 @@ Phases, in order; any failure raises and the script exits nonzero:
               26.8 GB of float32 levels, gathered when it is timed).
               ``flash_attention_backward`` (``FLASH_BWD_CASES``: the
               train phase's shape, B 4, T 256, 36 heads of 64, causal,
-              bf16; 56 heads over 8 at hd 128; the train shape in
-              float32) against ``flash_attention_backward_plain`` on the
-              same forward output (float32 within 1e-4, bf16 within
-              2^-7, of the largest gradient), two calls bit for bit
-              equal; timed at the train shape, with SDPA's backward
+              bf16; 56 heads over 8 at hd 128; a ragged Tq at q_offset
+              50 over a ragged cache; one query row; hd 16 without a
+              causal mask; 4096 keys; the train shape in float32), each
+              call through the route its dtype selects (bf16: the
+              tensor-core kernels given the forward's log-sum-exp,
+              ``flash_attention_bwd_mma``; float32: the CUDA-core
+              kernels, ``flash_attention_bwd_fma``), against
+              ``flash_attention_backward_plain`` on the same forward
+              output (float32 within 1e-4, bf16 within 2^-7, of the
+              largest gradient), bf16 also against its mirror
+              ``flash_attention_backward_mma_plain`` (``MIRROR_RTOL``,
+              ``MIRROR_ATOL``); two calls bit for bit equal (the second,
+              in bf16, without the log-sum-exp); dK and dV of keys no
+              row sees exactly zero; both routes timed at the train
+              shape, the bf16 one split by kernel, with SDPA's backward
               (``torch.autograd.grad`` on a saved graph) as the library
-              call.
+              call; the float32 route is logged, not in the kernels
+              line (no path launches it).
 3. parity   — the same N = 4000 builds and searches on ``device="cpu"`` and
               on the card, beam-searched and IVF-seeded: identical
               partition, adjacency, medoid and candidate ids; the filter
@@ -292,7 +304,8 @@ train       — training ``minicpm-2b`` at full width and depth (40 layers,
               checkpoint.  Gates: every loss and grad norm finite; the
               mean of the last three losses below the first three's by
               0.2 (the reference's own bar); ``flash_attention_bwd``
-              launched 40 x 2 x 10 times and ``flash_attention_mma``
+              launched 40 x 2 x 10 times, every one through
+              ``flash_attention_bwd_mma``, and ``flash_attention_mma``
               twice that (each block's forward again in its backward);
               every attention weight's first moment nonzero.  Printed:
               seconds a step, tokens/s, ``max_memory_allocated``, the
@@ -301,10 +314,17 @@ train       — training ``minicpm-2b`` at full width and depth (40 layers,
               under ``build/`` (deleted after), resumed to step 4, equal
               bit for bit to 4 uninterrupted steps; then
               ``launch.train.main`` with ``--smoke --steps 8``.
-An opt-in eighth phase, ``profile``, is not run by default: it profiles a
-few build chunks at the main path's size with ``torch.profiler`` and
-prints the device's busy share, device time by kernel, and the port's own
-kernels' share of it.
+Two opt-in phases are not run by default.  ``profile`` profiles a few
+build chunks at the main path's size with ``torch.profiler`` and prints
+the device's busy share, device time by kernel, and the port's own
+kernels' share of it.  ``trainprof`` (``--phases
+build,kernels,train,trainprof``) profiles one steady step of the train
+phase's model and step after an unprofiled warm-up step, and prints the
+device's busy share of it, the idle time between kernels (the host's
+launches), the 15 kernels with the most device time and the device time
+by group: matmuls, flash forward and backward, AdamW, the float32
+accumulation, copies and casts, and the microbatches' elementwise kernels
+(norms, rotary, SwiGLU, the loss).
 
 The last three lines of standard output are the card's name and power
 limit (``nvidia-smi``), one JSON line of per-kernel numbers (``launches``
@@ -327,7 +347,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "parity", "main", "ivf", "ladder", "filter",
           "stream", "engine", "fleet", "rag", "train")
-OPT_IN = ("profile",)
+OPT_IN = ("profile", "trainprof")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the float32
 # CUDA-core rate, used as the rate of binarize's and hamming's integer and
@@ -908,32 +928,64 @@ def flash_bwd_bound(b, tq, tk, h, kvh, hd, causal, q_offset, valid, elem):
     """(ms, "bytes" or "operations") for one backward call: the five
     products (S again, dP, dQ, dK, dV), 2 hd flops each for every visible
     (row, key) pair, at the bf16 tensor-core rate, against q, O, dO, dQ,
-    the visible K/V rows and dK, dV moved once."""
+    the visible K/V rows and dK, dV moved once, and for bf16 the forward's
+    float32 log-sum-exp read once."""
     rows = [min(valid, q_offset + i + 1) if causal else valid
             for i in range(tq)]
     flops = 10 * hd * sum(rows) * b * h
     nbytes = elem * hd * (4 * b * tq * h + 2 * b * kvh * max(rows)
                           + 2 * b * kvh * tk)
+    if elem == 2:
+        nbytes += 4 * b * h * tq
     return bound(nbytes, flops, TENSOR_FLOPS_PER_S)
 
 
-# (label, b, tq, tk, h, kv heads, hd, causal, dtype name): the train
-# phase's attention (minicpm-2b, B 4, T 256, bf16), a GQA shape and the
+# (label, b, tq, tk, h, kv heads, hd, causal, q_offset, kv_valid_len, dtype
+# name): the train phase's attention (minicpm-2b, B 4, T 256, bf16), GQA at
+# hd 128, a ragged Tq over a ragged cache at q_offset 50, one query row (its
+# forward is the split-KV decode, so the backward gets the log-sum-exp from
+# the tensor-core forward), hd 16 without a causal mask, 4096 keys, and the
 # train shape in float32
 FLASH_BWD_CASES = [
-    ("train", 4, 256, 256, 36, 36, 64, True, "bfloat16"),
-    ("gqa hd128", 2, 256, 256, 56, 8, 128, True, "bfloat16"),
-    ("train float32", 4, 256, 256, 36, 36, 64, True, "float32"),
+    ("train", 4, 256, 256, 36, 36, 64, True, 0, 256, "bfloat16"),
+    ("gqa hd128", 2, 256, 256, 56, 8, 128, True, 0, 256, "bfloat16"),
+    ("ragged q_offset", 2, 65, 130, 4, 2, 64, True, 50, 115, "bfloat16"),
+    ("one row", 2, 1, 90, 4, 2, 32, True, 60, 63, "bfloat16"),
+    ("hd16 bidirectional", 2, 70, 70, 4, 4, 16, False, 0, 60, "bfloat16"),
+    ("long cache", 1, 128, 4096, 4, 4, 64, True, 3968, 4096, "bfloat16"),
+    ("train float32", 4, 256, 256, 36, 36, 64, True, 0, 256, "float32"),
 ]
+# the bf16 kernel against its mirror (flash_attention_backward_mma_plain):
+# |got - want| <= MIRROR_RTOL |want| + MIRROR_ATOL max|want|, element by
+# element: the two round the same float32 values to bf16, reached by sums
+# in another order, so an output may land one bf16 ulp (at most 2^-7 of
+# itself) away; a rounding of P or dS that the order or exp2's last bit
+# flips moves a gradient by a small share of the largest
+MIRROR_RTOL, MIRROR_ATOL = 2.0 ** -7, 2.0 ** -9
+
+
+def mirror_ratio(torch, got, want) -> float:
+    """max |got - want| / (MIRROR_RTOL |want| + MIRROR_ATOL max|want|): at
+    most 1 where the kernel holds to its mirror."""
+    w = want.float()
+    tol = MIRROR_RTOL * w.abs() + MIRROR_ATOL * float(w.abs().max())
+    return float(((got.float() - w).abs() / tol.clamp_min(1e-30)).max())
 
 
 def flash_bwd_kernels(torch) -> dict:
-    """``flash_attention_backward`` against ``flash_attention_backward_
-    plain`` (float32 within 1e-4, bf16 within 2^-7, of the largest
-    gradient), twice with identical bits, one launch a call; at the train
-    shape its numbers, with SDPA's backward (``torch.autograd.grad`` on a
-    saved graph of ``scaled_dot_product_attention``, within 2e-2 of the
-    largest gradient) as the library call."""
+    """``flash_attention_backward`` at ``FLASH_BWD_CASES``, each call through
+    the route its dtype selects (bf16: the tensor-core kernels, given the
+    forward's log-sum-exp as training gives it; float32: the CUDA-core
+    kernels), one launch a call: against ``flash_attention_backward_plain``
+    (float32 within 1e-4, bf16 within 2^-7, of the largest gradient), bf16
+    also against its mirror ``flash_attention_backward_mma_plain``
+    (``MIRROR_RTOL``, ``MIRROR_ATOL``); a second call equal bit for bit (for
+    bf16 without the log-sum-exp, which the wrapper then gets from the same
+    forward kernel).  At the train shape the numbers of both routes, with
+    SDPA's backward (``torch.autograd.grad`` on a saved graph of
+    ``scaled_dot_product_attention``, within 2e-2 of the largest gradient)
+    as the library call; the float32 route's are logged, not in the kernels
+    line (no path launches it)."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from repro_torch.kernels import build as kbuild
@@ -941,24 +993,32 @@ def flash_bwd_kernels(torch) -> dict:
 
     g = torch.Generator(device="cuda").manual_seed(22)
     out = {}
-    for label, b, tq, tk, h, kvh, hd, causal, dname in FLASH_BWD_CASES:
+    for (label, b, tq, tk, h, kvh, hd, causal, q_offset, valid,
+         dname) in FLASH_BWD_CASES:
         dtype = getattr(torch, dname)
         q, do = (torch.randn((b, tq, h, hd), generator=g, device="cuda",
                              dtype=dtype) for _ in range(2))
         k, v = (torch.randn((b, tk, kvh, hd), generator=g, device="cuda",
                             dtype=dtype) for _ in range(2))
-        kw = dict(causal=causal)
-        o = kf.flash_attention(q, k, v, **kw)
-        before = kbuild.LAUNCHES[kf.BWD]
-        got = kf.flash_attention_backward(q, k, v, o, do, **kw)
-        if kbuild.LAUNCHES[kf.BWD] != before + 1:
-            raise AssertionError(f"flash_attention_bwd {label} did not "
-                                 "launch once")
+        kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=valid)
+        route = "mma" if dtype == torch.bfloat16 else "fma"
+        if route == "mma":
+            o, lse = kf.flash_attention_lse(q, k, v, **kw)
+        else:
+            o, lse = kf.flash_attention(q, k, v, **kw), None
+        before = dict(kbuild.LAUNCHES)
+        got = kf.flash_attention_backward(q, k, v, o, do, lse=lse, **kw)
+        for key in (kf.BWD, kf.BWD_VARIANTS[route]):
+            if kbuild.LAUNCHES[key] != before.get(key, 0) + 1:
+                raise AssertionError(f"flash_attention_bwd {label} did not "
+                                     f"launch {kf.BWD_VARIANTS[route]} once")
         again = kf.flash_attention_backward(q, k, v, o, do, **kw)
         want = kf.flash_attention_backward_plain(q, k, v, o, do, **kw)
+        mirror = (kf.flash_attention_backward_mma_plain(q, k, v, o, do, **kw)
+                  if route == "mma" else want)
         rel = 1e-4 if dtype == torch.float32 else 2.0 ** -7
-        err = 0.0
-        for name, a, a2, w in zip("qkv", got, again, want):
+        err, ratio = 0.0, 0.0
+        for name, a, a2, w, m in zip("qkv", got, again, want, mirror):
             if not torch.equal(a, a2):
                 raise AssertionError(f"flash_attention_bwd {label}: two "
                                      f"calls differ in d{name}")
@@ -968,9 +1028,26 @@ def flash_bwd_kernels(torch) -> dict:
                 raise AssertionError(f"flash_attention_bwd {label} d{name} "
                                      f"differs by {e} (largest {scale})")
             err = max(err, e)
-        log(f"  flash_attention_bwd {label} B={b} T={tq} H={h} K={kvh} "
-            f"hd={hd} {dname}: max |err| {err:.2e}, two calls identical")
-        if label != "train":
+            if route == "mma":
+                r = mirror_ratio(torch, a, m)
+                if not r <= 1.0:
+                    raise AssertionError(
+                        f"flash_attention_bwd {label} d{name} is {r:.3f}x "
+                        "its mirror's tolerance away from the mirror")
+                ratio = max(ratio, r)
+        # keys that no row sees: exact zeros in dK and dV
+        last = min(valid, q_offset + tq) if causal else valid
+        for name, a in (("k", got[1]), ("v", got[2])):
+            if bool((a[:, last:] != 0).any()):
+                raise AssertionError(f"flash_attention_bwd {label}: d{name} "
+                                     f"of keys {last}.. no row sees is not 0")
+        mirror_note = (f", against the mirror {ratio:.3f} of its tolerance"
+                       if route == "mma" else "")
+        log(f"  flash_attention_bwd {label} B={b} Tq={tq} Tk={tk} H={h} "
+            f"K={kvh} hd={hd} causal={causal} q_offset={q_offset} "
+            f"kv_valid={valid} {dname} ({kf.BWD_VARIANTS[route]}): max |err| "
+            f"{err:.2e}{mirror_note}, two calls identical")
+        if not label.startswith("train"):
             continue
         # the library call: SDPA's backward on a saved graph, (B, H, T, hd)
         leaves = [t.transpose(1, 2).detach().requires_grad_(True)
@@ -983,20 +1060,22 @@ def flash_bwd_kernels(torch) -> dict:
             if e > 2e-2 * float(a.float().abs().max()):
                 raise AssertionError(f"SDPA's backward disagrees with "
                                      f"flash_attention_bwd in d{name} by {e}")
-        b_ms, b_by = flash_bwd_bound(b, tq, tk, h, kvh, hd, causal, 0, tk,
-                                     q.element_size())
-        out["flash_attention_bwd"] = {
-            "name": "flash_attention_bwd", "route": "cuda",
+        b_ms, b_by = flash_bwd_bound(b, tq, tk, h, kvh, hd, causal, q_offset,
+                                     valid, q.element_size())
+        plain = (kf.flash_attention_backward_mma_plain if route == "mma"
+                 else kf.flash_attention_backward_plain)
+        out[kf.BWD_VARIANTS[route]] = {
+            "name": kf.BWD_VARIANTS[route], "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/models/attention.py:49",
             "max_abs_err": err,
             "fns": (partial(kf.flash_attention_backward, q, k, v, o, do,
-                            **kw),
-                    partial(kf.flash_attention_backward_plain, q, k, v, o,
-                            do, **kw),
-                    lib),
+                            lse=lse, **kw),
+                    partial(plain, q, k, v, o, do, **kw), lib),
             "bound_ms": b_ms, "bound_by": b_by,
             "shape": [label, b, tq, tk, h, hd, dname],
+            # no path launches the float32 route: logged, not in the line
+            "log_only": route == "fma",
         }
     return out
 
@@ -1052,7 +1131,8 @@ def phase_times(torch, kernels: dict) -> None:
             # the earlier records' levels are freed by now
             library = library()
         rec["library_ms"] = time_ms(torch, library)[0] if library else None
-        if rec["name"] == "flash_attention_split_kv":
+        if rec["name"] in ("flash_attention_split_kv",
+                           "flash_attention_bwd_mma"):
             rec["kernel_ms"] = kernel_times(torch, kernel)
         lib = (f", library (one PyTorch call) device "
                f"{rec['library_ms']:.4f} ms" if library else "")
@@ -1638,9 +1718,10 @@ def parity_train(torch) -> None:
         model, opt, metrics = step(model, opt, batch)
         stepped.append((opt, metrics, time.perf_counter() - t0))
     (c_opt, c_m, c_s), (g_opt, g_m, g_s) = stepped
-    if kbuild.LAUNCHES["flash_attention_bwd"] != cfg.n_layers:
+    if not (kbuild.LAUNCHES["flash_attention_bwd"]
+            == kbuild.LAUNCHES["flash_attention_bwd_mma"] == cfg.n_layers):
         raise AssertionError("the card's backward did not launch "
-                             "flash_attention_bwd once a layer")
+                             "flash_attention_bwd_mma once a layer")
     for key in ("loss", "grad_norm"):
         if abs(g_m[key].item() / c_m[key].item() - 1) > 1e-2:
             raise AssertionError(f"train step {key}: CPU {c_m[key].item()} "
@@ -3447,6 +3528,24 @@ def phase_rag(torch, kernels: dict) -> dict:
 TRAIN_STEPS, TRAIN_MICRO, TRAIN_BATCH, TRAIN_SEQ = 10, 2, 8, 256
 
 
+def train_setup() -> tuple:
+    """(config, data config, train config) of the train phase: minicpm-2b at
+    full width and depth, the synthetic ``TokenPipeline`` (T 256, global
+    batch 8), two microbatches, WSD to peak 3e-4 after 2 warm-up steps."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import TrainConfig
+
+    cfg = get_config("minicpm-2b")
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    tc = TrainConfig(n_micro=TRAIN_MICRO, peak_lr=3e-4, warmup=2,
+                     total_steps=TRAIN_STEPS, schedule="wsd",
+                     adamw=AdamWConfig())
+    return cfg, data, tc
+
+
 def phase_train(torch, kernels: dict) -> dict:
     """Training at full width and depth; returns the launch counts of the
     full-depth run (reset just before it, read just after).  ``kernels``
@@ -3456,21 +3555,13 @@ def phase_train(torch, kernels: dict) -> dict:
     import math
     import shutil
 
-    from repro_torch.configs.base import get_config
-    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.kernels import build as kbuild
     from repro_torch.launch import train as launch_train
     from repro_torch.models.model import build_model
-    from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.train.train_step import TrainConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    cfg = get_config("minicpm-2b")
-    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
-                      global_batch=TRAIN_BATCH)
-    tc = TrainConfig(n_micro=TRAIN_MICRO, peak_lr=3e-4, warmup=2,
-                     total_steps=TRAIN_STEPS, schedule="wsd",
-                     adamw=AdamWConfig())
+    cfg, data, tc = train_setup()
 
     def trainer(arch, steps, **kw):
         return Trainer(build_model(arch), tc,
@@ -3500,10 +3591,10 @@ def phase_train(torch, kernels: dict) -> dict:
     if not last < first - 0.2:
         raise AssertionError(f"loss did not fall by 0.2: {first} -> {last}")
     n_calls = cfg.n_layers * TRAIN_MICRO * TRAIN_STEPS
-    if launches.get("flash_attention_bwd", 0) != n_calls:
-        raise AssertionError(f"flash_attention_bwd launched "
-                             f"{launches.get('flash_attention_bwd', 0)} "
-                             f"times, not {n_calls}")
+    for key in ("flash_attention_bwd", "flash_attention_bwd_mma"):
+        if launches.get(key, 0) != n_calls:
+            raise AssertionError(f"{key} launched {launches.get(key, 0)} "
+                                 f"times, not {n_calls}")
     # each block's forward runs twice: once, and again in its backward
     if launches.get("flash_attention_mma", 0) != 2 * n_calls:
         raise AssertionError(f"flash_attention_mma launched "
@@ -3524,11 +3615,11 @@ def phase_train(torch, kernels: dict) -> dict:
         f"{step_s:.3f} s a step after the first ({log_[0]['seconds']:.3f} "
         f"s), {tokens / step_s:.0f} tokens/s; max_memory_allocated {peak} "
         f"bytes; launches {launches}")
-    rec = kernels.get("flash_attention_bwd")
+    rec = kernels.get("flash_attention_bwd_mma")
     per_step = cfg.n_layers * TRAIN_MICRO
     if rec:
         share = per_step * rec["ms"] / 1e3 / step_s
-        log(f"  flash_attention_bwd: {per_step} launches a step x "
+        log(f"  flash_attention_bwd_mma: {per_step} launches a step x "
             f"{rec['ms']:.4f} ms (phase 2's device time at this shape) = "
             f"{share:.1%} of a step")
     else:
@@ -3582,6 +3673,175 @@ def phase_train(torch, kernels: dict) -> dict:
     del out
     torch.cuda.empty_cache()
     return {"launches": launches}
+
+
+# device-time groups of a training step: the matmuls and the flash kernels
+# by lower-cased kernel name; every other kernel of the optimizer's or the
+# accumulation's profiler range (train_step.SCOPES) is counted there, casts
+# included; of the rest, copies, casts and fills by name, and the
+# microbatches' other kernels (norms, rotary, SwiGLU, the loss) together
+STEP_GROUPS = (
+    ("flash backward", ("bwd_dq", "bwd_dkdv")),
+    ("flash forward", ("flash_mma_kernel", "flash_split_kernel",
+                       "flash_merge_kernel", "flash_kernel")),
+    ("cuBLAS matmuls", ("gemm", "nvjet", "xmma", "cutlass", "splitk",
+                        "cublas")),
+)
+COPIES = ("memcpy", "memset", "copy", "fill")
+SCOPE_GROUPS = {"train_step::optimizer": "AdamW leaf updates and clip",
+                "train_step::accumulate": "float32 gradient accumulation",
+                "train_step::microbatch":
+                    "norms, rotary, SwiGLU, loss: elementwise and reductions"}
+
+
+def step_group(name: str, scope: str | None) -> str:
+    low = name.lower()
+    for group, keys in STEP_GROUPS:
+        if any(key in low for key in keys):
+            return group
+    if scope != "train_step::microbatch" and scope in SCOPE_GROUPS:
+        return SCOPE_GROUPS[scope]
+    if any(key in low for key in COPIES):
+        return "copies, casts and fills"
+    return SCOPE_GROUPS.get(scope, "outside the step's ranges")
+
+
+def step_breakdown(events, averages, wall: float, scopes) -> dict:
+    """Where a profiled training step's time goes, from ``torch.profiler``'s
+    ``events()`` and ``key_averages()`` and the step's host-clock ``wall``
+    seconds: the device's busy share (the union of its kernels' and copies'
+    intervals), the idle time between them (the device waiting for the
+    host's launches), the 15 kernels with the most device time, and the
+    device time by ``step_group``."""
+    from torch.autograd import DeviceType
+
+    def is_device(e):
+        return (e.device_type == DeviceType.CUDA and e.name not in scopes
+                and not getattr(e, "is_user_annotation", False))
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in events if is_device(e))
+    busy, gaps = 0.0, []
+    if spans:
+        lo, hi = spans[0]
+        for a, b in spans[1:]:
+            if a > hi:
+                busy += hi - lo
+                gaps.append(a - hi)
+                lo, hi = a, b
+            else:
+                hi = max(hi, b)
+        busy += hi - lo
+    windows = [(e.time_range.start, e.time_range.end, e.name)
+               for e in events
+               if e.name in scopes and e.device_type == DeviceType.CPU]
+
+    def scope_at(t):
+        inside = [name for a, b, name in windows if a <= t <= b]
+        return inside[-1] if inside else None
+
+    # the profiler hangs each kernel and copy on the op that launched it,
+    # and on every other op of the same id: take each id once, in the range
+    # its first op started in
+    groups: dict = {}
+    seen = set()
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels or e.id in seen:
+            continue
+        seen.add(e.id)
+        scope = scope_at(e.time_range.start)
+        for kinfo in e.kernels:
+            if kinfo.name in scopes:
+                continue
+            group = step_group(kinfo.name, scope)
+            ms, n = groups.get(group, (0.0, 0))
+            groups[group] = (ms + kinfo.duration / 1e3, n + 1)
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    top = sorted((e for e in averages if e.device_type == DeviceType.CUDA
+                  and e.key not in scopes), key=dev_us, reverse=True)[:15]
+    return {
+        "wall_s": wall, "busy_s": busy / 1e6, "kernels": len(spans),
+        "gaps_s": sum(gaps) / 1e6, "gaps": len(gaps),
+        "gaps_over_20us_s": sum(g for g in gaps if g > 20) / 1e6,
+        "gaps_over_20us": sum(1 for g in gaps if g > 20),
+        "top": [(e.key, dev_us(e) / 1e3, e.count) for e in top],
+        "groups": groups,
+    }
+
+
+def phase_trainprof(torch) -> None:
+    """One steady step of the train phase's model and step (``train_setup``:
+    minicpm-2b at full width and depth, remat, 8 x 256 tokens in two
+    microbatches) under ``torch.profiler``, after an unprofiled warm-up
+    step and an unprofiled steady step (their host-clock times printed):
+    the device's busy share of the profiled step, the idle time between
+    kernels, the 15 kernels with the most device time and the device time
+    by group (``step_breakdown``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.models.model import build_model
+    from repro_torch.train.train_step import SCOPES
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg, data, tc = train_setup()
+    run = Trainer(build_model(cfg), tc, TrainerConfig(steps=3),
+                  TokenPipeline(data), seed=0, device="cuda")
+    model, opt, _ = run.init_or_restore()
+    pipe = TokenPipeline(data)
+
+    def step(i: int) -> float:
+        nonlocal model, opt
+        batch = pipe.batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, _ = run.step_fn(model, opt, batch)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    warm, steady = step(0), step(1)
+    kbuild.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = step(2)
+    launches = dict(kbuild.LAUNCHES)
+    t0 = time.perf_counter()
+    out = step_breakdown(prof.events(), prof.key_averages(), wall,
+                         set(SCOPES))
+    log(f"  {cfg.name} x {cfg.n_layers} layers, {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens in {TRAIN_MICRO} microbatches: warm-up step {warm:.3f} s, "
+        f"steady step {steady:.3f} s unprofiled, {wall:.3f} s profiled "
+        f"(post-processing {time.perf_counter() - t0:.1f} s); our kernels' "
+        f"launches in it {launches}")
+    if out["kernels"] == 0:
+        raise AssertionError("the profile shows no device time: time the "
+                             "step with CUDA events instead")
+    log(f"  device busy {out['busy_s']:.4f} s of the profiled step's "
+        f"{wall:.4f} s ({out['busy_s'] / wall:.1%}; of the unprofiled "
+        f"step's {steady:.4f} s {out['busy_s'] / steady:.1%}) over "
+        f"{out['kernels']} "
+        f"kernels and copies; idle between them {out['gaps_s']:.4f} s in "
+        f"{out['gaps']} gaps ({out['gaps_over_20us_s']:.4f} s in the "
+        f"{out['gaps_over_20us']} over 20 us: the device waiting for the "
+        f"host's launches); outside the first and last kernel "
+        f"{wall - out['busy_s'] - out['gaps_s']:.4f} s")
+    total = sum(ms for ms, _ in out["groups"].values())
+    log(f"  device time by group ({total:.2f} ms attributed; ms, kernels "
+        "and copies, share of the device's busy time):")
+    for group, (ms, n) in sorted(out["groups"].items(),
+                                 key=lambda kv: -kv[1][0]):
+        log(f"    {ms:10.2f} ms {n:7d}  {ms / 1e3 / out['busy_s']:6.1%}  "
+            f"{group}")
+    log("  the 15 kernels with the most device time (ms, launches):")
+    for key, ms, n in out["top"]:
+        log(f"    {ms:10.2f} ms {n:7d}  {key[:100]}")
+    del run, model, opt, prof
+    torch.cuda.empty_cache()
 
 
 def phase_profile(torch, chunks: int = 8) -> None:
@@ -3779,6 +4039,10 @@ def main(argv=None) -> int:
         log(f"phase train: training minicpm-2b at full width and depth, "
             f"{TRAIN_STEPS} steps")
         paths.append(phase_train(torch, kernels))
+    if "trainprof" in phases:
+        log("phase trainprof: profile of one training step, minicpm-2b at "
+            "full width and depth")
+        phase_trainprof(torch)
     if "profile" in phases:
         log("phase 8: profile of build chunks at N=100000")
         phase_profile(torch)

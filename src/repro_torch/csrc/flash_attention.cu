@@ -46,11 +46,18 @@
 //   fragment of S is the A fragment of P, as in FlashAttention-2) and
 //   O += P V is the same mma with V read through ldmatrix.trans.  The output
 //   is normalised in float32, staged through the Q tile's shared memory and
-//   written as bf16 in 16-byte stores.  The key loop stops at the last key
-//   any row of the block can see, and masks only the tiles that cross a
-//   mask edge.  Shared memory: (64 + 4 * 64) rows x (hd + 8) bf16, 45 KB at
-//   hd = 64, 85 KB at hd = 128.  The grid is (heads, batch, query tiles)
-//   with the query tiles issued last-first, so every block with the most
+//   written as bf16 in 16-byte stores; given an lse pointer (a call that
+//   needs a gradient) it also writes each row's log-sum-exp, m + log2 l in
+//   the log2 units of m, for csrc/flash_attention_bwd.cu.  The key loop
+//   stops at the last key any row of the block can see, and masks only the
+//   tiles that cross a mask edge.  Shared memory: (64 + 4 * 64) rows x (hd
+//   + 8) bf16, 45 KB at hd = 64, 85 KB at hd = 128; at hd <= 64 the
+//   registers are held to 128 a thread, so four blocks fit a multiprocessor
+//   (with the lse output the compiler took 138 at hd = 64, three blocks,
+//   14% slower).  The tensor-core helpers (cp.async, ldmatrix, mma.sync,
+//   the bf16 rounding of fragments) are shared with the backward in
+//   mma_bf16.cuh.  The grid is (heads, batch, query tiles) with the query
+//   tiles issued last-first, so every block with the most
 //   keys to walk starts before any with fewer (a causal prefill's blocks
 //   range from 1 to Tq / 64 key tiles), and the short ones fill the tail.
 //
@@ -90,6 +97,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "mma_bf16.cuh"
 
 namespace simt {
 
@@ -255,65 +264,9 @@ __global__ void __launch_bounds__(kThreads)
 
 namespace tc {
 
-typedef __nv_bfloat16 bf16;
-
 constexpr int kRows = 64;      // query rows a block, 16 a warp
 constexpr int kKeys = 64;      // keys a tile, and a decode split
 constexpr int kThreads = 128;  // 4 warps
-constexpr int kPad = 8;        // bf16 elements (16 bytes) of row padding
-constexpr float kMasked = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled where !in (the
-// source is then not read, but must still be a valid address)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(in ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c (16 x 8, f32) += a (16 x 16, bf16, row) . b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats -> two bf16 (round to nearest even), lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 template <int HD>
 constexpr size_t mma_smem_bytes() {
@@ -321,10 +274,11 @@ constexpr size_t mma_smem_bytes() {
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, HD <= 64 ? 4 : 2)
     flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ out,
-                     int tq, int tk, int h, int group, long long q_sb,
+                     float* __restrict__ lse, int tq, int tk, int h,
+                     int group, long long q_sb,
                      long long q_st, long long q_sh, long long k_sb,
                      long long k_st, long long k_sh, long long v_sb,
                      long long v_st, long long v_sh, int causal, int q_offset,
@@ -491,6 +445,16 @@ __global__ void __launch_bounds__(kThreads)
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     inv[i] = 1.f / fmaxf(l[i], 1e-30f);
+  }
+  // each row's log-sum-exp in the log2 units of m, for the backward
+  if (lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + 8 * i;
+      if (row < tq)
+        lse[((long long)bb * h + hh) * tq + row] =
+            m[i] + log2f(fmaxf(l[i], 1e-30f));
+    }
   }
   bf16* so = sq + wrow * RS;
 #pragma unroll
@@ -743,14 +707,14 @@ int launch_simt(const Args& a) {
 }
 
 template <int HD>
-int launch_mma(const Args& a) {
+int launch_mma(const Args& a, float* lse) {
   auto kernel = tc::flash_mma_kernel<HD>;
   constexpr size_t smem = tc::mma_smem_bytes<HD>();
   if (const int err = allow_smem(kernel, smem)) return err;
   const dim3 grid(a.h, a.b, (a.tq + tc::kRows - 1) / tc::kRows);
   kernel<<<grid, tc::kThreads, smem, a.stream>>>(
       (const tc::bf16*)a.q, (const tc::bf16*)a.k, (const tc::bf16*)a.v,
-      (tc::bf16*)a.out, a.tq, a.tk, a.h, a.h / a.kh, a.q_sb, a.q_st, a.q_sh,
+      (tc::bf16*)a.out, lse, a.tq, a.tk, a.h, a.h / a.kh, a.q_sb, a.q_st, a.q_sh,
       a.k_sb, a.k_st, a.k_sh, a.v_sb, a.v_st, a.v_sh, a.causal, a.q_offset,
       a.kv_valid_len, a.scale * tc::kLog2e);
   return (int)cudaGetLastError();
@@ -829,9 +793,12 @@ extern "C" int quiver_flash_attention(
 }
 
 // bfloat16 q, k, v: the tensor-core kernel (any tq; the wrapper sends
-// tq > 1).
+// tq > 1, and any tq for the backward's log-sum-exp).  lse, where not
+// null, is (b, h, tq) float32: each row's log2 sum_j exp2(s_ij * scale *
+// log2 e), which the backward kernels take.
 extern "C" int quiver_flash_attention_mma(
-    const void* q, const void* k, const void* v, void* out, int b, int tq,
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    int b, int tq,
     int tk, int h, int kh, int hd, long long q_sb, long long q_st,
     long long q_sh, long long k_sb, long long k_st, long long k_sh,
     long long v_sb, long long v_st, long long v_sh, int causal, int q_offset,
@@ -842,7 +809,7 @@ extern "C" int quiver_flash_attention_mma(
                v_st, v_sh, causal, q_offset, kv_valid_len, scale,
                (cudaStream_t)stream};
   return by_width(hd, [&](auto w) {
-    return launch_mma<decltype(w)::value>(a);
+    return launch_mma<decltype(w)::value>(a, (float*)lse);
   });
 }
 

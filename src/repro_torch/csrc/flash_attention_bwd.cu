@@ -18,59 +18,91 @@
 // for q (B, Tq, H, hd), k and v (B, Tk, K, hd), the KV head of query head h
 // being h / (H/K), as
 //
-//   lse_i = log sum_j exp(S_ij),  P_ij = exp(S_ij - lse_i),
-//   D_i = sum_d dO_id O_id,  dP = dO v^T,  dS = P o (dP - D),
-//   dQ = dS k * scale,  dK = dS^T q * scale,  dV = P^T dO,
+//   P_ij = exp(S_ij - lse_i),  D_i = sum_d dO_id O_id,  dP = dO v^T,
+//   dS = P o (dP - D),  dQ = dS k * scale,  dK = dS^T q * scale,
+//   dV = P^T dO,
 //
-// dK and dV summed over the H/K query heads of each KV head.  D uses the O
-// that the forward wrote (in its dtype), as FlashAttention-2 does, and
-// kernels/flash_attention.py::flash_attention_backward_plain mirrors this
-// arithmetic in float32.
+// dK and dV summed over the H/K query heads of each KV head, in float32,
+// and written once in the input dtype.  D uses the O that the forward wrote
+// (in its dtype), as FlashAttention-2 does.
 //
-// Bound on an H100.  The necessary work is the five products above, 2 * hd
-// flops each for every visible (row, key) pair, 10 * hd in all (this kernel
-// does 16 * hd: S three times, dP twice); the bytes are q, k, v, O, dO read
-// once and dQ, dK, dV written once.  At the training shape (minicpm-2b: B 4,
-// T 256, 36 heads of 64, causal, bf16) a call moves 37.7 MB against 3.0
-// GFLOP: 11.3 us at 3.35 TB/s against 3.1 us at the bf16 tensor-core rate,
-// so bound by the bytes; on float32 CUDA-core FMAs (67 TFLOP/s) the same
-// 4.9 GFLOP this kernel does take 73 us.
+// Bound on an H100.  The necessary work is five products, 2 * hd flops
+// each for every visible (row, key) pair, 10 * hd in all; the bytes are q,
+// k, v, O, dO (and the forward's log-sum-exp) read once and dQ, dK, dV
+// written once.  At the training shape (minicpm-2b: B 4, T 256, 36 heads of
+// 64, causal, bf16) a call moves 37.9 MB against 3.0 GFLOP: 11.3 us at
+// 3.35 TB/s against 3.1 us at the 989 TFLOP/s bf16 tensor-core rate, so
+// bound by the bytes.
 //
-// Design: a simple kernel that is right, on the CUDA cores in float32 FMAs
-// (the tensor-core redesign is ROADMAP queue 2b's next item).  Two
-// kernels, launched one after the other on the caller's stream; neither
-// uses atomics, so two calls on the same inputs give the same bits:
+// Two routes, chosen by the wrapper (kernels/flash_attention.py) by dtype
+// alone; each is two kernels launched one after the other on the caller's
+// stream, a dQ kernel and a dK/dV kernel.  Neither uses atomics: dQ sums
+// over keys and dK/dV over the group's heads and query rows inside one
+// block, so two calls on the same inputs give the same bits.
 //
-// * bwd_dq_kernel, one block of 128 threads per (64-row query tile, head,
-//   batch).  The Q and dO tiles stay in shared memory as float32.  It first
-//   computes D from the O tile, then walks the visible K tiles twice: once
-//   for each row's running max and denominator (the log-sum-exp), once to
-//   recompute P, form dS = P o (dP - D) with dP from the V tile, stage dS in
-//   shared memory and accumulate dQ in registers.  It writes dQ, and the
-//   rows' lse and D to float32 scratch (the wrapper's torch.empty).
-// * bwd_dkdv_kernel, one block of 128 threads per (64-key tile, KV head,
-//   batch).  The K and V tiles stay in shared memory; it walks the group's
-//   H/K query heads and, for each, the query tiles that can see the tile
-//   (causal: from the first row at or after the tile's first key), reloads
-//   Q, dO, lse and D, recomputes P^T and dS^T for its keys, stages both in
-//   shared memory, and accumulates dV += P^T dO and dK += dS^T Q in
-//   registers.  A key that no row sees gets zero gradients.
+// * bf16 (tc::bwd_dq_mma_kernel, tc::bwd_dkdv_mma_kernel): the products on
+//   the tensor cores, mma.sync.m16n8k16 bf16 with float32 accumulation, as
+//   the forward's flash_mma_kernel (shared device code in mma_bf16.cuh).
+//   Each block is 4 warps; tiles sit in shared memory as bf16 rows padded
+//   by 16 bytes (ldmatrix without bank conflicts), filled by 16-byte
+//   cp.async copies through a 2-stage ring.  No log-sum-exp pass: the
+//   forward kernel writes each row's lse (float32, log2 units of the scaled
+//   score) and the backward reads it, P = exp2(S * scale log2 e - lse).
+//   - dQ: one block per (64-row query tile, head, batch), the tiles with
+//     the most keys issued first; each warp owns 16 rows.  Q and dO stay in
+//     shared memory; D is summed from O and dO in device memory while they
+//     land, and written to float32 scratch for the dK/dV kernel.  K and V
+//     tiles of 64 keys stream through the ring; per tile S = Q K^T and dP =
+//     dO V^T (K's and V's rows are the col-major B operand as they lie), P
+//     and dS = P o (dP - D) in float32 registers, dS rounded to bf16 in
+//     registers (the C fragments of S are the A fragments of dS, as P in
+//     the forward) and dQ += dS K with K read through ldmatrix.trans.
+//   - dK/dV: one block per (64-key tile, KV head, batch), the first key
+//     tiles (seen by the most query tiles) issued first; each warp owns 16
+//     keys.  K and V stay in shared memory; for each head of the group and
+//     each 64-row query tile that sees the tile, Q, dO and the rows' lse
+//     and D stream through the ring.  In steps of 32 query rows (to bound
+//     the registers at hd 128) S^T = K Q^T and dP^T = V dO^T, P^T and
+//     dS^T in float32, then dV += P^T dO and dK += dS^T Q with P^T and
+//     dS^T rounded to bf16 in registers and dO, Q read through
+//     ldmatrix.trans.
+//   Both recompute S and dP: seven products instead of five (14 hd flops a
+//   visible pair, 4.2 GFLOP at the training shape, ~4 us at the bf16
+//   rate), which costs less than moving P or dS through device memory.
+//   P and dS are rounded to bf16 before their products, as FlashAttention-2
+//   and SDPA do; kernels/flash_attention.py::
+//   flash_attention_backward_mma_plain mirrors this arithmetic in float32.
+//   Only the tiles that a mask edge crosses are masked; rows past Tq and
+//   keys past kv_valid_len give exact zeros, and a key that no row sees
+//   writes zero gradients.  Shared memory 6 * 64 (hd + 8) * 2 + 1024
+//   bytes: 55 KB at hd = 64 (four blocks a multiprocessor), 103 KB at
+//   hd = 128.
 //
-// Thread layout in both (as the CUDA-core forward, simt::flash_kernel):
-// thread (ty, tx) = (tid / 16, tid % 16) owns tile rows 8 ty .. 8 ty + 7,
-// tile columns tx + 16 c and output columns tx + 16 c; a row's max and sums
-// reduce over the 16 lanes of a half-warp.  Tiles are read in 16-byte
-// vectors (4 float32, 8 bf16) through the caller's batch, position and head
-// strides, so the wrapper checks that every row starts on a 16-byte
-// boundary.  Shared memory: A (4 * 64 (hd + 1) + 64 * 65) * 4 bytes, 83 KB
-// at hd = 64 and 145 KB at hd = 128; B (4 * 64 (hd + 1) + 2 * 64 * 65 + 128)
-// * 4 bytes, 100 KB at hd = 64 and 162 KB at hd = 128.
+// * float32 (bwd::bwd_dq_kernel, bwd::bwd_dkdv_kernel): float32 FMAs on the
+//   CUDA cores, for the reason the forward keeps simt::flash_kernel: TF32
+//   tensor cores keep about three digits, outside the 1e-4 float32
+//   tolerance.  The dQ kernel computes each row's log-sum-exp in a first
+//   pass over the K tiles, then recomputes P, forms dS = P o (dP - D),
+//   stages it in shared memory and accumulates dQ; it writes lse and D to
+//   float32 scratch.  The dK/dV kernel recomputes P^T and dS^T for its keys
+//   from them, stages both in shared memory and accumulates dV += P^T dO
+//   and dK += dS^T Q.  Thread (ty, tx) = (tid / 16, tid % 16) owns tile
+//   rows 8 ty .. 8 ty + 7 and columns tx + 16 c; a row's max and sums
+//   reduce over the 16 lanes of a half-warp.  Shared memory: (4 * 64 (hd +
+//   1) + 64 * 65) * 4 bytes (dQ) and (4 * 64 (hd + 1) + 2 * 64 * 65 + 128)
+//   * 4 bytes (dK/dV).
+//
+// Both routes read tiles in 16-byte vectors through the caller's batch,
+// position and head strides, so the wrapper checks that every row starts on
+// a 16-byte boundary.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "mma_bf16.cuh"
 
 namespace bwd {
 
@@ -81,48 +113,24 @@ constexpr int kCols = kTile / 16;              // tile columns a thread
 constexpr int SS = kTile + 1;                  // row stride of a P/dS tile
 constexpr float kMasked = -1e30f;
 
-__device__ __forceinline__ void to_floats(const uint4 raw, float* out,
-                                          float) {
-  out[0] = __uint_as_float(raw.x);
-  out[1] = __uint_as_float(raw.y);
-  out[2] = __uint_as_float(raw.z);
-  out[3] = __uint_as_float(raw.w);
-}
-__device__ __forceinline__ void to_floats(const uint4 raw, float* out,
-                                          __nv_bfloat16) {
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    out[2 * i] = __uint_as_float(w[i] << 16);          // low half first
-    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);  // round to nearest even, as .to(bfloat16)
-}
-
 // rows [row0, row0 + n) of a (rows, HD) operand at row stride `stride`
-// elements -> dst (kTile x (HD + 1) float32); rows past n are zero
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* base,
+// elements -> dst (kTile x (HD + 1)); rows past n are zero
+template <int HD>
+__device__ __forceinline__ void load_tile(float* dst, const float* base,
                                           long long stride, int row0,
                                           int n) {
-  constexpr int N = 16 / sizeof(T);  // elements a 16-byte vector
-  constexpr int VPR = HD / N;        // vectors a row
+  constexpr int VPR = HD / 4;  // 16-byte vectors a row
   for (int e = threadIdx.x; e < kTile * VPR; e += kThreads) {
-    const int r = e / VPR, c = (e % VPR) * N;
-    float vals[N];
-    if (r < n) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(
+    const int r = e / VPR, c = (e % VPR) * 4;
+    float4 vals = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < n)
+      vals = *reinterpret_cast<const float4*>(
           base + (long long)(row0 + r) * stride + c);
-      to_floats(raw, vals, T());
-    } else {
-#pragma unroll
-      for (int i = 0; i < N; ++i) vals[i] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < N; ++i) dst[r * (HD + 1) + c + i] = vals[i];
+    float* out = dst + r * (HD + 1) + c;
+    out[0] = vals.x;
+    out[1] = vals.y;
+    out[2] = vals.z;
+    out[3] = vals.w;
   }
 }
 
@@ -151,11 +159,11 @@ constexpr size_t dkdv_smem_bytes() {
 }
 
 // o, dout: (b, tq, h, HD) contiguous; dq likewise; lse, dd: (b, h, tq)
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-    bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ o,
-                  const T* __restrict__ dout, T* __restrict__ dq,
+    bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ o,
+                  const float* __restrict__ dout, float* __restrict__ dq,
                   float* __restrict__ lse_out, float* __restrict__ dd_out,
                   int tq, int tk, int h, int group, long long q_sb,
                   long long q_st, long long q_sh, long long k_sb,
@@ -179,12 +187,12 @@ __global__ void __launch_bounds__(kThreads)
   const int n_q = min(kTile, tq - q0);
   const long long o_st = (long long)h * HD;
   const long long o_base = ((long long)bb * tq * h + hh) * HD;
-  const T* kb = k + bb * k_sb + (hh / group) * k_sh;
-  const T* vb = v + bb * v_sb + (hh / group) * v_sh;
+  const float* kb = k + bb * k_sb + (hh / group) * k_sh;
+  const float* vb = v + bb * v_sb + (hh / group) * v_sh;
 
-  load_tile<T, HD>(sq, q + bb * q_sb + hh * q_sh, q_st, q0, n_q);
-  load_tile<T, HD>(sdo, dout + o_base, o_st, q0, n_q);
-  load_tile<T, HD>(sk, o + o_base, o_st, q0, n_q);  // O, for D only
+  load_tile<HD>(sq, q + bb * q_sb + hh * q_sh, q_st, q0, n_q);
+  load_tile<HD>(sdo, dout + o_base, o_st, q0, n_q);
+  load_tile<HD>(sk, o + o_base, o_st, q0, n_q);  // O, for D only
   __syncthreads();
 
   float dd[kPer];
@@ -212,7 +220,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   for (int j0 = 0; j0 < kv_end; j0 += kTile) {
     __syncthreads();  // the previous tile's reads (or D's) are done
-    load_tile<T, HD>(sk, kb, k_st, j0, min(kTile, kv_end - j0));
+    load_tile<HD>(sk, kb, k_st, j0, min(kTile, kv_end - j0));
     __syncthreads();
     float s[kPer][kCols];
 #pragma unroll
@@ -263,8 +271,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int j0 = 0; j0 < kv_end; j0 += kTile) {
     __syncthreads();
     const int n_k = min(kTile, kv_end - j0);
-    load_tile<T, HD>(sk, kb, k_st, j0, n_k);
-    load_tile<T, HD>(sv, vb, v_st, j0, n_k);
+    load_tile<HD>(sk, kb, k_st, j0, n_k);
+    load_tile<HD>(sv, vb, v_st, j0, n_k);
     __syncthreads();
     float s[kPer][kCols], dp[kPer][kCols];
 #pragma unroll
@@ -321,9 +329,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int a = 0; a < kPer; ++a) {
     const int row = ty * kPer + a;
     if (row >= n_q) continue;
-    T* out = dq + o_base + (long long)(q0 + row) * o_st;
+    float* out = dq + o_base + (long long)(q0 + row) * o_st;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) store(out + tx + 16 * c, acc[a][c] * scale);
+    for (int c = 0; c < DC; ++c) out[tx + 16 * c] = acc[a][c] * scale;
     if (tx == 0) {
       const long long at = ((long long)bb * h + hh) * tq + q0 + row;
       lse_out[at] = lse[a];
@@ -334,13 +342,14 @@ __global__ void __launch_bounds__(kThreads)
 
 // dout: (b, tq, h, HD) contiguous; lse, dd: (b, h, tq); dk, dv: (b, tk, kh,
 // HD) contiguous
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-    bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+    bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ dd,
-                    T* __restrict__ dk, T* __restrict__ dv, int tq, int tk,
-                    int h, int kh, int group, long long q_sb, long long q_st,
+                    float* __restrict__ dk, float* __restrict__ dv, int tq,
+                    int tk, int h, int kh, int group, long long q_sb,
+                    long long q_st,
                     long long q_sh, long long k_sb, long long k_st,
                     long long k_sh, long long v_sb, long long v_st,
                     long long v_sh, int causal, int q_offset,
@@ -373,8 +382,8 @@ __global__ void __launch_bounds__(kThreads)
 
   if (j0 < kv_end) {
     const int n_k = min(kTile, kv_end - j0);
-    load_tile<T, HD>(sk, k + bb * k_sb + kvh * k_sh, k_st, j0, n_k);
-    load_tile<T, HD>(sv, v + bb * v_sb + kvh * v_sh, v_st, j0, n_k);
+    load_tile<HD>(sk, k + bb * k_sb + kvh * k_sh, k_st, j0, n_k);
+    load_tile<HD>(sv, v + bb * v_sb + kvh * v_sh, v_st, j0, n_k);
     // the first query tile with a row that sees key j0
     const int i_first = causal ? max(0, j0 - q_offset) / kTile * kTile : 0;
     for (int g = 0; g < group; ++g) {
@@ -385,8 +394,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int i0 = i_first; i0 < tq; i0 += kTile) {
         const int n_q = min(kTile, tq - i0);
         __syncthreads();  // the previous tile's reads are done
-        load_tile<T, HD>(sq, q + bb * q_sb + hh * q_sh, q_st, i0, n_q);
-        load_tile<T, HD>(sdo, dout + o_base, o_st, i0, n_q);
+        load_tile<HD>(sq, q + bb * q_sb + hh * q_sh, q_st, i0, n_q);
+        load_tile<HD>(sdo, dout + o_base, o_st, i0, n_q);
         if (tid < kTile) {
           slse[tid] = tid < n_q ? lse_h[i0 + tid] : 0.f;
           sdd[tid] = tid < n_q ? dd_h[i0 + tid] : 0.f;
@@ -461,13 +470,432 @@ __global__ void __launch_bounds__(kThreads)
     const long long at = (((long long)bb * tk + key) * kh + kvh) * HD;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
-      store(dk + at + tx + 16 * c, acc_dk[a][c] * scale);
-      store(dv + at + tx + 16 * c, acc_dv[a][c]);
+      dk[at + tx + 16 * c] = acc_dk[a][c] * scale;
+      dv[at + tx + 16 * c] = acc_dv[a][c];
     }
   }
 }
 
 }  // namespace bwd
+
+namespace tc {
+
+constexpr int kBwdTile = 64;     // query rows (dQ) or keys (dK/dV) a block
+constexpr int kBwdThreads = 128; // 4 warps, 16 rows or keys each
+constexpr int kQChunk = 32;      // query rows of one S^T / dP^T step
+
+// dQ: Q, dO, 2 stages of K and of V, D; dK/dV: K, V, 2 stages of Q and of
+// dO, 2 stages of lse and of D
+template <int HD>
+constexpr size_t bwd_mma_smem_bytes() {
+  return (size_t)6 * kBwdTile * (HD + kPad) * sizeof(bf16) +
+         4 * kBwdTile * sizeof(float);
+}
+
+// o, dout, dq: (b, tq, h, HD) contiguous; lse, dd: (b, h, tq)
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads)
+    bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ o,
+                      const bf16* __restrict__ dout,
+                      const float* __restrict__ lse, bf16* __restrict__ dq,
+                      float* __restrict__ dd_out, int tq, int tk, int h,
+                      int group, long long q_sb, long long q_st,
+                      long long q_sh, long long k_sb, long long k_st,
+                      long long k_sh, long long v_sb, long long v_st,
+                      long long v_sh, int causal, int q_offset,
+                      int kv_valid_len, float scale_log2, float scale) {
+  static_assert(HD % 16 == 0, "head width must be a multiple of 16");
+  constexpr int RS = HD + kPad;     // row stride (elements) of every tile
+  constexpr int CH = HD / 8;        // 16-byte chunks a row
+  constexpr int KSTEPS = HD / 16;   // k-steps of S and dP
+  constexpr int NT = kBwdTile / 8;  // key n-tiles of S and dP a warp
+  constexpr int DT = HD / 8;        // n-tiles of dQ a warp
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sq = reinterpret_cast<bf16*>(smem);  // kBwdTile x RS, then dQ
+  bf16* sdo = sq + kBwdTile * RS;            // kBwdTile x RS
+  bf16* sk = sdo + kBwdTile * RS;            // 2 stages x kBwdTile x RS
+  bf16* sv = sk + 2 * kBwdTile * RS;         // 2 stages x kBwdTile x RS
+  float* sdd = reinterpret_cast<float*>(sv + 2 * kBwdTile * RS);
+
+  // grid (heads, batch, query tiles), the tiles with the most keys first
+  const int hh = blockIdx.x;
+  const int bb = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBwdTile;
+  const bf16* qb = q + bb * q_sb + hh * q_sh;
+  const bf16* kb = k + bb * k_sb + (hh / group) * k_sh;
+  const bf16* vb = v + bb * v_sb + (hh / group) * v_sh;
+  const long long o_st = (long long)h * HD;
+  const long long o_base = ((long long)bb * tq * h + hh) * HD;
+  const long long row_base = ((long long)bb * h + hh) * tq;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wrow = warp * 16;  // this warp's first row in the tile
+
+  // the last key any row of this block can see
+  const int kv_valid = min(kv_valid_len, tk);
+  int kv_end = kv_valid;
+  if (causal) kv_end = min(kv_end, q_offset + min(q0 + kBwdTile, tq));
+  const int n_tiles = (kv_end + kBwdTile - 1) / kBwdTile;
+
+  for (int c = tid; c < kBwdTile * CH; c += kBwdThreads) {
+    const int r = c / CH, d = (c % CH) * 8;
+    const bool in = q0 + r < tq;
+    const long long row = q0 + r;
+    cp_async16(sq + r * RS + d, in ? qb + row * q_st + d : qb, in);
+    cp_async16(sdo + r * RS + d, in ? dout + o_base + row * o_st + d : dout,
+               in);
+  }
+  auto load_kv = [&](int tile) {
+    const int j0 = tile * kBwdTile;
+    bf16* dk_ = sk + (tile & 1) * kBwdTile * RS;
+    bf16* dv_ = sv + (tile & 1) * kBwdTile * RS;
+    for (int c = tid; c < kBwdTile * CH; c += kBwdThreads) {
+      const int r = c / CH, d = (c % CH) * 8;
+      const bool in = j0 + r < kv_end;  // rows past it load as zeros
+      const long long row = j0 + r;
+      cp_async16(dk_ + r * RS + d, in ? kb + row * k_st + d : kb, in);
+      cp_async16(dv_ + r * RS + d, in ? vb + row * v_st + d : vb, in);
+    }
+  };
+  load_kv(0);
+  cp_async_commit();
+
+  // D = rowsum(dO o O), read from device memory while the copies land; CH
+  // neighbouring lanes share a row
+  for (int c = tid; c < kBwdTile * CH; c += kBwdThreads) {
+    const int r = c / CH, d = (c % CH) * 8;
+    float part = 0.f;
+    if (q0 + r < tq) {
+      const long long at = o_base + (long long)(q0 + r) * o_st + d;
+      const uint4 ro = *reinterpret_cast<const uint4*>(o + at);
+      const uint4 rd = *reinterpret_cast<const uint4*>(dout + at);
+      const __nv_bfloat162* po = reinterpret_cast<const __nv_bfloat162*>(&ro);
+      const __nv_bfloat162* pd = reinterpret_cast<const __nv_bfloat162*>(&rd);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 fo = __bfloat1622float2(po[i]);
+        const float2 fd = __bfloat1622float2(pd[i]);
+        part = fmaf(fd.x, fo.x, part);
+        part = fmaf(fd.y, fo.y, part);
+      }
+    }
+#pragma unroll
+    for (int off = CH / 2; off > 0; off >>= 1)
+      part += __shfl_xor_sync(0xffffffffu, part, off);
+    if (c % CH == 0) {
+      sdd[r] = part;
+      if (q0 + r < tq) dd_out[row_base + q0 + r] = part;
+    }
+  }
+  __syncthreads();
+
+  // this thread's rows r0 and r0 + 8: log-sum-exp (log2 units) and D
+  const int r0 = q0 + wrow + lane / 4;
+  float lse2[2], dd[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lse2[i] = r0 + 8 * i < tq ? lse[row_base + r0 + 8 * i] : 0.f;
+    dd[i] = sdd[wrow + lane / 4 + 8 * i];
+  }
+  float acc[DT][4];
+#pragma unroll
+  for (int t = 0; t < DT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    if (tile + 1 < n_tiles) load_kv(tile + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and Q, dO) have landed
+    __syncthreads();
+    const bf16* tk_ = sk + (tile & 1) * kBwdTile * RS;
+    const bf16* tv_ = sv + (tile & 1) * kBwdTile * RS;
+
+    // S = Q K^T and dP = dO V^T, 16 rows x 64 keys a warp
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      uint32_t aq[4], ad[4];
+      ldmatrix_x4(aq, a_addr(sq, RS, wrow, ks * 16, lane));
+      ldmatrix_x4(ad, a_addr(sdo, RS, wrow, ks * 16, lane));
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4(b, b_addr(tk_, RS, np * 16, ks * 16, lane));
+        mma_bf16(s[2 * np], aq, b[0], b[1]);
+        mma_bf16(s[2 * np + 1], aq, b[2], b[3]);
+        ldmatrix_x4(b, b_addr(tv_, RS, np * 16, ks * 16, lane));
+        mma_bf16(dp[2 * np], ad, b[0], b[1]);
+        mma_bf16(dp[2 * np + 1], ad, b[2], b[3]);
+      }
+    }
+
+    // P from the row's log-sum-exp, masked to 0; dS = P o (dP - D)
+    const int j0 = tile * kBwdTile;
+    // a tile that no mask edge crosses for any row of this warp
+    const bool full = j0 + kBwdTile <= kv_valid &&
+                      (!causal || j0 + kBwdTile - 1 <= q_offset + q0 + wrow);
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(s[t][e] * scale_log2 - lse2[e >> 1]);
+        if (!full) {
+          const int key = j0 + t * 8 + (lane % 4) * 2 + (e & 1);
+          const int row = r0 + (e >> 1) * 8;
+          const bool vis =
+              key < kv_valid && (!causal || key <= q_offset + row);
+          p = vis ? p : 0.f;
+        }
+        s[t][e] = p * (dp[t][e] - dd[e >> 1]);
+      }
+
+    // dQ += dS K: dS rounded to bf16 in registers (its C fragments are the
+    // A fragments), K read through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+      uint32_t a[4];
+      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int dn = 0; dn < DT / 2; ++dn) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, bt_addr(tk_, RS, kk * 16, dn * 16, lane));
+        mma_bf16(acc[2 * dn], a, b[0], b[1]);
+        mma_bf16(acc[2 * dn + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // this stage is free for tile + 2
+  }
+
+  // each warp stages its own 16 rows of dQ in the Q tile (only it reads
+  // those rows) and writes them as 16-byte stores
+  bf16* so = sq + wrow * RS;
+#pragma unroll
+  for (int t = 0; t < DT; ++t) {
+    const int d = t * 8 + (lane % 4) * 2;
+    *reinterpret_cast<uint32_t*>(so + (lane / 4) * RS + d) =
+        pack_bf16(acc[t][0] * scale, acc[t][1] * scale);
+    *reinterpret_cast<uint32_t*>(so + (lane / 4 + 8) * RS + d) =
+        pack_bf16(acc[t][2] * scale, acc[t][3] * scale);
+  }
+  __syncwarp();
+  for (int c = lane; c < 16 * CH; c += 32) {
+    const int r = c / CH, d = (c % CH) * 8;
+    const int row = q0 + wrow + r;
+    if (row < tq)
+      *reinterpret_cast<uint4*>(dq + o_base + (long long)row * o_st + d) =
+          *reinterpret_cast<const uint4*>(so + r * RS + d);
+  }
+}
+
+// dout: (b, tq, h, HD) contiguous; lse, dd: (b, h, tq); dk, dv: (b, tk, kh,
+// HD) contiguous
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads)
+    bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
+                        const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ dd, bf16* __restrict__ dk,
+                        bf16* __restrict__ dv, int tq, int tk, int h, int kh,
+                        int group, long long q_sb, long long q_st,
+                        long long q_sh, long long k_sb, long long k_st,
+                        long long k_sh, long long v_sb, long long v_st,
+                        long long v_sh, int causal, int q_offset,
+                        int kv_valid_len, float scale_log2, float scale) {
+  static_assert(HD % 16 == 0, "head width must be a multiple of 16");
+  constexpr int RS = HD + kPad;
+  constexpr int CH = HD / 8;
+  constexpr int KSTEPS = HD / 16;   // k-steps of S^T and dP^T
+  constexpr int NQ = kQChunk / 8;   // query n-tiles of one S^T step
+  constexpr int DT = HD / 8;        // n-tiles of dK and dV a warp
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sk = reinterpret_cast<bf16*>(smem);  // kBwdTile x RS, then dK
+  bf16* sv = sk + kBwdTile * RS;             // kBwdTile x RS, then dV
+  bf16* sq = sv + kBwdTile * RS;             // 2 stages x kBwdTile x RS
+  bf16* sdo = sq + 2 * kBwdTile * RS;        // 2 stages x kBwdTile x RS
+  float* slse = reinterpret_cast<float*>(sdo + 2 * kBwdTile * RS);
+  float* sdd = slse + 2 * kBwdTile;          // 2 stages x kBwdTile each
+
+  // grid (KV heads, batch, key tiles): under a causal mask the first key
+  // tiles are seen by the most query tiles, and start first
+  const int kvh = blockIdx.x;
+  const int bb = blockIdx.y;
+  const int j0 = blockIdx.z * kBwdTile;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wkey = warp * 16;  // this warp's first key in the tile
+  const int kv_end = min(kv_valid_len, tk);
+  const long long o_st = (long long)h * HD;
+  const bf16* kb = k + bb * k_sb + kvh * k_sh;
+  const bf16* vb = v + bb * v_sb + kvh * v_sh;
+
+  // the query tiles that can see the tile (causal: from the one holding
+  // the first row at or after key j0), for each head of the group
+  const int n_q_tiles = (tq + kBwdTile - 1) / kBwdTile;
+  const int i_first = causal ? max(0, j0 - q_offset) / kBwdTile : 0;
+  const int n_qt = j0 < kv_end ? max(0, n_q_tiles - i_first) : 0;
+  const int n_items = group * n_qt;
+
+  for (int c = tid; c < kBwdTile * CH; c += kBwdThreads) {
+    const int r = c / CH, d = (c % CH) * 8;
+    const bool in = j0 + r < kv_end;  // rows past it load as zeros
+    const long long row = j0 + r;
+    cp_async16(sk + r * RS + d, in ? kb + row * k_st + d : kb, in);
+    cp_async16(sv + r * RS + d, in ? vb + row * v_st + d : vb, in);
+  }
+  // an item's Q and dO tiles and its rows' lse and D into stage it & 1
+  auto load_item = [&](int it) {
+    const int st = it & 1;
+    const int hh = kvh * group + it / n_qt;
+    const int i0 = (i_first + it % n_qt) * kBwdTile;
+    const bf16* qb = q + bb * q_sb + hh * q_sh;
+    const bf16* ob = dout + ((long long)bb * tq * h + hh) * HD;
+    const long long rows = ((long long)bb * h + hh) * tq;
+    bf16* dq_ = sq + st * kBwdTile * RS;
+    bf16* ddo = sdo + st * kBwdTile * RS;
+    for (int c = tid; c < kBwdTile * CH; c += kBwdThreads) {
+      const int r = c / CH, d = (c % CH) * 8;
+      const bool in = i0 + r < tq;
+      const long long row = i0 + r;
+      cp_async16(dq_ + r * RS + d, in ? qb + row * q_st + d : qb, in);
+      cp_async16(ddo + r * RS + d, in ? ob + row * o_st + d : ob, in);
+    }
+    for (int r = tid; r < kBwdTile; r += kBwdThreads) {
+      const bool in = i0 + r < tq;
+      cp_async4(slse + st * kBwdTile + r, in ? lse + rows + i0 + r : lse,
+                in);
+      cp_async4(sdd + st * kBwdTile + r, in ? dd + rows + i0 + r : dd, in);
+    }
+  };
+  if (n_items > 0) load_item(0);
+  cp_async_commit();  // K, V and the first item
+
+  float adk[DT][4], adv[DT][4];
+#pragma unroll
+  for (int t = 0; t < DT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[t][e] = adv[t][e] = 0.f;
+  // this thread's keys (rows of S^T) k_lo and k_lo + 8
+  const int k_lo = j0 + wkey + lane / 4;
+
+  for (int it = 0; it < n_items; ++it) {
+    if (it + 1 < n_items) load_item(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this item (and K, V) have landed
+    __syncthreads();
+    const int st = it & 1;
+    const int i0 = (i_first + it % n_qt) * kBwdTile;
+    const bf16* tq_ = sq + st * kBwdTile * RS;
+    const bf16* tdo = sdo + st * kBwdTile * RS;
+    const float* tl = slse + st * kBwdTile;
+    const float* td = sdd + st * kBwdTile;
+    // no mask edge crosses this warp's 16 keys x the tile's rows
+    const bool full = j0 + wkey + 16 <= kv_end && i0 + kBwdTile <= tq &&
+                      (!causal || j0 + wkey + 15 <= q_offset + i0);
+
+    for (int c0 = 0; c0 < kBwdTile; c0 += kQChunk) {
+      // S^T = K Q^T and dP^T = V dO^T: 16 keys x kQChunk rows a warp
+      float s[NQ][4], dp[NQ][4];
+#pragma unroll
+      for (int t = 0; t < NQ; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KSTEPS; ++ks) {
+        uint32_t ak[4], av[4];
+        ldmatrix_x4(ak, a_addr(sk, RS, wkey, ks * 16, lane));
+        ldmatrix_x4(av, a_addr(sv, RS, wkey, ks * 16, lane));
+#pragma unroll
+        for (int np = 0; np < NQ / 2; ++np) {
+          uint32_t b[4];
+          ldmatrix_x4(b, b_addr(tq_, RS, c0 + np * 16, ks * 16, lane));
+          mma_bf16(s[2 * np], ak, b[0], b[1]);
+          mma_bf16(s[2 * np + 1], ak, b[2], b[3]);
+          ldmatrix_x4(b, b_addr(tdo, RS, c0 + np * 16, ks * 16, lane));
+          mma_bf16(dp[2 * np], av, b[0], b[1]);
+          mma_bf16(dp[2 * np + 1], av, b[2], b[3]);
+        }
+      }
+      // P^T from each column's (query row's) log-sum-exp, masked to 0;
+      // dS^T = P^T o (dP^T - D)
+#pragma unroll
+      for (int t = 0; t < NQ; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qr = c0 + t * 8 + (lane % 4) * 2 + (e & 1);
+          float p = exp2f(s[t][e] * scale_log2 - tl[qr]);
+          if (!full) {
+            const int key = k_lo + (e >> 1) * 8;
+            const int row = i0 + qr;
+            const bool vis = key < kv_end && row < tq &&
+                             (!causal || key <= q_offset + row);
+            p = vis ? p : 0.f;
+          }
+          dp[t][e] = p * (dp[t][e] - td[qr]);
+          s[t][e] = p;
+        }
+      // dV += P^T dO and dK += dS^T Q, P^T and dS^T rounded to bf16 in
+      // registers, dO and Q read through ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < NQ / 2; ++kk) {
+        uint32_t ap[4], as[4];
+        c_to_a(ap, s[2 * kk], s[2 * kk + 1]);
+        c_to_a(as, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+        for (int dn = 0; dn < DT / 2; ++dn) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, bt_addr(tdo, RS, c0 + kk * 16, dn * 16, lane));
+          mma_bf16(adv[2 * dn], ap, b[0], b[1]);
+          mma_bf16(adv[2 * dn + 1], ap, b[2], b[3]);
+          ldmatrix_x4_trans(b, bt_addr(tq_, RS, c0 + kk * 16, dn * 16, lane));
+          mma_bf16(adk[2 * dn], as, b[0], b[1]);
+          mma_bf16(adk[2 * dn + 1], as, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage is free for item + 2
+  }
+
+  // each warp stages its own 16 keys of dK and dV in its rows of the K and
+  // V tiles (after every copy has landed) and writes them as 16-byte
+  // stores; a key no row sees writes zeros
+  cp_async_wait<0>();
+  __syncthreads();
+  bf16* sok = sk + wkey * RS;
+  bf16* sov = sv + wkey * RS;
+#pragma unroll
+  for (int t = 0; t < DT; ++t) {
+    const int d = t * 8 + (lane % 4) * 2;
+    *reinterpret_cast<uint32_t*>(sok + (lane / 4) * RS + d) =
+        pack_bf16(adk[t][0] * scale, adk[t][1] * scale);
+    *reinterpret_cast<uint32_t*>(sok + (lane / 4 + 8) * RS + d) =
+        pack_bf16(adk[t][2] * scale, adk[t][3] * scale);
+    *reinterpret_cast<uint32_t*>(sov + (lane / 4) * RS + d) =
+        pack_bf16(adv[t][0], adv[t][1]);
+    *reinterpret_cast<uint32_t*>(sov + (lane / 4 + 8) * RS + d) =
+        pack_bf16(adv[t][2], adv[t][3]);
+  }
+  __syncwarp();
+  for (int c = lane; c < 16 * CH; c += 32) {
+    const int r = c / CH, d = (c % CH) * 8;
+    const int key = j0 + wkey + r;
+    if (key < tk) {
+      const long long at = (((long long)bb * tk + key) * kh + kvh) * HD + d;
+      *reinterpret_cast<uint4*>(dk + at) =
+          *reinterpret_cast<const uint4*>(sok + r * RS + d);
+      *reinterpret_cast<uint4*>(dv + at) =
+          *reinterpret_cast<const uint4*>(sov + r * RS + d);
+    }
+  }
+}
+
+}  // namespace tc
+
 
 namespace {
 
@@ -488,10 +916,10 @@ struct BwdArgs {
   cudaStream_t stream;
 };
 
-template <typename T, int HD>
-int launch_bwd(const BwdArgs& a) {
-  auto ka = bwd::bwd_dq_kernel<T, HD>;
-  auto kb = bwd::bwd_dkdv_kernel<T, HD>;
+template <int HD>
+int launch_fma(const BwdArgs& a) {
+  auto ka = bwd::bwd_dq_kernel<HD>;
+  auto kb = bwd::bwd_dkdv_kernel<HD>;
   constexpr size_t smem_a = bwd::dq_smem_bytes<HD>();
   constexpr size_t smem_b = bwd::dkdv_smem_bytes<HD>();
   if (const int err = allow_smem(ka, smem_a)) return err;
@@ -499,45 +927,97 @@ int launch_bwd(const BwdArgs& a) {
   const int group = a.h / a.kh;
   const dim3 grid_a((a.tq + bwd::kTile - 1) / bwd::kTile, a.h, a.b);
   ka<<<grid_a, bwd::kThreads, smem_a, a.stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.out,
-      (const T*)a.dout, (T*)a.dq, (float*)a.lse, (float*)a.dd, a.tq, a.tk,
-      a.h, group, a.q_sb, a.q_st, a.q_sh, a.k_sb, a.k_st, a.k_sh, a.v_sb,
-      a.v_st, a.v_sh, a.causal, a.q_offset, a.kv_valid_len, a.scale);
+      (const float*)a.q, (const float*)a.k, (const float*)a.v,
+      (const float*)a.out, (const float*)a.dout, (float*)a.dq,
+      (float*)a.lse, (float*)a.dd, a.tq, a.tk, a.h, group, a.q_sb, a.q_st,
+      a.q_sh, a.k_sb, a.k_st, a.k_sh, a.v_sb, a.v_st, a.v_sh, a.causal,
+      a.q_offset, a.kv_valid_len, a.scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid_b((a.tk + bwd::kTile - 1) / bwd::kTile, a.kh, a.b);
   kb<<<grid_b, bwd::kThreads, smem_b, a.stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
-      (const float*)a.lse, (const float*)a.dd, (T*)a.dk, (T*)a.dv, a.tq,
-      a.tk, a.h, a.kh, group, a.q_sb, a.q_st, a.q_sh, a.k_sb, a.k_st,
-      a.k_sh, a.v_sb, a.v_st, a.v_sh, a.causal, a.q_offset, a.kv_valid_len,
-      a.scale);
+      (const float*)a.q, (const float*)a.k, (const float*)a.v,
+      (const float*)a.dout, (const float*)a.lse, (const float*)a.dd,
+      (float*)a.dk, (float*)a.dv, a.tq, a.tk, a.h, a.kh, group, a.q_sb,
+      a.q_st, a.q_sh, a.k_sb, a.k_st, a.k_sh, a.v_sb, a.v_st, a.v_sh,
+      a.causal, a.q_offset, a.kv_valid_len, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int by_width(int hd, const BwdArgs& a) {
+template <int HD>
+int launch_mma(const BwdArgs& a) {
+  using tc::bf16;
+  auto ka = tc::bwd_dq_mma_kernel<HD>;
+  auto kb = tc::bwd_dkdv_mma_kernel<HD>;
+  constexpr size_t smem = tc::bwd_mma_smem_bytes<HD>();
+  if (const int err = allow_smem(ka, smem)) return err;
+  if (const int err = allow_smem(kb, smem)) return err;
+  const int group = a.h / a.kh;
+  const float scale_log2 = a.scale * tc::kLog2e;
+  const dim3 grid_a(a.h, a.b, (a.tq + tc::kBwdTile - 1) / tc::kBwdTile);
+  ka<<<grid_a, tc::kBwdThreads, smem, a.stream>>>(
+      (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
+      (const bf16*)a.out, (const bf16*)a.dout, (const float*)a.lse,
+      (bf16*)a.dq, (float*)a.dd, a.tq, a.tk, a.h, group, a.q_sb, a.q_st,
+      a.q_sh, a.k_sb, a.k_st, a.k_sh, a.v_sb, a.v_st, a.v_sh, a.causal,
+      a.q_offset, a.kv_valid_len, scale_log2, a.scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid_b(a.kh, a.b, (a.tk + tc::kBwdTile - 1) / tc::kBwdTile);
+  kb<<<grid_b, tc::kBwdThreads, smem, a.stream>>>(
+      (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
+      (const bf16*)a.dout, (const float*)a.lse, (const float*)a.dd,
+      (bf16*)a.dk, (bf16*)a.dv, a.tq, a.tk, a.h, a.kh, group, a.q_sb,
+      a.q_st, a.q_sh, a.k_sb, a.k_st, a.k_sh, a.v_sb, a.v_st, a.v_sh,
+      a.causal, a.q_offset, a.kv_valid_len, scale_log2, a.scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename F>
+int by_width(int hd, F&& f) {
   switch (hd) {
-    case 16: return launch_bwd<T, 16>(a);
-    case 32: return launch_bwd<T, 32>(a);
-    case 64: return launch_bwd<T, 64>(a);
-    case 128: return launch_bwd<T, 128>(a);
+    case 16: return f(std::integral_constant<int, 16>());
+    case 32: return f(std::integral_constant<int, 32>());
+    case 64: return f(std::integral_constant<int, 64>());
+    case 128: return f(std::integral_constant<int, 128>());
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// q (b, tq, h, hd) and k, v (b, tk, kh, hd) at the given element strides
-// (batch, position, head; the head axis contiguous), all of one dtype
-// (0 float32, 1 bfloat16); out, dout and dq (b, tq, h, hd) and dk, dv (b, tk,
-// kh, hd) contiguous in that dtype; lse and dd (b, h, tq) float32 scratch.
-// Launches bwd_dq_kernel, then bwd_dkdv_kernel, on `stream`; returns
+// Both entry points: q (b, tq, h, hd) and k, v (b, tk, kh, hd) at the given
+// element strides (batch, position, head; the head axis contiguous), all of
+// one dtype; out, dout and dq (b, tq, h, hd) and dk, dv (b, tk, kh, hd)
+// contiguous in that dtype; lse and dd (b, h, tq) float32.  Each launches
+// its dQ kernel, then its dK/dV kernel, on `stream` and returns
 // cudaGetLastError() after them, or the error of a shared-memory request.
-extern "C" int quiver_flash_attention_bwd(
+
+// bfloat16: the tensor-core kernels.  lse is the forward's (flash_mma_kernel
+// with an lse output, log2 units); dd is scratch.
+extern "C" int quiver_flash_attention_bwd_mma(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, const void* lse, void* dq, void* dk, void* dv,
+    void* dd, int b, int tq, int tk, int h, int kh, int hd, long long q_sb,
+    long long q_st, long long q_sh, long long k_sb, long long k_st,
+    long long k_sh, long long v_sb, long long v_st, long long v_sh,
+    int causal, int q_offset, int kv_valid_len, float scale, void* stream) {
+  if (b == 0 || tq == 0 || h == 0 || tk == 0) return (int)cudaGetLastError();
+  const BwdArgs a{q,    k,    v,    out,  dout, dq,     dk,       dv,
+                  const_cast<void*>(lse), dd, b, tq, tk, h, kh, q_sb,
+                  q_st, q_sh, k_sb, k_st, k_sh, v_sb,   v_st,     v_sh,
+                  causal, q_offset, kv_valid_len, scale,
+                  (cudaStream_t)stream};
+  return by_width(hd, [&](auto w) {
+    return launch_mma<decltype(w)::value>(a);
+  });
+}
+
+// float32: the CUDA-core kernels; lse and dd are scratch.
+extern "C" int quiver_flash_attention_bwd_fma(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, void* dq, void* dk, void* dv, void* lse, void* dd,
-    int dtype, int b, int tq, int tk, int h, int kh, int hd, long long q_sb,
+    int b, int tq, int tk, int h, int kh, int hd, long long q_sb,
     long long q_st, long long q_sh, long long k_sb, long long k_st,
     long long k_sh, long long v_sb, long long v_st, long long v_sh,
     int causal, int q_offset, int kv_valid_len, float scale, void* stream) {
@@ -547,7 +1027,7 @@ extern "C" int quiver_flash_attention_bwd(
                   q_st, q_sh, k_sb, k_st, k_sh, v_sb,   v_st,     v_sh,
                   causal, q_offset, kv_valid_len, scale,
                   (cudaStream_t)stream};
-  if (dtype == 0) return by_width<float>(hd, a);
-  if (dtype == 1) return by_width<__nv_bfloat16>(hd, a);
-  return (int)cudaErrorInvalidValue;
+  return by_width(hd, [&](auto w) {
+    return launch_fma<decltype(w)::value>(a);
+  });
 }

@@ -46,14 +46,23 @@ kernel it took (:data:`VARIANTS`).
 
 Gradients.  On the CPU autograd differentiates the plain version.  On the
 card a call whose q, k or v needs a gradient (with grad mode on) goes
-through :class:`FlashAttentionFn`: its forward is the kernel above, its
-backward :func:`flash_attention_backward`, which launches the two kernels
-of ``csrc/flash_attention_bwd.cu`` (``LAUNCHES["flash_attention_bwd"]``);
-:func:`flash_attention_backward_plain` is its arithmetic in float32.  The
-gradients are those of the float32 function: the tensor-core forward
-rounds P to bf16 before P V, the backward recomputes P in float32.  A
-checkpointed (remat) block runs the forward kernel again in its backward,
-and counts it again.
+through :class:`FlashAttentionFn`: its forward is the kernel above (a bf16
+call with Tq > 1 also writes each row's log-sum-exp, which it saves), its
+backward :func:`flash_attention_backward`, which launches a dQ kernel and
+a dK/dV kernel of ``csrc/flash_attention_bwd.cu``, chosen by dtype alone:
+
+* bf16: the tensor-core kernels (``mma.sync`` bf16 products, P recomputed
+  from the forward's log-sum-exp, P and dS rounded to bf16 before their
+  products, as FlashAttention-2 and SDPA do);
+  :func:`flash_attention_backward_mma_plain` mirrors their arithmetic in
+  float32.  Without a saved log-sum-exp the wrapper gets it from the same
+  forward kernel, so a direct call gives the autograd route's bits;
+* float32: the CUDA-core kernels (float32 FMAs, their own log-sum-exp
+  pass), whose arithmetic :func:`flash_attention_backward_plain` is.
+
+Each call adds one to ``LAUNCHES["flash_attention_bwd"]`` and one to the
+count of its route (:data:`BWD_VARIANTS`).  A checkpointed (remat) block
+runs the forward kernel again in its backward, and counts it again.
 """
 
 from __future__ import annotations
@@ -76,8 +85,11 @@ LOG2E = 1.4426950408889634
 VARIANTS = {"mma": "flash_attention_mma",
             "split_kv": "flash_attention_split_kv",
             "fma": "flash_attention_fma"}
-# launch-count key of the backward (its two kernels count as one call)
+# launch-count key of the backward (its two kernels count as one call),
+# and of its two routes
 BWD = "flash_attention_bwd"
+BWD_VARIANTS = {"mma": "flash_attention_bwd_mma",
+                "fma": "flash_attention_bwd_fma"}
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, q_offset: int = 0,
@@ -85,23 +97,10 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, q_offset: int = 0,
     """The naive masked softmax in float32 (the form of
     ``repro/kernels/ref.py::flash_attention_ref`` plus the model's masks);
     returns ``q``'s dtype."""
-    b, tq, h, hd = q.shape
-    tk, kh = k.shape[1], k.shape[2]
-    kv_valid_len = tk if kv_valid_len is None else kv_valid_len
-    g = h // kh
-    kf, vf = k.float(), v.float()
-    if g > 1:
-        kf = kf.repeat_interleave(g, dim=2)
-        vf = vf.repeat_interleave(g, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * (hd ** -0.5)
-    k_pos = torch.arange(tk, device=q.device)
-    q_pos = q_offset + torch.arange(tq, device=q.device)
-    mask = (k_pos < kv_valid_len)[None, :]
-    if causal:
-        mask = mask & (k_pos[None, :] <= q_pos[:, None])
-    s = s.masked_fill(~mask, NEG_INF)
+    s = _scores(q, k, causal, q_offset, kv_valid_len, q.shape[3] ** -0.5)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, _grouped(q, k, v)[2]).to(
+        q.dtype)
 
 
 def flash_attention_backward_plain(q, k, v, out, dout, *,
@@ -110,31 +109,93 @@ def flash_attention_backward_plain(q, k, v, out, dout, *,
                                    ) -> tuple[torch.Tensor, torch.Tensor,
                                               torch.Tensor]:
     """dQ, dK, dV of :func:`flash_attention_plain` in float32, as the
-    backward kernel computes them: P recomputed from each row's
+    float32 backward kernel computes them: P recomputed from each row's
     log-sum-exp, ``D = rowsum(dO * O)`` from the forward's output ``out``,
     ``dS = P * (dP - D)``; dK and dV summed over each KV head's group.
     Returns q's, k's and v's dtypes."""
-    b, tq, h, hd = q.shape
-    tk, kh = k.shape[1], k.shape[2]
-    kv_valid_len = tk if kv_valid_len is None else kv_valid_len
-    g = h // kh
-    scale = hd ** -0.5
+    scale = q.shape[3] ** -0.5
+    s = _scores(q, k, causal, q_offset, kv_valid_len, scale)
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    return _grads(q, k, v, out, dout, p, lambda x: x, scale)
+
+
+def flash_attention_lse_plain(q, k, *, causal: bool = True,
+                              q_offset: int = 0,
+                              kv_valid_len: int | None = None
+                              ) -> torch.Tensor:
+    """Each row's log-sum-exp as the tensor-core forward keeps it: in log2
+    units of the score scaled by ``hd^-0.5 * log2 e`` (masked scores
+    -1e30), ``m + log2(sum_j exp2(s_j - m))`` with ``m`` the row's max.
+    Returns (B, H, Tq) float32."""
+    s = _scores(q, k, causal, q_offset, kv_valid_len,
+                q.shape[3] ** -0.5 * LOG2E)
+    return _log2_sum_exp2(s)[..., 0]
+
+
+def flash_attention_backward_mma_plain(q, k, v, out, dout, *,
+                                       causal: bool = True,
+                                       q_offset: int = 0,
+                                       kv_valid_len: int | None = None
+                                       ) -> tuple[torch.Tensor, torch.Tensor,
+                                                  torch.Tensor]:
+    """The bf16 backward kernel's arithmetic in float32: P = exp2(S * hd^-0.5
+    * log2 e - lse), with the log-sum-exp of
+    :func:`flash_attention_lse_plain`; ``D = rowsum(dO * O)`` from the
+    forward's output, ``dS = P * (dP - D)`` in float32; then P and dS
+    rounded to bf16 before dV = P^T dO, dQ = dS K and dK = dS^T Q (float32
+    sums, dK and dV summed over each KV head's group), and the results
+    rounded once to the inputs' dtypes."""
+    scale = q.shape[3] ** -0.5
+    s = _scores(q, k, causal, q_offset, kv_valid_len, scale * LOG2E)
+    p = torch.exp2(s - _log2_sum_exp2(s))
+    return _grads(q, k, v, out, dout, p, lambda x: x.bfloat16().float(),
+                  scale)
+
+
+def _grouped(q, k, v):
+    """q, k, v in float32, k and v repeated to one KV head a query head."""
+    g = q.shape[2] // k.shape[2]
     qf, kf, vf = q.float(), k.float(), v.float()
     if g > 1:
         kf = kf.repeat_interleave(g, dim=2)
         vf = vf.repeat_interleave(g, dim=2)
+    return qf, kf, vf
+
+
+def _scores(q, k, causal: bool, q_offset: int, kv_valid_len: int | None,
+            scale: float) -> torch.Tensor:
+    """(B, H, Tq, Tk) float32 scores q k^T * scale, -1e30 where masked."""
+    tq, tk = q.shape[1], k.shape[1]
+    kv_valid_len = tk if kv_valid_len is None else kv_valid_len
+    qf, kf, _ = _grouped(q, k, k)
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
     k_pos = torch.arange(tk, device=q.device)
     q_pos = q_offset + torch.arange(tq, device=q.device)
     mask = (k_pos < kv_valid_len)[None, :]
     if causal:
         mask = mask & (k_pos[None, :] <= q_pos[:, None])
-    s = s.masked_fill(~mask, NEG_INF)
-    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    return s.masked_fill(~mask, NEG_INF)
+
+
+def _log2_sum_exp2(s: torch.Tensor) -> torch.Tensor:
+    m = s.amax(dim=-1, keepdim=True)
+    return m + torch.log2(torch.exp2(s - m).sum(dim=-1, keepdim=True))
+
+
+def _grads(q, k, v, out, dout, p, rounded, scale: float):
+    """dQ, dK, dV from the probabilities ``p`` (B, H, Tq, Tk): ``dS = p *
+    (dP - D)``, then ``rounded`` applied to P and dS before their products;
+    dK and dV summed over each KV head's group, each cast to its input's
+    dtype."""
+    b, tq, h, hd = q.shape
+    tk, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    qf, kf, vf = _grouped(q, k, v)
     do = dout.float()
     d = (do * out.float()).sum(dim=-1).permute(0, 2, 1)[..., None]
     dp = torch.einsum("bqhd,bkhd->bhqk", do, vf)
-    ds = p * (dp - d)
+    ds = rounded(p * (dp - d))
+    p = rounded(p)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
@@ -219,7 +280,8 @@ def _lib() -> ctypes.CDLL:
         *strides, i, i, i, f, p,      # causal, q_offset, kv_valid_len,
     ]                                 # scale, stream
     lib.quiver_flash_attention_mma.argtypes = [
-        p, p, p, p, i, i, i, i, i, i, *strides, i, i, i, f, p]
+        p, p, p, p, p,                # q, k, v, out, lse (or null)
+        i, i, i, i, i, i, *strides, i, i, i, f, p]
     lib.quiver_flash_decode_split.argtypes = [
         p, p, p, p, p, p, i,          # q, k, v, out, part_o, part_ml, splits
         i, i, i, i, i,                # b, tk, h, kh, hd
@@ -235,12 +297,17 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("flash_attention_bwd")
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float
-    lib.quiver_flash_attention_bwd.argtypes = [
+    tail = [i, i, i, i, i, i,         # b, tq, tk, h, kh, hd
+            *[ll] * 9, i, i, i, f, p]   # strides, masking, scale, stream
+    lib.quiver_flash_attention_bwd_mma.argtypes = [
+        p, p, p, p, p, p,             # q, k, v, out, dout, the forward's lse
+        p, p, p, p, *tail]            # dq, dk, dv, d scratch
+    lib.quiver_flash_attention_bwd_fma.argtypes = [
         p, p, p, p, p,                # q, k, v, out, dout
-        p, p, p, p, p, i,             # dq, dk, dv, lse, d scratch, dtype
-        i, i, i, i, i, i,             # b, tq, tk, h, kh, hd
-        *[ll] * 9, i, i, i, f, p]     # strides, masking, scale, stream
-    lib.quiver_flash_attention_bwd.restype = i
+        p, p, p, p, p, *tail]         # dq, dk, dv, lse and d scratch
+    for fn in (lib.quiver_flash_attention_bwd_mma,
+               lib.quiver_flash_attention_bwd_fma):
+        fn.restype = i
     return lib
 
 
@@ -285,9 +352,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _forward(q, k, v, causal, q_offset, kv_valid_len)
 
 
-def _forward(q, k, v, causal: bool, q_offset: int,
-             kv_valid_len: int) -> torch.Tensor:
-    """Launch the forward kernel that ``q``'s dtype and Tq select."""
+def _forward(q, k, v, causal: bool, q_offset: int, kv_valid_len: int,
+             lse: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the forward kernel that ``q``'s dtype and Tq select.  With
+    ``lse``, a (B, H, Tq) float32 tensor for bf16 q, the tensor-core kernel
+    also writes each row's log-sum-exp into it, and is taken for any Tq."""
     b, tq, h, hd = q.shape
     tk, kh = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS:
@@ -307,13 +376,15 @@ def _forward(q, k, v, causal: bool, q_offset: int,
                v.stride(0), v.stride(1), v.stride(2))
     masking = (int(causal), q_offset, kv_valid_len, hd ** -0.5)
     if q.dtype == torch.float32:
+        if lse is not None:
+            raise ValueError("only the bf16 forward writes a log-sum-exp")
         variant = "fma"
         status = _lib().quiver_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPES[k.dtype], b, tq, tk, h, kh, hd, *strides, *masking, stream)
     else:
         _check_vectors(("q", q), ("k", k), ("v", v))
-        if tq == 1:
+        if tq == 1 and lse is None:
             variant = "split_kv"
             n_split = -(-kv_valid_len // SPLIT_KEYS)
             part_o = torch.empty((b, h, n_split, hd), dtype=torch.float32,
@@ -327,8 +398,9 @@ def _forward(q, k, v, causal: bool, q_offset: int,
         else:
             variant = "mma"
             status = _lib().quiver_flash_attention_mma(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                tq, tk, h, kh, hd, *strides, *masking, stream)
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                0 if lse is None else lse.data_ptr(), b, tq, tk, h, kh, hd,
+                *strides, *masking, stream)
     build.LAUNCHES["flash_attention"] += 1
     build.LAUNCHES[VARIANTS[variant]] += 1
     build.check(status, f"flash_attention ({variant})")
@@ -350,28 +422,56 @@ def _check_backward(q, k, v) -> None:
     _check_vectors(("q", q), ("k", k), ("v", v))
 
 
+def flash_attention_lse(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                        kv_valid_len: int | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention`'s output and each row's log-sum-exp ((B, H,
+    Tq) float32, log2 units: :func:`flash_attention_lse_plain`), the
+    saved state of the bf16 backward.  A CPU tensor takes the plain
+    versions; bf16 on the card launches the tensor-core forward (for any
+    Tq) with its log-sum-exp output; float32 on the card raises (its
+    backward computes its own)."""
+    kv_valid_len = k.shape[1] if kv_valid_len is None else int(kv_valid_len)
+    q_offset = int(q_offset)
+    _check(q, k, v, q_offset, kv_valid_len)
+    kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=kv_valid_len)
+    if q.device.type == "cpu":
+        return (flash_attention_plain(q, k, v, **kw),
+                flash_attention_lse_plain(q, k, **kw))
+    b, tq, h, _ = q.shape
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    return _forward(q, k, v, causal, q_offset, kv_valid_len, lse=lse), lse
+
+
 def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
                              q_offset: int = 0,
-                             kv_valid_len: int | None = None
+                             kv_valid_len: int | None = None,
+                             lse: torch.Tensor | None = None
                              ) -> tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """dQ, dK, dV of :func:`flash_attention` for the forward's output
     ``out`` and its incoming gradient ``dout`` (both (B, Tq, H, hd) in q's
-    dtype).  A CPU tensor takes :func:`flash_attention_backward_plain`; a
-    CUDA tensor launches ``csrc/flash_attention_bwd.cu`` (its dQ kernel,
-    then its dK/dV kernel) or raises: on a dtype or head width it does not
-    take, or on an ``out``/``dout`` that is not contiguous and 16-byte
-    aligned."""
+    dtype).  A CPU tensor takes the plain version of the kernel its dtype
+    selects (bf16: :func:`flash_attention_backward_mma_plain`, float32:
+    :func:`flash_attention_backward_plain`).  A CUDA tensor launches the
+    two kernels of ``csrc/flash_attention_bwd.cu`` for its dtype (bf16:
+    tensor cores; float32: CUDA cores) or raises: on a dtype or head width
+    they do not take, or on an ``out``/``dout`` that is not contiguous and
+    16-byte aligned.  ``lse`` is the bf16 forward's log-sum-exp
+    (:func:`flash_attention_lse`); without it the bf16 route gets it from
+    the same forward kernel first."""
     kv_valid_len = k.shape[1] if kv_valid_len is None else int(kv_valid_len)
     q_offset = int(q_offset)
     _check(q, k, v, q_offset, kv_valid_len)
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"out {tuple(out.shape)} and dout "
                          f"{tuple(dout.shape)} must be q's {tuple(q.shape)}")
+    kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=kv_valid_len)
     if q.device.type == "cpu":
-        return flash_attention_backward_plain(
-            q, k, v, out, dout, causal=causal, q_offset=q_offset,
-            kv_valid_len=kv_valid_len)
+        plain = (flash_attention_backward_mma_plain
+                 if q.dtype == torch.bfloat16
+                 else flash_attention_backward_plain)
+        return plain(q, k, v, out, dout, **kw)
     _check_backward(q, k, v)
     for name, t in (("out", out), ("dout", dout)):
         if t.dtype != q.dtype or t.device != q.device:
@@ -385,19 +485,38 @@ def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty((b, tk, kh, hd), dtype=k.dtype, device=k.device)
     dv = torch.empty((b, tk, kh, hd), dtype=v.dtype, device=v.device)
-    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     dd = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     strides = (q.stride(0), q.stride(1), q.stride(2),
                k.stride(0), k.stride(1), k.stride(2),
                v.stride(0), v.stride(1), v.stride(2))
-    status = _bwd_lib().quiver_flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        lse.data_ptr(), dd.data_ptr(), _DTYPES[q.dtype], b, tq, tk, h, kh,
-        hd, *strides, int(causal), q_offset, kv_valid_len, hd ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    tail = (b, tq, tk, h, kh, hd, *strides, int(causal), q_offset,
+            kv_valid_len, hd ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if q.dtype == torch.bfloat16:
+        if lse is None:
+            lse = flash_attention_lse(q, k, v, **kw)[1]
+        elif (lse.shape != (b, h, tq) or lse.dtype != torch.float32
+              or lse.device != q.device or not lse.is_contiguous()):
+            raise ValueError(f"lse must be ({b}, {h}, {tq}) float32, "
+                             f"contiguous, on {q.device}")
+        variant = "mma"
+        status = _bwd_lib().quiver_flash_attention_bwd_mma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dd.data_ptr(), *tail)
+    else:
+        if lse is not None:
+            raise ValueError("the float32 backward computes its own "
+                             "log-sum-exp; lse is the bf16 route's")
+        variant = "fma"
+        scratch = torch.empty_like(dd)
+        status = _bwd_lib().quiver_flash_attention_bwd_fma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            scratch.data_ptr(), dd.data_ptr(), *tail)
     build.LAUNCHES[BWD] += 1
-    build.check(status, "flash_attention_bwd")
+    build.LAUNCHES[BWD_VARIANTS[variant]] += 1
+    build.check(status, f"flash_attention_bwd ({variant})")
     return dq, dk, dv
 
 
@@ -410,22 +529,27 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 class FlashAttentionFn(torch.autograd.Function):
     """:func:`flash_attention` on the card with a gradient: the forward is
-    the forward kernel, the backward the backward kernel; q, k, v and the
-    output are saved for it."""
+    the forward kernel, the backward the backward kernel; q, k, v, the
+    output and (bf16, Tq > 1) the forward's log-sum-exp are saved for
+    it."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, q_offset: int,
                 kv_valid_len: int):
-        out = _forward(q, k, v, causal, q_offset, kv_valid_len)
-        ctx.save_for_backward(q, k, v, out)
+        lse = None
+        if q.dtype == torch.bfloat16 and q.shape[1] > 1:
+            lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]),
+                              dtype=torch.float32, device=q.device)
+        out = _forward(q, k, v, causal, q_offset, kv_valid_len, lse=lse)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.masking = (causal, q_offset, kv_valid_len)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         causal, q_offset, kv_valid_len = ctx.masking
         dq, dk, dv = flash_attention_backward(
             q, k, v, out, _aligned(dout), causal=causal, q_offset=q_offset,
-            kv_valid_len=kv_valid_len)
+            kv_valid_len=kv_valid_len, lse=lse)
         return dq, dk, dv, None, None, None

@@ -14,6 +14,12 @@ DecoderLM` here; the step updates it and the optimizer state in place and
 returns them.  It runs eagerly: nothing is compiled and nothing is
 donated.  The learning rate is the schedule at ``opt_state["count"]``
 before its increment, a device scalar (no host sync).
+
+Each part of the step runs inside a ``torch.profiler.record_function``
+range (:data:`SCOPES`: a microbatch's forward and backward, the float32
+accumulation, the optimizer), so that a profile of a step can say which
+part launched each kernel; outside a profile a range costs a few
+microseconds.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import dataclasses
 from typing import Callable
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.device import resolve_device
@@ -30,6 +37,11 @@ from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
 from repro_torch.optim.compress import compress_decompress_tree, \
     init_error_feedback
 from repro_torch.optim.schedule import SCHEDULES
+
+# the step's profiler ranges: a microbatch's forward and backward, the
+# accumulation of its gradients, the optimizer (clip, compression, AdamW)
+SCOPES = ("train_step::microbatch", "train_step::accumulate",
+          "train_step::optimizer")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,31 +109,34 @@ def make_train_step(bundle, tc: TrainConfig) -> Callable:
         grads = None
         loss_sum = None
         for i in range(tc.n_micro):
-            mb = _micro(batch, tc.n_micro, i, device)
-            loss, metrics = bundle.loss(model, mb)
-            loss.backward()
-            if grads is None:
-                grads = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                        device=p.device)
-                         for n, p in params.items()}
-            for n, p in params.items():
-                grads[n].add_(p.grad.float())
-                p.grad = None
+            with record_function(SCOPES[0]):
+                mb = _micro(batch, tc.n_micro, i, device)
+                loss, metrics = bundle.loss(model, mb)
+                loss.backward()
+            with record_function(SCOPES[1]):
+                if grads is None:
+                    grads = {n: torch.zeros(p.shape, dtype=torch.float32,
+                                            device=p.device)
+                             for n, p in params.items()}
+                for n, p in params.items():
+                    grads[n].add_(p.grad.float())
+                    p.grad = None
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss
-        if tc.n_micro > 1:
-            for g in grads.values():
-                g.div_(tc.n_micro)
-            loss = loss_sum / tc.n_micro
+        with record_function(SCOPES[1]):
+            if tc.n_micro > 1:
+                for g in grads.values():
+                    g.div_(tc.n_micro)
+                loss = loss_sum / tc.n_micro
         metrics = {k: v.detach() for k, v in metrics.items()}
 
-        if tc.compress_grads:
-            grads, _ = compress_decompress_tree(grads, opt_state["ef"],
-                                                param_groups(model))
-
-        lr = _lr(tc, step)
-        _, opt_state, opt_metrics = adamw_update(params, grads, opt_state,
-                                                 tc.adamw, lr)
+        with record_function(SCOPES[2]):
+            if tc.compress_grads:
+                grads, _ = compress_decompress_tree(
+                    grads, opt_state["ef"], param_groups(model))
+            lr = _lr(tc, step)
+            _, opt_state, opt_metrics = adamw_update(params, grads,
+                                                     opt_state, tc.adamw, lr)
         del grads
         metrics.update(opt_metrics)
         metrics["loss"] = loss

@@ -901,7 +901,17 @@ BWD_CASES = {
     "hd128_offset": (1, 37, 100, 4, 2, 128, True, 20, 57),
     "masked_keys_bidirectional": (1, 45, 45, 8, 2, 64, False, 0, 40),
     "long_cache": (1, 128, 4096, 4, 4, 64, True, 3968, 4096),
+    # one query row: its forward is the split-KV decode, so the bf16
+    # backward gets the log-sum-exp from the tensor-core forward
+    "one_row": (2, 1, 90, 4, 2, 32, True, 60, 63),
 }
+# the bf16 backward against its mirror, element by element: |got - want| <=
+# 2^-7 |want| + 2^-9 max|want|.  The two round the same float32 values to
+# bf16 at the same places, reached by float32 sums in another order, so an
+# output may land one bf16 ulp (at most 2^-7 of itself) away; a rounding of
+# P or dS that the order or exp2's last bit flips moves a gradient by a
+# small share of the largest.
+MIRROR_RTOL, MIRROR_ATOL = 2.0 ** -7, 2.0 ** -9
 
 
 def _bwd_inputs(case, dtype, device):
@@ -914,28 +924,94 @@ def _bwd_inputs(case, dtype, device):
     return q, k, v, do
 
 
+def _close_to_mirror(got, want):
+    w = want.float()
+    torch.testing.assert_close(
+        got.float(), w, rtol=MIRROR_RTOL,
+        atol=MIRROR_ATOL * max(float(w.abs().max()), 1e-6))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", sorted(BWD_CASES))
 def test_flash_bwd_matches_plain(cuda, case, dtype):
-    """The backward kernel against ``flash_attention_backward_plain`` on the
-    same inputs and forward output: float32 within 1e-4 of the largest
-    gradient (float32 sums in another order, CUDA's expf), bf16 within one
-    bf16 rounding of it (2^-7); two calls bitwise equal."""
+    """The backward kernel of ``dtype``'s route (bf16: tensor cores, given
+    the forward's log-sum-exp; float32: CUDA cores) against
+    ``flash_attention_backward_plain`` on the same inputs and forward
+    output: float32 within 1e-4 of the largest gradient (float32 sums in
+    another order, CUDA's expf), bf16 within one bf16 rounding of it
+    (2^-7); bf16 also against its mirror ``flash_attention_backward_
+    mma_plain`` (``MIRROR_RTOL``, ``MIRROR_ATOL``).  A second call (bf16
+    without the log-sum-exp) equal bit for bit; dK and dV of the keys no
+    row sees exactly zero."""
     causal, q_offset, valid = BWD_CASES[case][6:]
+    tq = BWD_CASES[case][1]
     q, k, v, do = _bwd_inputs(case, dtype, cuda)
     kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=valid)
-    out = kf.flash_attention(q, k, v, **kw)
+    route = "mma" if dtype == torch.bfloat16 else "fma"
+    if route == "mma":
+        out, lse = kf.flash_attention_lse(q, k, v, **kw)
+    else:
+        out, lse = kf.flash_attention(q, k, v, **kw), None
     build.reset_launches()
-    got = kf.flash_attention_backward(q, k, v, out, do, **kw)
+    got = kf.flash_attention_backward(q, k, v, out, do, lse=lse, **kw)
     assert build.LAUNCHES[kf.BWD] == 1
+    assert {key: build.LAUNCHES[name]
+            for key, name in kf.BWD_VARIANTS.items()} \
+        == {key: int(key == route) for key in kf.BWD_VARIANTS}
     again = kf.flash_attention_backward(q, k, v, out, do, **kw)
     want = kf.flash_attention_backward_plain(q, k, v, out, do, **kw)
+    mirror = (kf.flash_attention_backward_mma_plain(q, k, v, out, do, **kw)
+              if route == "mma" else want)
     rel = 1e-4 if dtype == torch.float32 else 2.0 ** -7
-    for a, b, w, t in zip(got, again, want, (q, k, v)):
+    for a, b, w, m, t in zip(got, again, want, mirror, (q, k, v)):
         assert a.dtype == t.dtype and a.shape == t.shape
         assert torch.equal(a, b)
         tol = rel * max(float(w.float().abs().max()), 1e-6)
         torch.testing.assert_close(a.float(), w.float(), rtol=0, atol=tol)
+        if route == "mma":
+            _close_to_mirror(a, m)
+    last = min(valid, q_offset + tq) if causal else valid
+    for a in got[1:]:
+        assert not bool((a[:, last:] != 0).any())
+
+
+def test_flash_bwd_reads_strided_rows(cuda):
+    """bf16 q, k and v read through a fused (B, T, H + 2K, hd) projection's
+    strides (rows on 16-byte boundaries): the tensor-core backward equals
+    its call on contiguous copies bit for bit and holds to its mirror."""
+    g = torch.Generator().manual_seed(23)
+    b, t, h, kvh, hd = 2, 100, 8, 2, 64
+    fused = torch.randn((b, t, h + 2 * kvh, hd), generator=g).to(
+        cuda, torch.bfloat16)
+    q, k, v = fused[:, :, :h], fused[:, :, h:h + kvh], fused[:, :, h + kvh:]
+    do = torch.randn((b, t, h, hd), generator=g).to(cuda, torch.bfloat16)
+    out = kf.flash_attention(q, k, v)
+    build.reset_launches()
+    got = kf.flash_attention_backward(q, k, v, out, do)
+    assert build.LAUNCHES[kf.BWD_VARIANTS["mma"]] == 1
+    want = kf.flash_attention_backward(
+        q.contiguous(), k.contiguous(), v.contiguous(), out, do)
+    mirror = kf.flash_attention_backward_mma_plain(q, k, v, out, do)
+    for a, w, m in zip(got, want, mirror):
+        assert torch.equal(a, w)
+        _close_to_mirror(a, m)
+
+
+def test_flash_lse_matches_plain(cuda):
+    """The tensor-core forward's log-sum-exp (log2 units) against
+    ``flash_attention_lse_plain``, within 1e-4 (float32 sums in another
+    order, on values of order 10); its output is the plain forward call's,
+    bit for bit."""
+    for case in ("offset_ragged", "one_row", "hd32_bidirectional"):
+        causal, q_offset, valid = BWD_CASES[case][6:]
+        q, k, v, _ = _bwd_inputs(case, torch.bfloat16, cuda)
+        kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=valid)
+        out, lse = kf.flash_attention_lse(q, k, v, **kw)
+        want = kf.flash_attention_lse_plain(q, k, **kw)
+        assert lse.shape == want.shape
+        torch.testing.assert_close(lse, want, rtol=0, atol=1e-4)
+        if q.shape[1] > 1:
+            assert torch.equal(out, kf.flash_attention(q, k, v, **kw))
 
 
 def test_flash_bwd_kernel_takes_every_gradient(cuda):
@@ -951,6 +1027,7 @@ def test_flash_bwd_kernel_takes_every_gradient(cuda):
     wide = torch.cat([do, do], dim=-1)[..., :do.shape[-1]]
     out.backward(wide)
     assert build.LAUNCHES[kf.BWD] == 1
+    assert build.LAUNCHES[kf.BWD_VARIANTS["mma"]] == 1
     want = kf.flash_attention_backward(q, k, v, out.detach(), do)
     for leaf, w in zip(leaves, want):
         assert torch.equal(leaf.grad, w)
@@ -971,6 +1048,12 @@ def test_flash_bwd_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         kf.flash_attention_backward(q, k, v, out,
                                     torch.cat([do, do], -1)[..., :16])
+    with pytest.raises(ValueError, match="lse must be"):
+        kf.flash_attention_backward(q, k, v, out, do,
+                                    lse=torch.zeros(3, device=cuda))
+    with pytest.raises(ValueError, match="lse is the bf16 route's"):
+        f = [t.float() for t in (q, k, v, out, do)]
+        kf.flash_attention_backward(*f, lse=torch.zeros(3, device=cuda))
     wide = torch.zeros((1, 4, 2, 48), device=cuda, requires_grad=True)
     with pytest.raises(ValueError, match="head width"):
         kf.flash_attention(wide, wide, wide)
@@ -1019,6 +1102,7 @@ def test_card_training_step_matches_cpu(cuda):
         model, opt, metrics = step(model, opt, batch)
         out.append((opt, metrics))
     assert build.LAUNCHES[kf.BWD] == 2
+    assert build.LAUNCHES[kf.BWD_VARIANTS["mma"]] == 2
     assert build.LAUNCHES["flash_attention_mma"] == 4
     (c_opt, c_m), (g_opt, g_m) = out
     for key in ("loss", "grad_norm"):

@@ -1,14 +1,18 @@
 """The flash-attention backward's arithmetic against the reference, on the
 CPU.
 
-``flash_attention_backward_plain`` is what the CUDA backward
-(``csrc/flash_attention_bwd.cu``) computes: P recomputed from each row's
-log-sum-exp, ``D = rowsum(dO * O)`` from the forward's output, ``dS = P *
-(dP - D)``, dK and dV summed over each KV head's group.  It is held here
-to ``jax.vjp`` of the model layer (``repro.models.attention.
+``flash_attention_backward_plain`` is what the float32 CUDA backward
+(``csrc/flash_attention_bwd.cu``, CUDA cores) computes: P recomputed from
+each row's log-sum-exp, ``D = rowsum(dO * O)`` from the forward's output,
+``dS = P * (dP - D)``, dK and dV summed over each KV head's group.  It is
+held here to ``jax.vjp`` of the model layer (``repro.models.attention.
 flash_attention``, chunked scan and the one-pass ``Tq <= 8`` path) and of
 ``repro.kernels.ref.flash_attention_ref``, and to ``torch.autograd`` of the
-port's plain forward; the kernel is held to it on the card
+port's plain forward.  ``flash_attention_backward_mma_plain`` is the bf16
+(tensor-core) backward's arithmetic: the same, with P taken from the
+forward's log-sum-exp in log2 units (``flash_attention_lse_plain``) and P
+and dS rounded to bf16 before their products; it is held to ``jax.vjp`` of
+the model layer in bf16.  The kernels are held to both on the card
 (``tests/test_torch_cuda.py``).
 
 Tolerances.  float32: every gradient within 1e-5 of the reference's
@@ -16,7 +20,10 @@ Tolerances.  float32: every gradient within 1e-5 of the reference's
 another order).  bf16 (inputs, output and cotangent in bf16; the
 reference differentiates in float32 and rounds the gradient once to bf16,
 the plain version does the same but takes D from the bf16 output): within
-one bf16 rounding of the gradient's magnitude, 2^-7 * max|grad|.
+one bf16 rounding of the gradient's magnitude, 2^-7 * max|grad|; the
+mirror of the bf16 kernel rounds P and dS to bf16 as well, and is held to
+the same bound.  The log-sum-exp (log2 units): within 1e-5 (absolute, on
+values of order 10) of a float64 numpy reference.
 """
 
 import jax
@@ -150,3 +157,73 @@ def test_backward_checks():
     with pytest.raises(ValueError, match="must be q's"):
         kflash.flash_attention_backward(q, k, k, q[:, :4], q)
     kflash._check_backward(q, k, k)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_mma_mirror_matches_vjp_of_model_layer(case):
+    """The bf16 kernel's arithmetic (P and dS rounded to bf16 before their
+    products, P from the log2 log-sum-exp) against ``jax.vjp`` of the model
+    layer in bf16, within 2^-7 of the largest gradient."""
+    causal, q_offset, valid = case[6:]
+    (jq, jk, jv, jdo), (q, k, v, do) = _inputs(case, torch.bfloat16, seed=3)
+
+    def f(q_, k_, v_):
+        return jattn.flash_attention(q_, k_, v_, causal=causal,
+                                     q_offset=q_offset, kv_valid_len=valid,
+                                     kv_chunk=32)
+
+    _, vjp = jax.vjp(f, jq, jk, jv)
+    want = vjp(jdo)
+    out = kflash.flash_attention_plain(q, k, v, causal=causal,
+                                       q_offset=q_offset, kv_valid_len=valid)
+    got = kflash.flash_attention_backward_mma_plain(
+        q, k, v, out, do, causal=causal, q_offset=q_offset,
+        kv_valid_len=valid)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        _close(g, w, torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_lse_matches_float64_reference(case):
+    """``flash_attention_lse`` on the CPU: the plain output and each row's
+    log2 log-sum-exp of the scores scaled by hd^-0.5 log2 e."""
+    causal, q_offset, valid = case[6:]
+    b, tq, tk, h, kh, hd = case[:6]
+    _, (q, k, v, _) = _inputs(case, torch.float32, seed=4)
+    out, lse = kflash.flash_attention_lse(q, k, v, causal=causal,
+                                          q_offset=q_offset,
+                                          kv_valid_len=valid)
+    assert lse.shape == (b, h, tq) and lse.dtype == torch.float32
+    assert torch.equal(out, kflash.flash_attention_plain(
+        q, k, v, causal=causal, q_offset=q_offset, kv_valid_len=valid))
+    qn = q.double().numpy()
+    kn = np.repeat(k.double().numpy(), h // kh, axis=2)
+    s = np.einsum("bqhd,bkhd->bhqk", qn, kn) * hd ** -0.5 / np.log(2.0)
+    valid = tk if valid is None else valid
+    mask = np.arange(tk)[None, :] < valid
+    if causal:
+        mask = mask & (np.arange(tk)[None, :]
+                       <= q_offset + np.arange(tq)[:, None])
+    s = np.where(mask, s, -np.inf)
+    m = s.max(axis=-1, keepdims=True)
+    want = (m + np.log2(np.exp2(s - m).sum(axis=-1, keepdims=True)))[..., 0]
+    np.testing.assert_allclose(_np(lse), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_backward_takes_the_plain_version_of_its_route(dtype):
+    """On the CPU ``flash_attention_backward`` is the plain version of the
+    kernel the card would take: bf16 the tensor-core mirror, float32 the
+    CUDA-core kernel's arithmetic."""
+    case = CASES[2]
+    causal, q_offset, valid = case[6:]
+    _, (q, k, v, do) = _inputs(case, dtype, seed=5)
+    kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=valid)
+    out = kflash.flash_attention(q, k, v, **kw)
+    plain = (kflash.flash_attention_backward_mma_plain
+             if dtype == torch.bfloat16
+             else kflash.flash_attention_backward_plain)
+    for g, w in zip(kflash.flash_attention_backward(q, k, v, out, do, **kw),
+                    plain(q, k, v, out, do, **kw)):
+        assert torch.equal(g, w)
