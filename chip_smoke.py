@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases build,kernels,engine
     python3 chip_smoke.py --phases build,kernels,fleet
     python3 chip_smoke.py --phases build,kernels,rag
+    python3 chip_smoke.py --phases build,kernels,moe
     python3 chip_smoke.py --phases build,kernels,train
     python3 chip_smoke.py --phases build,profile      # opt-in breakdown
     python3 chip_smoke.py --phases build,kernels,train,trainprof
@@ -42,8 +43,12 @@ Phases, in order; any failure raises and the script exits nonzero:
               1, 63, 64 and 65 (around a 64-key split), fully masked
               splits, a 4096-row cache, GQA groups of 4, hd in {16, 32,
               128}, prefill at q_offset 100 with a ragged Tq = 70, a
-              ragged embed, bf16 K/V read through a stacked cache's and a
-              fused buffer's strides, and a misaligned K that must raise.
+              ragged embed, the MoE models' shapes at head_dim 128
+              (qwen2-moe: 16 heads, embed 64 x 64, prefill 8 x 320 over a
+              384-row cache, decode at q_offset 320 and 351; qwen3-moe:
+              32 heads over 4 KV heads, prefill and decode), bf16 K/V read
+              through a stacked cache's and a fused buffer's strides, and
+              a misaligned K that must raise.
               Then each kernel's, its plain version's and one
               PyTorch call's time (a matmul for the distance kernels,
               ``scaled_dot_product_attention`` for flash) on those
@@ -115,7 +120,14 @@ Phases, in order; any failure raises and the script exits nonzero:
               tokens, prefill and 8 greedy decode steps (the card fed the
               CPU's tokens), every logit within 0.1 and equal argmax
               where the CPU's top-2 gap exceeds 0.2, mean-pooled
-              embeddings at cosine >= 0.999; then training
+              embeddings at cosine >= 0.999; ``qwen2-moe-a2.7b`` at full
+              width and 1 layer the same way (``parity_moe``: the share of
+              (token, layer) top-k sets equal on the two devices >= 0.98,
+              logits within 0.1 on rows whose routes all agree, equal
+              greedy tokens there where the CPU's top-2 gap exceeds 0.2;
+              the capacity dispatch of the CPU's expert ids, of the
+              prefill and of a 2 x 320 scoring forward, identical on the
+              card); then training
               (``parity_train``): the same model, B 2 x S 64, loss within
               1e-2 and gradients at relative L2 within 5e-2 (the
               backward kernel launched once a layer), one train step
@@ -129,7 +141,9 @@ Phases, in order; any failure raises and the script exits nonzero:
               ids).  Launch counts are reset just before this phase and
               read just after; every kernel must have launched, and
               the ``bq_pairwise`` launches are printed by pool size.
-5. ivf      — the IVF path at the same size: ``BuildParams(
+5. ivf      — the IVF path over the first ``IVF_N`` = 50 000 rows of
+              phase 4's corpus (a cut of depth, the same on every host,
+              that pays for the moe phase): ``BuildParams(
               ivf_candidates=True)``, partition and linking timed apart;
               search ``nav="bq2"`` at ef = 64 (recall gate 0.80) and
               ``nav="ivf"`` at ef = 128 with default probes and with
@@ -154,7 +168,8 @@ Phases, in order; any failure raises and the script exits nonzero:
               launches are printed by pool size.  The adaptive search's
               escalations are counted by a hub on the index's plan cache.
 filter      — filtered search through query plans on phase 4's graph and
-              phase 5's IVF index (each built here when its phase did not
+              phase 5's IVF index (its ``IVF_N`` rows and their labels;
+              each built here when its phase did not
               run): 8 labels, each row's membership drawn from seed 0 at
               rates ``FILTER_RATES`` (0.5 down to 0.001), per-label entries
               (``build_label_entries(min_count=32)``, timed); then 1 000
@@ -296,6 +311,22 @@ fleet       — the sharded fleet on phase 4's corpus (made here when phase
               Then two labels on the 8 192 documents and one filtered
               ``Retriever.augment`` of the 8 prompts: every retrieved
               document carries label 1.
+moe         — MoE serving with RAG, run with nothing of the earlier
+              phases on the card: ``qwen2-moe-a2.7b`` at full width and
+              depth (24 layers, d 2048, 16 heads of 128, 60 routed experts
+              of 1 408 top-4 plus 4 shared, vocab 151 936 -> 152 064,
+              bf16 weights from seed 0, the router in float32); the RAG
+              path of phase 7 (``serve_lm``) over 1 024 + 128 documents:
+              recall@10 at ef = 64 of the 128 held-out ones printed, not
+              gated; 8 prompts served twice with identical tokens, ids in
+              range, ``flash_attention`` 24 times a call, on the
+              tensor-core kernel for embed and prefill and the split-KV
+              kernel for decode, the bq kernels in the build.  Printed:
+              parameters, peak ``max_memory_allocated``, prefill ms,
+              decode ms a token, new tokens/s, embedding tokens/s, the
+              dropped fraction of a scoring forward over the 8 augmented
+              prompts (8 x 320, cap 32).  Then ``launch.serve.main``
+              with ``--arch qwen2-moe-a2.7b --smoke --rag`` on the card.
 train       — training ``minicpm-2b`` at full width and depth (40 layers,
               remat, bf16 from seed 0, float32 AdamW state) through
               ``Trainer``: ``TokenPipeline`` (vocab 122 753, T 256,
@@ -328,8 +359,9 @@ accumulation, copies and casts, and the microbatches' elementwise kernels
 
 The last three lines of standard output are the card's name and power
 limit (``nvidia-smi``), one JSON line of per-kernel numbers (``launches``
-sums phases 4, 5, 6, filter, stream, engine, fleet, 7 and train), and
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+sums phases 4, 5, 6, filter, stream, engine, fleet, 7, moe and train),
+and ``{"ok": true, "device": {...}}``; each phase prints its seconds, and
+the line "all phases" all of them.  Without a CUDA device, or without the
 repository beside it, the script exits nonzero and prints no result.
 """
 
@@ -337,6 +369,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -346,7 +379,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "parity", "main", "ivf", "ladder", "filter",
-          "stream", "engine", "fleet", "rag", "train")
+          "stream", "engine", "fleet", "rag", "moe", "train")
 OPT_IN = ("profile", "trainprof")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the float32
@@ -817,7 +850,31 @@ FLASH_CASES = [
     ("hd16", 2, 70, 70, 4, 2, 16, 0, 70),
     ("hd32", 2, 70, 96, 4, 4, 32, 0, 70),
     ("hd128", 2, 70, 70, 4, 4, 128, 0, 70),
+    # the MoE serving shapes at head_dim 128: qwen2-moe's 16 heads (MHA) in
+    # the moe phase's embed, prefill and decode; qwen3-moe's 32 heads over
+    # 4 KV heads at prefill and decode
+    ("qwen2 embed", 64, 64, 64, 16, 16, 128, 0, 64),
+    ("qwen2 prefill", 8, 320, 384, 16, 16, 128, 0, 320),
+    ("qwen2 decode", 8, 1, 384, 16, 16, 128, 320, 321),
+    ("qwen2 decode", 8, 1, 384, 16, 16, 128, 351, 352),
+    ("qwen3 prefill", 8, 320, 384, 32, 4, 128, 0, 320),
+    ("qwen3 decode", 8, 1, 384, 32, 4, 128, 351, 352),
 ]
+# the cases timed in bf16 (and "embed" in float32 too), by (label,
+# q_offset): the RAG path's three steps, then qwen2-moe's and qwen3-moe's
+FLASH_TIMED = {("embed", 0), ("prefill", 0), ("decode", 351),
+               ("qwen2 embed", 0), ("qwen2 prefill", 0),
+               ("qwen2 decode", 351), ("qwen3 prefill", 0),
+               ("qwen3 decode", 351)}
+
+
+def flash_record_key(variant: str, label: str) -> str:
+    """A timed flash case's key among phase 2's records: the RAG path's
+    embed and decode are the kernels line's entries (the variant's name);
+    every other case is logged under its variant and label."""
+    if label in ("embed", "decode"):
+        return variant
+    return f"{variant}_{label.replace(' ', '_')}"
 
 
 def flash_variant(torch, q) -> str:
@@ -862,19 +919,21 @@ def flash_check(torch, label, q, k, v, **kw) -> tuple:
 def flash_kernels(torch) -> dict:
     """``flash_attention`` against its plain version (float32 within 2e-3,
     bf16 within 2e-2) at the RAG path's shapes, split boundaries, GQA,
-    other head widths and strided cache slices, each call through the
-    kernel its dtype and Tq select; the numbers at the three main shapes
-    in bf16 (the tensor-core kernel at embed and prefill, the split-KV
-    decode) and the CUDA-core kernel's at embed in float32, with
-    ``scaled_dot_product_attention`` on the same inputs as the library
-    call."""
+    other head widths, the MoE models' shapes at head_dim 128 and strided
+    cache slices, each call through the kernel its dtype and Tq select; the
+    numbers at the ``FLASH_TIMED`` shapes in bf16 (the tensor-core kernel
+    at embed and prefill, the split-KV decode) and the CUDA-core kernel's
+    at embed in float32, with ``scaled_dot_product_attention`` on the same
+    inputs as the library call."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from repro_torch.kernels import flash_attention as kf
 
     g = torch.Generator(device="cuda").manual_seed(14)
     out = {}
+    moe_s = 0.0                 # the MoE models' shapes: their checks' time
     for label, b, tq, tk, h, kvh, hd, q_offset, valid in FLASH_CASES:
+        t0 = time.perf_counter()
         for dtype in (torch.float32, torch.bfloat16):
             q = torch.randn((b, tq, h, hd), generator=g, device="cuda",
                             dtype=dtype)
@@ -888,15 +947,15 @@ def flash_kernels(torch) -> dict:
             log(f"  flash_attention {label} B={b} Tq={tq} Tk={tk} H={h} "
                 f"K={kvh} hd={hd} q_offset={q_offset} kv_valid={valid} "
                 f"{str(dtype)[6:]} ({variant}): max |err| {err:.2e}")
-            main = (label in ("embed", "prefill") and q_offset == 0) or (
-                label == "decode" and q_offset == 351)
-            if not main or (dtype == torch.float32 and label != "embed"):
+            if (label, q_offset) not in FLASH_TIMED or (
+                    dtype == torch.float32 and label != "embed"):
                 continue
             # the library call: SDPA on (B, H, T, hd) views of the same
             # tensors, over the visible keys (q_offset 0 is top-left causal)
             qt = q.transpose(1, 2)
             kt, vt = k[:, :valid].transpose(1, 2), v[:, :valid].transpose(1, 2)
-            lib = partial(sdpa, qt, kt, vt, is_causal=label != "decode")
+            lib = partial(sdpa, qt, kt, vt, is_causal="decode" not in label,
+                          enable_gqa=h != kvh)
             lib_err = float((lib().transpose(1, 2).float()
                              - got.float()).abs().max())
             if lib_err > 2e-2:
@@ -904,7 +963,7 @@ def flash_kernels(torch) -> dict:
                                      f"at {label} by {lib_err}")
             b_ms, b_by = flash_bound(b, tq, h, kvh, hd, True, q_offset, valid,
                                      q.element_size())
-            key = variant if label != "prefill" else f"{variant}_prefill"
+            key = flash_record_key(variant, label)
             out[key] = {
                 "name": variant, "route": "cuda",
                 "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -916,10 +975,16 @@ def flash_kernels(torch) -> dict:
                 "bound_ms": b_ms, "bound_by": b_by,
                 "shape": [label, b, tq, tk, h, hd, q_offset, valid,
                           str(dtype)[6:]],
-                # prefill and the float32 kernel (no served call takes it)
-                # are logged, not in the kernels line
-                "log_only": label == "prefill" or dtype == torch.float32,
+                # only the RAG path's bf16 embed and decode are in the
+                # kernels line (one entry a kernel); prefill, the MoE
+                # shapes and the float32 kernel (no served call takes it)
+                # are logged
+                "log_only": key != variant or dtype == torch.float32,
             }
+        if label.startswith("qwen"):
+            moe_s += time.perf_counter() - t0
+    log(f"  flash_attention at the MoE models' shapes (hd 128): checks "
+        f"{moe_s:.1f} s")
     flash_strided(torch, g)
     return out
 
@@ -1122,7 +1187,9 @@ def check_library(name: str, result, kernel_out) -> None:
 def phase_times(torch, kernels: dict) -> None:
     """Time each kernel and its plain version on the inputs phase 2 kept
     (the main path's shapes)."""
+    moe_s = 0.0                 # the MoE models' shapes: their timing's time
     for rec in kernels.values():
+        t0 = time.perf_counter()
         kernel, plain, library = rec.pop("fns")
         rec["ms"], rec["stream_ms"] = time_ms(torch, kernel)
         rec["plain_ms"], rec["plain_stream_ms"] = time_ms(torch, plain,
@@ -1146,6 +1213,9 @@ def phase_times(torch, kernels: dict) -> None:
                 "(torch.profiler; a kernel launched early by programmatic "
                 "dependent launch counts its wait)")
         del kernel, plain, library      # free this record's inputs now
+        if str(rec["shape"][0]).startswith("qwen"):
+            moe_s += time.perf_counter() - t0
+    log(f"  timing flash_attention at the MoE models' shapes: {moe_s:.1f} s")
     log(f"  clocks right after: {clocks()}")
 
 
@@ -1230,6 +1300,7 @@ def phase_parity(torch) -> None:
     for name, want in (("sift-like", "float32"), ("cohere-surrogate", "bq2")):
         parity_auto(torch, name, want, params)
     parity_lm(torch)
+    parity_moe(torch)
     parity_train(torch)
 
 
@@ -1651,6 +1722,156 @@ def parity_lm(torch) -> None:
         f">= {cos:.6f}")
 
 
+@contextlib.contextmanager
+def recorded_routes():
+    """Every MoE layer's top-k expert ids (``moe.route``'s, on the host)
+    while the block runs, in call order: one (B, T, k) tensor a layer and
+    a forward."""
+    from repro_torch.models import moe
+
+    seen, route = [], moe.route
+
+    def tap(*args, **kwargs):
+        routing = route(*args, **kwargs)
+        seen.append(routing.expert_idx.cpu())
+        return routing
+
+    moe.route = tap
+    try:
+        yield seen
+    finally:
+        moe.route = route
+
+
+def same_sets(a, b):
+    """(B, T) bool: the two (B, T, k) top-k id tensors pick the same set of
+    experts for the token (the order within k moves no rank: a token sends
+    one pair to an expert)."""
+    return (a.sort(dim=-1).values == b.sort(dim=-1).values).all(dim=-1)
+
+
+# phase 3's MoE gates (PERF.md section 2): the share of (token, layer) top-k
+# sets equal on the two devices, the logits of rows whose routes all agree,
+# and greedy tokens where, in addition, the CPU's top-2 gap is clear
+MOE_ROUTE_SHARE = 0.98
+MOE_LOGIT_TOL = 0.1
+MOE_CLEAR_GAP = 0.2
+
+
+def parity_moe(torch) -> None:
+    """``qwen2-moe-a2.7b`` at full width and 1 layer, bf16, drawn on the CPU
+    and copied to the card: 2 prompts of 48 tokens, prefill and 8 greedy
+    decode steps on each (the card fed the CPU's tokens).  bf16 products
+    round at other places on the two devices, so a token whose k-th and
+    (k+1)-th router probabilities nearly tie may pick another expert set:
+    gated are the share of (token, layer) sets equal (>= 0.98), every
+    logit of a row whose routes all agree (within 0.1: in a 1-layer model a
+    decode row's logits follow its token's route, a prefill row's its 48
+    tokens', whose ranks set the drops), and equal greedy tokens on those
+    rows where the CPU's top-2 gap exceeds 0.2.  Then the capacity
+    dispatch of the CPU's expert ids, of the prefill and of a 2 x 320
+    scoring forward (cap 32, the served prefill's), run on the card: ranks,
+    keep mask, slots and source tokens identical to the CPU's."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), n_layers=1)
+    bundle = build_model(cfg)
+    t_all = t0 = time.perf_counter()
+    cpu = bundle.init(0, device="cpu")
+    gpu = tf.DecoderLM(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    log(f"  qwen2-moe-a2.7b x 1 layer drawn on the CPU and copied: "
+        f"{time.perf_counter() - t0:.1f} s ({tf.matrix_param_count(cpu)} "
+        "parameters)")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (2, 48)).astype(np.int32)
+    scoring = rng.integers(0, cfg.vocab_size, (2, 320)).astype(np.int32)
+
+    def run(model, device, feed=None):
+        with recorded_routes() as routes:
+            caches = bundle.init_caches(2, 64, device=device)
+            logits, caches = bundle.prefill(model, {"tokens": prompts},
+                                            caches)
+            steps = [logits.float().cpu()]
+            for i in range(8):
+                tok = steps[-1].argmax(-1) if feed is None else feed[i]
+                logits, caches = bundle.decode(model, tok[:, None], caches,
+                                               48 + i)
+                steps.append(logits.float().cpu())
+        return steps, routes
+
+    t0 = time.perf_counter()
+    want, r_cpu = run(cpu, "cpu")
+    t_cpu = time.perf_counter() - t0
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    got, r_gpu = run(gpu, "cuda", feed=[w.argmax(-1) for w in want[:-1]])
+    t_gpu = time.perf_counter() - t0
+    if kbuild.LAUNCHES["flash_attention"] != 9:
+        raise AssertionError(f"flash_attention launched "
+                             f"{kbuild.LAUNCHES['flash_attention']} times, "
+                             "not 1 layer x 9 calls")
+    same = [same_sets(a, b) for a, b in zip(r_cpu, r_gpu)]
+    n_same = sum(int(m.sum()) for m in same)
+    n_all = sum(m.numel() for m in same)
+    share = n_same / n_all
+    worst, compared, rows = 0.0, 0, 0
+    for step, (w, gt, m) in enumerate(zip(want, got, same)):
+        agree = m.all(dim=1)                 # (B,): every route of the row
+        rows += int(agree.sum())
+        real = w > -1e29
+        diff = (gt - w).abs().masked_fill(~real, 0.0).amax(dim=1)
+        if agree.any():
+            worst = max(worst, float(diff[agree].max()))
+        top2 = w.topk(2, dim=-1).values
+        clear = agree & (top2[:, 0] - top2[:, 1] > MOE_CLEAR_GAP)
+        compared += int(clear.sum())
+        if not torch.equal(gt.argmax(-1)[clear], w.argmax(-1)[clear]):
+            raise AssertionError(f"greedy token differs at step {step}")
+    log(f"  qwen2-moe-a2.7b x 1 layer, 2 x 48 tokens, prefill + 8 decode "
+        f"steps: CPU {t_cpu:.1f} s, card {t_gpu:.1f} s; (token, layer) "
+        f"top-{cfg.top_k} sets equal {n_same} of {n_all} ({share:.4f}); "
+        f"{rows} of 18 (row, step) pairs with every route equal: max |logit "
+        f"diff| {worst:.4f}, greedy tokens equal at all {compared} with a "
+        f"top-2 gap > {MOE_CLEAR_GAP}")
+    if share < MOE_ROUTE_SHARE:
+        raise AssertionError(f"only {share:.4f} of the (token, layer) "
+                             f"routes agree (< {MOE_ROUTE_SHARE})")
+    if worst > MOE_LOGIT_TOL:
+        raise AssertionError(f"logits of agreeing rows differ by {worst} > "
+                             f"{MOE_LOGIT_TOL}")
+
+    # the dispatch of the CPU's routes, on the card: a 2 x 320 scoring
+    # forward (cap 32) and the prefill (2 x 48, cap 8)
+    with recorded_routes() as scored, torch.no_grad():
+        tf.forward_hidden(cpu, tf.embed_tokens(
+            cpu, torch.from_numpy(scoring).long()))
+    for idx in (scored[0], r_cpu[0]):
+        cap = moe.capacity(idx.shape[1], cfg.n_experts, cfg.top_k)
+        a = moe.dispatch(idx, cfg.n_experts, cap)
+        b = moe.dispatch(idx.cuda(), cfg.n_experts, cap)
+        for name, x, y in zip(a._fields, a, b):
+            if not torch.equal(x, y.cpu()):
+                raise AssertionError(f"dispatch {name} of the CPU's routes "
+                                     f"(T = {idx.shape[1]}) differs on the "
+                                     "card")
+        log(f"  dispatch of the CPU's expert ids, B 2 x T {idx.shape[1]} "
+            f"(cap {cap}): ranks, keep mask, slots and source tokens "
+            f"identical on the card; {int((~a.keep).sum())} of "
+            f"{a.keep.numel()} pairs dropped")
+    del gpu
+    torch.cuda.empty_cache()
+    log(f"  parity_moe: {time.perf_counter() - t_all:.1f} s")
+
+
 def tree_pairs(a, b, prefix=""):
     """(path, a leaf, b leaf) over two nested dict/list trees of one
     structure."""
@@ -2031,27 +2252,43 @@ def phase_main(torch) -> dict:
             "scores": scores}
 
 
+# phase 5's IVF-seeded build runs over the first 50 000 rows of the phase-4
+# corpus on every host, a cut of depth that pays for the moe phase and
+# phase 3's MoE parity (its linking took 154 s at 100 000 rows); the filter
+# and engine phases search this index
+IVF_N = 50_000
+
+
+def build_ivf_index(base):
+    """The IVF-seeded index over the first ``IVF_N`` rows of ``base``."""
+    from repro_torch.core.index import QuIVerIndex
+    from repro_torch.core.vamana import BuildParams
+
+    return QuIVerIndex.build(base[:IVF_N], BuildParams(ivf_candidates=True),
+                             device="cuda")
+
+
 def phase_ivf(torch) -> dict:
-    """The IVF path at deployment size; returns its launch counts."""
+    """The IVF path at deployment size (over the first ``IVF_N`` rows);
+    returns its launch counts."""
     import numpy as np
 
     from repro_torch.core.baselines import flat_search, recall_at_k
     from repro_torch.core.index import QuIVerIndex
-    from repro_torch.core.vamana import BuildParams
     from repro_torch.data.datasets import make_dataset
     from repro_torch.ivf import build_partition
     from repro_torch.kernels import build as kbuild
 
-    n, n_queries = 100_000, 1000
-    base, queries = make_dataset("cohere-surrogate", n, queries=n_queries)
-    truth, _ = flat_search(base, queries, 10, device="cuda")
+    n, n_queries = IVF_N, 1000
+    base, queries = make_dataset("cohere-surrogate", 100_000,
+                                 queries=n_queries)
+    truth, _ = flat_search(base[:n], queries, 10, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     kbuild.reset_launches()
     t0 = time.perf_counter()
-    index = QuIVerIndex.build(base, BuildParams(ivf_candidates=True),
-                              device="cuda")
+    index = build_ivf_index(base)
     torch.cuda.synchronize()
     build_wall = time.perf_counter() - t0
     stats, part = index.build_stats, index.ivf
@@ -2360,10 +2597,10 @@ def phase_filter(torch, main: dict | None, ivf: dict | None) -> dict:
         ivf_index, ivf_recall = ivf["index"], ivf["ivf_recall"]
     else:
         log("  (phase 5 did not run: building its IVF index first)")
-        ivf_index = QuIVerIndex.build(base, BuildParams(ivf_candidates=True),
-                                      device="cuda")
+        ivf_index = build_ivf_index(base)
+        ivf_truth, _ = flat_search(base[:IVF_N], queries, 10, device="cuda")
         ivf_recall = recall_at_k(
-            ivf_index.search(queries, k=10, ef=128, nav="ivf")[0], truth)
+            ivf_index.search(queries, k=10, ef=128, nav="ivf")[0], ivf_truth)
     torch.cuda.synchronize()
     t_phase = time.perf_counter()
 
@@ -2372,7 +2609,8 @@ def phase_filter(torch, main: dict | None, ivf: dict | None) -> dict:
     member = np.stack([rng.random(n) < p for p in FILTER_RATES], axis=1)
     rows = label_rows(member)
     graph.attach_labels(rows, n_labels=len(FILTER_RATES))
-    ivf_index.attach_labels(rows, n_labels=len(FILTER_RATES))
+    # phase 5's index holds the first IVF_N rows, with their labels
+    ivf_index.attach_labels(rows[:IVF_N], n_labels=len(FILTER_RATES))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     built = graph.build_label_entries(min_count=32)
@@ -2388,10 +2626,12 @@ def phase_filter(torch, main: dict | None, ivf: dict | None) -> dict:
     runs, failures = [], []
     for name, pred, mask_of, kw, on_ivf in searches:
         index = ivf_index if on_ivf else graph
+        rows_n = IVF_N if on_ivf else n
         plan, ctx = resolve_plan(index, k=10, ef=64, filter=pred, **kw)
-        mask = mask_of(member) if mask_of is not None else None
+        mask = mask_of(member[:rows_n]) if mask_of is not None else None
         if mask is not None:
-            want_ids, want_scores = filtered_truth(base, queries, mask)
+            want_ids, want_scores = filtered_truth(base[:rows_n], queries,
+                                                   mask)
         else:
             want_ids, want_scores = truth, None
         hub = None
@@ -2413,7 +2653,7 @@ def phase_filter(torch, main: dict | None, ivf: dict | None) -> dict:
             f"{secs:.3f} s, {n_queries / secs:.1f} QPS, recall@10 "
             f"{recall:.4f}{note}")
         runs.append((name, pred, kw, index, plan, ctx))
-        if ids.shape != (n_queries, 10) or ids.max() >= n:
+        if ids.shape != (n_queries, 10) or ids.max() >= rows_n:
             raise AssertionError(f"{name}: search output malformed")
         if mask is None:
             if main is not None and not np.array_equal(ids, main["ids"]):
@@ -2822,8 +3062,7 @@ def phase_engine(torch, main: dict | None, ivf: dict | None) -> dict:
         ivf_index = ivf["index"]
     else:
         log("  (phase 5 did not run: building its IVF index first)")
-        ivf_index = QuIVerIndex.build(base, BuildParams(ivf_candidates=True),
-                                      device="cuda")
+        ivf_index = build_ivf_index(base)
     queries = np.asarray(queries, np.float32)
     row_of = {q.tobytes(): i for i, q in enumerate(queries)}
     torch.cuda.synchronize()
@@ -3305,28 +3544,40 @@ def phase_fleet(torch, main: dict | None) -> dict:
     return {"launches": launches}
 
 
-def phase_rag(torch, kernels: dict) -> dict:
-    """LM serving with RAG at full width and depth; returns its launch
-    counts.  ``kernels`` holds phase 2's records, whose device times give
-    the flash kernels' share of each step (not measured without them)."""
+def serve_lm(torch, kernels: dict, cfg, *, n_docs: int, n_held: int,
+             records: dict) -> dict:
+    """The RAG serving path of ``cfg`` at full width and depth on the card:
+    weights from seed 0 (bf16), ``n_docs`` + ``n_held`` seeded documents of
+    64 tokens embedded with ``mean_pool_embedder`` (batches of 64), a
+    ``QuIVerIndex`` (``BuildParams()``) over the first ``n_docs``, recall@10
+    at ef = 64 of the held-out ones (printed, not gated); 8 prompts of 64
+    tokens through ``Retriever(k=4, ef=64)`` and ``ServeEngine.generate``
+    (prefill T = 320, ``max_seq`` 384, 32 greedy tokens), twice.  Gates:
+    the module's parameters are ``param_count()``; identical tokens in the
+    two runs; every retrieved id in range and every context row its
+    document's tokens; the bq kernels launched in the build;
+    ``flash_attention`` launched ``n_layers`` times a call of embed,
+    prefill and decode, on the tensor-core kernel for embed and prefill and
+    on the split-KV kernel for decode.  Each step's ms a call is printed
+    with the flash kernel's share: its launches x the device time of
+    ``kernels[records[step]]`` (phase 2's record at the step's shape; not
+    measured without it).  Returns the launch counts and what the caller's
+    own checks need."""
     import collections
 
     import numpy as np
 
-    from repro_torch.configs.base import get_config
     from repro_torch.core.baselines import flat_search, recall_at_k
     from repro_torch.core.index import QuIVerIndex
     from repro_torch.core.vamana import BuildParams
     from repro_torch.kernels import build as kbuild
     from repro_torch.models.model import build_model
     from repro_torch.models.transformer import matrix_param_count
-    from repro_torch.probe import probe_corpus, select_policy
-    from repro_torch.serve.engine import QueryEngine, Retriever, \
-        ServeEngine, mean_pool_embedder
+    from repro_torch.serve.engine import Retriever, ServeEngine, \
+        mean_pool_embedder
 
-    n_docs, n_held, doc_len, batch = 8192, 256, 64, 64
+    doc_len, batch = 64, 64
     n_prompts, prompt_len, max_new, max_seq, k = 8, 64, 32, 384, 4
-    cfg = get_config("minicpm-2b")
     bundle = build_model(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3334,8 +3585,12 @@ def phase_rag(torch, kernels: dict) -> dict:
     model = bundle.init(0, device="cuda")
     torch.cuda.synchronize()
     n_params = matrix_param_count(model)
+    experts = (f", {cfg.n_experts} routed experts of {cfg.d_ff} top-"
+               f"{cfg.top_k} + {cfg.n_shared_experts} shared, router "
+               "float32" if cfg.n_experts else "")
     log(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
-        f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} -> "
+        f"{cfg.n_heads} heads of {cfg.head_dim_} over {cfg.n_kv_heads}, "
+        f"d_ff {cfg.d_ff}{experts}, vocab {cfg.vocab_size} -> "
         f"{cfg.padded_vocab}, bf16: {n_params} parameters (param_count() "
         f"{cfg.param_count()}; plus "
         f"{sum(p.numel() for p in model.parameters()) - n_params} norm "
@@ -3400,14 +3655,6 @@ def phase_rag(torch, kernels: dict) -> dict:
         if build_counts.get(name, 0) == 0:
             raise AssertionError(f"{name} never launched in the build")
 
-    kbuild.reset_launches()
-    t0 = time.perf_counter()
-    report = probe_corpus(corpus, device="cuda")
-    probe_s = time.perf_counter() - t0
-    launches.update(kbuild.LAUNCHES)
-    log(f"  probe {probe_s:.3f} s: {report.summary()} (agreement "
-        f"{report.bq_agreement:.4f}) -> {select_policy(report).describe()}")
-
     truth, _ = flat_search(corpus, held, 10, device="cuda")
     kbuild.reset_launches()
     t0 = time.perf_counter()
@@ -3459,6 +3706,69 @@ def phase_rag(torch, kernels: dict) -> dict:
         raise AssertionError("a context row is not its document's tokens")
     log(f"  retrieval: {hits.size} ids in range, every context row its "
         f"document's tokens; first prompt's ids {hits[0].tolist()}")
+
+    # each step's flash kernel: its launches x its phase-2 device time at
+    # the step's shape (decode at 352 keys, the longest step)
+    taken = {"embed": "flash_attention_mma", "prefill": "flash_attention_mma",
+             "decode": "flash_attention_split_kv"}
+    for name, rec in tally.items():
+        variant, record = taken[name], records[name]
+        counts = {key: rec[key] for key in variants}
+        log(f"  {name}: {rec['calls']} calls, {rec['flash']} flash_attention "
+            f"launches {counts}")
+        if rec["calls"] == 0 or rec["flash"] != cfg.n_layers * rec["calls"]:
+            raise AssertionError(f"flash_attention did not launch "
+                                 f"{cfg.n_layers} times a call in {name}")
+        if rec[variant] != rec["flash"]:
+            raise AssertionError(f"not every {name} call of flash_attention "
+                                 f"took {variant}: {counts}")
+        call_ms = rec["s"] / rec["calls"] * 1e3
+        if record in kernels:
+            flash_ms = cfg.n_layers * kernels[record]["ms"]
+            log(f"  {name}: {call_ms:.3f} ms a call, of which {variant} "
+                f"{flash_ms:.3f} ms ({cfg.n_layers} launches x "
+                f"{kernels[record]['ms']:.4f} ms device time, phase 2): "
+                f"{flash_ms / call_ms:.1%}")
+        else:
+            log(f"  {name}: {call_ms:.3f} ms a call; the flash kernel's "
+                "share not measured (phase 2 did not run)")
+    return {"launches": launches, "model": model, "docs": docs,
+            "corpus": corpus, "index": index, "prompts": prompts,
+            "retriever": retriever, "embed_fn": embed_fn}
+
+
+def phase_rag(torch, kernels: dict) -> dict:
+    """LM serving with RAG, ``minicpm-2b`` at full width and depth
+    (``serve_lm`` over 8 192 + 256 documents), then the probe, the
+    retrieval through ``QueryEngine`` and a filtered retrieval; returns its
+    launch counts."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.probe import probe_corpus, select_policy
+    from repro_torch.serve.engine import QueryEngine, Retriever
+
+    n_docs, doc_len, k = 8192, 64, 4
+    served = serve_lm(torch, kernels, get_config("minicpm-2b"),
+                      n_docs=n_docs, n_held=256,
+                      records={"embed": "flash_attention_mma",
+                               "prefill": "flash_attention_mma_prefill",
+                               "decode": "flash_attention_split_kv"})
+    launches, index, docs = served["launches"], served["index"], \
+        served["docs"]
+    prompts, retriever = served["prompts"], served["retriever"]
+    embed_fn = served["embed_fn"]
+    n_prompts = len(prompts)
+
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    report = probe_corpus(served["corpus"], device="cuda")
+    probe_s = time.perf_counter() - t0
+    launches.update(kbuild.LAUNCHES)
+    log(f"  probe {probe_s:.3f} s: {report.summary()} (agreement "
+        f"{report.bq_agreement:.4f}) -> {select_policy(report).describe()}")
+
     # the same retrieval through the serving engine's admission queue
     routed = Retriever(index=index, doc_tokens=docs[:n_docs],
                        embed_fn=embed_fn, k=k, ef=64,
@@ -3490,38 +3800,58 @@ def phase_rag(torch, kernels: dict) -> dict:
     log(f"  filtered retrieval (label 1: {int(member[:, 1].sum())} of "
         f"{n_docs} documents): every one of {hits.size} retrieved ids "
         f"carries the label; first prompt's ids {hits[0].tolist()}")
-
-    # each step's flash kernel: its launches x its phase-2 device time at
-    # the step's shape (decode at 352 keys, the longest step)
-    taken = {"embed": ("flash_attention_mma", "flash_attention_mma"),
-             "prefill": ("flash_attention_mma",
-                         "flash_attention_mma_prefill"),
-             "decode": ("flash_attention_split_kv",
-                        "flash_attention_split_kv")}
-    for name, rec in tally.items():
-        variant, record = taken[name]
-        counts = {key: rec[key] for key in variants}
-        log(f"  {name}: {rec['calls']} calls, {rec['flash']} flash_attention "
-            f"launches {counts}")
-        if rec["calls"] == 0 or rec["flash"] != cfg.n_layers * rec["calls"]:
-            raise AssertionError(f"flash_attention did not launch "
-                                 f"{cfg.n_layers} times a call in {name}")
-        if rec[variant] != rec["flash"]:
-            raise AssertionError(f"not every {name} call of flash_attention "
-                                 f"took {variant}: {counts}")
-        call_ms = rec["s"] / rec["calls"] * 1e3
-        if record in kernels:
-            flash_ms = cfg.n_layers * kernels[record]["ms"]
-            log(f"  {name}: {call_ms:.3f} ms a call, of which {variant} "
-                f"{flash_ms:.3f} ms ({cfg.n_layers} launches x "
-                f"{kernels[record]['ms']:.4f} ms device time, phase 2): "
-                f"{flash_ms / call_ms:.1%}")
-        else:
-            log(f"  {name}: {call_ms:.3f} ms a call; the flash kernel's "
-                "share not measured (phase 2 did not run)")
     log(f"  max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
-    del engine, retriever, model
+    del served, retriever, routed, index, embed_fn
     torch.cuda.empty_cache()
+    return {"launches": dict(launches)}
+
+
+def phase_moe(torch, kernels: dict) -> dict:
+    """MoE serving with RAG, ``qwen2-moe-a2.7b`` at full width and depth
+    (``serve_lm`` over 1 024 + 128 documents), then the dropped fraction of
+    a scoring forward over the served prompts and ``launch.serve --smoke
+    --rag`` on the card; returns its launch counts."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer as tf
+
+    cfg = get_config("qwen2-moe-a2.7b")
+    served = serve_lm(
+        torch, kernels, cfg, n_docs=1024, n_held=128,
+        records={"embed": flash_record_key("flash_attention_mma",
+                                           "qwen2 embed"),
+                 "prefill": flash_record_key("flash_attention_mma",
+                                             "qwen2 prefill"),
+                 "decode": flash_record_key("flash_attention_split_kv",
+                                            "qwen2 decode")})
+    launches, model = served["launches"], served["model"]
+    log(f"  max_memory_allocated {torch.cuda.max_memory_allocated()} bytes "
+        f"(bf16 weights {2 * cfg.param_count()} bytes)")
+
+    # the capacity drops of serving: a scoring forward over the augmented
+    # prompts (8 x 320 tokens, cap 32 a row and layer)
+    augmented = served["retriever"].augment(served["prompts"])
+    kbuild.reset_launches()
+    with torch.no_grad():
+        x = tf.embed_tokens(model, torch.from_numpy(augmented).cuda().long())
+        _, aux = tf.forward_hidden(model, x)
+    launches.update(kbuild.LAUNCHES)
+    dropped = float(aux["dropped_fraction"]) / cfg.n_layers
+    log(f"  scoring forward over the {augmented.shape[0]} x "
+        f"{augmented.shape[1]} augmented prompts: dropped fraction "
+        f"{dropped:.4f} a layer (mean over {cfg.n_layers}), load-balance "
+        f"loss {float(aux['load_balance_loss']) / cfg.n_layers:.4f} a layer")
+    del served, model, x
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rc = launch_serve.main(["--arch", cfg.name, "--smoke", "--rag"])
+    if rc != 0:
+        raise AssertionError(f"launch.serve --arch {cfg.name} --smoke --rag "
+                             f"returned {rc}")
+    log(f"  launch.serve --arch {cfg.name} --smoke --rag on the card: "
+        f"{time.perf_counter() - t0:.1f} s")
     return {"launches": dict(launches)}
 
 
@@ -3988,65 +4318,101 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build as kbuild
 
     kernels = {}
+    seconds: dict = {}
     t_all = time.perf_counter()
+
+    @contextlib.contextmanager
+    def timed(name: str, title: str):
+        log(title)
+        t0 = time.perf_counter()
+        yield
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        log(f"  phase {name}: {seconds[name]} s")
+
     if "build" in phases:
-        log("phase 1: build")
-        seconds = kbuild.build()
-        log(f"  nvcc {json.dumps({k: round(v, 2) for k, v in seconds.items()})}"
-            f" s (parallel)")
+        with timed("build", "phase 1: build"):
+            built = {k: round(v, 2) for k, v in kbuild.build().items()}
+            log(f"  nvcc {json.dumps(built)} s (parallel)")
     if "kernels" in phases:
-        log("phase 2: kernels against their plain versions, on the card")
-        kernels = phase_kernels(torch)
-        phase_times(torch, kernels)
+        with timed("kernels", "phase 2: kernels against their plain versions, "
+                   "on the card"):
+            kernels = phase_kernels(torch)
+            phase_times(torch, kernels)
     if "parity" in phases:
-        log("phase 3: the N=4000 builds on the CPU and on the card")
-        phase_parity(torch)
+        with timed("parity", "phase 3: the N=4000 builds on the CPU and on "
+                   "the card"):
+            phase_parity(torch)
     paths = []
     main_path = ivf_path = None
     if "main" in phases:
-        log("phase 4: main path, cohere-surrogate N=100000, 1000 queries")
-        main_path = phase_main(torch)
-        paths.append(main_path)
+        with timed("main", "phase 4: main path, cohere-surrogate N=100000, "
+                   "1000 queries"):
+            main_path = phase_main(torch)
+            paths.append(main_path)
     if "ivf" in phases:
-        log("phase 5: IVF path, cohere-surrogate N=100000, 1000 queries")
-        ivf_path = phase_ivf(torch)
-        paths.append(ivf_path)
+        with timed("ivf", f"phase 5: IVF path, cohere-surrogate N={IVF_N} "
+                   "(the first rows of phase 4's corpus), 1000 queries"):
+            ivf_path = phase_ivf(torch)
+            paths.append(ivf_path)
     if "ladder" in phases:
-        log("phase 6: metric ladder, cohere-surrogate N=100000, 1000 "
-            "queries; probe of three corpora")
-        paths.append(phase_ladder(torch, main_path))
+        with timed("ladder", "phase 6: metric ladder, cohere-surrogate "
+                   "N=100000, 1000 queries; probe of three corpora"):
+            paths.append(phase_ladder(torch, main_path))
     if "filter" in phases:
-        log("phase filter: filtered search and query plans, "
-            "cohere-surrogate N=100000, 1000 queries, 8 labels")
-        paths.append(phase_filter(torch, main_path, ivf_path))
+        with timed("filter", "phase filter: filtered search and query plans, "
+                   "cohere-surrogate N=100000, 1000 queries, 8 labels"):
+            paths.append(phase_filter(torch, main_path, ivf_path))
     if "stream" in phases:
-        log("phase stream: the streaming index, cohere-surrogate "
-            f"N=100000, {STREAM_CYCLES} cycles of {STREAM_CHURN:.0%} churn")
-        paths.append(phase_stream(torch, main_path))
+        with timed("stream", "phase stream: the streaming index, "
+                   f"cohere-surrogate N=100000, {STREAM_CYCLES} cycles of "
+                   f"{STREAM_CHURN:.0%} churn"):
+            paths.append(phase_stream(torch, main_path))
     if "engine" in phases:
-        log("phase engine: the serving engine (QueryEngine) and obs/, "
-            "cohere-surrogate N=100000, 1000 queries, three tenants")
-        paths.append(phase_engine(torch, main_path, ivf_path))
+        with timed("engine", "phase engine: the serving engine (QueryEngine) "
+                   "and obs/, cohere-surrogate N=100000, 1000 queries, three "
+                   "tenants"):
+            paths.append(phase_engine(torch, main_path, ivf_path))
     if "fleet" in phases:
-        log(f"phase fleet: the sharded fleet, {FLEET_SHARDS} shards over "
-            f"cohere-surrogate N={FLEET_N}; IVF scatter at N=100000")
-        paths.append(phase_fleet(torch, main_path))
+        with timed("fleet", f"phase fleet: the sharded fleet, {FLEET_SHARDS} "
+                   f"shards over cohere-surrogate N={FLEET_N}; IVF scatter at "
+                   "N=100000"):
+            paths.append(phase_fleet(torch, main_path))
+    # the index phases' indexes and corpora are not needed past here: the
+    # LM phases start with nothing of them on the card
+    for path in paths:
+        for key in ("index", "data", "ids", "scores"):
+            path.pop(key, None)
+    main_path = ivf_path = None
+    gc.collect()
+    torch.cuda.empty_cache()
     if "rag" in phases:
-        log("phase 7: LM serving with RAG, minicpm-2b at full width and "
-            "depth")
-        paths.append(phase_rag(torch, kernels))
+        with timed("rag", "phase 7: LM serving with RAG, minicpm-2b at full "
+                   "width and depth"):
+            paths.append(phase_rag(torch, kernels))
+    if "moe" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        with timed("moe", "phase moe: MoE serving with RAG, qwen2-moe-a2.7b "
+                   "at full width and depth"):
+            log(f"  memory_allocated at the start "
+                f"{torch.cuda.memory_allocated()} bytes")
+            paths.append(phase_moe(torch, kernels))
     if "train" in phases:
-        log(f"phase train: training minicpm-2b at full width and depth, "
-            f"{TRAIN_STEPS} steps")
-        paths.append(phase_train(torch, kernels))
+        gc.collect()
+        torch.cuda.empty_cache()
+        with timed("train", "phase train: training minicpm-2b at full width "
+                   f"and depth, {TRAIN_STEPS} steps"):
+            paths.append(phase_train(torch, kernels))
     if "trainprof" in phases:
-        log("phase trainprof: profile of one training step, minicpm-2b at "
-            "full width and depth")
-        phase_trainprof(torch)
+        with timed("trainprof", "phase trainprof: profile of one training "
+                   "step, minicpm-2b at full width and depth"):
+            phase_trainprof(torch)
     if "profile" in phases:
-        log("phase 8: profile of build chunks at N=100000")
-        phase_profile(torch)
-    log(f"all phases {time.perf_counter() - t_all:.1f} s")
+        with timed("profile", "phase 8: profile of build chunks at "
+                   "N=100000"):
+            phase_profile(torch)
+    log(f"all phases {time.perf_counter() - t_all:.1f} s: "
+        f"{json.dumps(seconds)}")
 
     for rec in kernels.values():
         rec["launches"] = sum(p["launches"].get(rec["name"], 0)

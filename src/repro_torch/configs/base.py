@@ -7,7 +7,9 @@ it.  ``smoke()`` derives a reduced config of the same family for CPU tests;
 :class:`ShapeConfig` and :data:`SHAPES` are the reference's workload
 shapes (``input_specs``, ``suggest_n_micro``).
 The port carries the configs whose family it runs: ``minicpm-2b`` (dense
-MHA) and ``yi-34b`` (dense GQA).  The other eight come with their families
+MHA), ``yi-34b`` (dense GQA), ``qwen2-moe-a2.7b`` (MoE, 60 routed experts
+top-4 plus 4 shared) and ``qwen3-moe-30b-a3b`` (MoE, 128 experts top-8,
+head_dim 128 over GQA 32/4).  The other six come with their families
 (ROADMAP, modules item 14).
 """
 
@@ -148,6 +150,19 @@ class ArchConfig:
             )
         return total
 
+    def active_param_count(self) -> int:
+        """Matrix parameters a token passes through: an MoE layer counts
+        ``top_k`` of its routed experts, as the reference's."""
+        if not self.n_experts:
+            return self.param_count()
+        d = self.d_model
+        period, groups = self.pattern()
+        moe_layers = sum(groups for pos in range(period)
+                         if self.layer_has_moe(pos))
+        routed = self.n_experts * 3 * d * self.d_ff
+        active = self.top_k * 3 * d * self.d_ff
+        return self.param_count() - moe_layers * (routed - active)
+
     # -- reduced config for CPU smoke tests ----------------------------------
 
     def smoke(self) -> "ArchConfig":
@@ -217,4 +232,9 @@ def get_config(name: str) -> ArchConfig:
 
 def _load_all():
     # importing a config module registers it
-    from repro_torch.configs import minicpm_2b, yi_34b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        minicpm_2b,
+        qwen2_moe_a2_7b,
+        qwen3_moe_30b_a3b,
+        yi_34b,
+    )

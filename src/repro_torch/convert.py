@@ -25,8 +25,10 @@ its policy and report as ``policy_*`` / ``probe_*`` fields, and
 :func:`ivf_sharded_from_numpy` takes a list-partitioned fleet.  The
 reference gives its fleets no archive, so neither has one here.
 
-An LM's parameters travel as the reference's pytree (layers stacked on a
-leading axis, ``models/transformer.py::reference_leaves``), its optimizer
+An LM's parameters travel as the reference's pytree (one stacked group
+per position of the layer pattern, layers stacked on a leading axis,
+``models/transformer.py::reference_leaves``; an MoE's ``router.w`` stays
+float32 whatever the matrices' dtype), its optimizer
 state as ``{"mu", "nu", "count"[, "ef"]}`` in the same layout: the tree a
 checkpoint of ``ckpt/checkpoint.py`` stores under ``params`` and ``opt``.
 """
@@ -356,14 +358,15 @@ def _tensor(a) -> torch.Tensor:
 
 
 def _put(tree: dict, path: tuple, value) -> None:
-    """Set ``tree[path]``, making the dicts on the way and the stacked
-    group's one-element ``layers`` list."""
+    """Set ``tree[path]``, making the dicts on the way and the ``layers``
+    list of one dict per pattern position."""
     for key, nxt in zip(path[:-1], path[1:]):
         if isinstance(tree, list):
+            tree.extend({} for _ in range(key + 1 - len(tree)))
             tree = tree[key]
             continue
         if key not in tree:
-            tree[key] = [{}] if isinstance(nxt, int) else {}
+            tree[key] = [] if isinstance(nxt, int) else {}
         tree = tree[key]
     tree[path[-1]] = value
 
@@ -416,11 +419,15 @@ def _cut(model: DecoderLM, tree: dict):
 def load_lm_params(model: DecoderLM, params: dict) -> DecoderLM:
     """Copy the reference's parameter pytree (numpy arrays or tensors, as
     :func:`lm_params_to_numpy` or ``ckpt.checkpoint.restore`` give it) into
-    ``model``'s parameters, each cast to its slot's dtype."""
-    if len(params["layers"]) != 1:
-        raise NotImplementedError(
-            f"a layer pattern of period {len(params['layers'])} (hybrid, MoE, "
-            "xLSTM stacks) is not ported yet")
+    ``model``'s parameters, each cast to its slot's dtype (so an MoE's
+    float32 router stays float32).  The model's own layer kinds are checked
+    where it is made (``transformer.check_supported``: the hybrid and ssm
+    layers are not ported)."""
+    period, _ = model.cfg.pattern()
+    if len(params["layers"]) != period:
+        raise ValueError(f"{len(params['layers'])} stacked layer groups for "
+                         f"{model.cfg.name}, whose pattern has period "
+                         f"{period}")
     slots = dict(model.named_parameters())
     for n, t in _cut(model, params):
         p = slots[n]

@@ -1,14 +1,17 @@
 """Serving entry point: batched generation, optionally QuIVer-RAG.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm-2b --rag
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \
+        --rag
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-34b --smoke \
         --device cpu --batch 4 --max-new 16 [--rag]
 
 Counterpart of ``repro/launch/serve.py``, with the same flags plus
-``--device`` (default: the CUDA card).  ``--smoke`` serves the reduced
-config anywhere.  A full config runs on one card when its bf16 weights
-(``param_count() * 2`` bytes) and KV caches fit in the card's memory, and
-is refused otherwise, and on the CPU.  Weights are drawn from ``--seed``.
+``--device`` (default: the CUDA card), for the dense and MoE decoder
+families.  ``--smoke`` serves the reduced config anywhere.  A full config
+runs on one card when its bf16 weights (``param_count() * 2`` bytes, every
+expert counted) and KV caches fit in the card's memory, and is refused
+otherwise, and on the CPU.  Weights are drawn from ``--seed``.
 """
 
 from __future__ import annotations

@@ -10,7 +10,8 @@ Counterpart of ``repro/models/model.py``.  ``build_model(cfg)`` returns a
     init_caches(b, max_seq, device=None) -> KVCache (written in place)
     input_specs(shape)                  -> {name: (shape, dtype)} (global)
 
-for the dense decoder family; ``device=None`` means the CUDA card.  The
+for the dense and MoE decoder families; ``device=None`` means the CUDA
+card.  The
 module takes the place of the reference's parameter pytree.  Batch layout:
 ``{"tokens": (B, S) integers, "labels": (B, S) integers}`` (labels for
 ``loss`` only; numpy arrays or tensors).  ``loss`` runs with gradients (a
@@ -74,15 +75,16 @@ def _decoder_bundle(cfg: ArchConfig) -> ModelBundle:
     def loss(model, batch):
         device = model.device
         x = tf.embed_tokens(model, _as_tokens(batch["tokens"], device))
-        h = tf.forward_hidden(model, x)
+        h, aux = tf.forward_hidden(model, x)
         logits = tf.logits_from_hidden(model, h)
         ce, n_tok = cross_entropy(logits, _as_tokens(batch["labels"], device),
                                   cfg.vocab_size)
-        # a dense stack has no MoE auxiliary loss and drops no token
-        zero = torch.zeros((), dtype=torch.float32, device=device)
-        total = ce + 0.01 * zero
-        return total, {"ce": ce, "tokens": n_tok, "load_balance_loss": zero,
-                       "dropped_fraction": zero}
+        # the MoE layers' auxiliary metrics, summed over layers (zeros for a
+        # dense stack)
+        total = ce + 0.01 * aux["load_balance_loss"]
+        return total, {"ce": ce, "tokens": n_tok,
+                       "load_balance_loss": aux["load_balance_loss"],
+                       "dropped_fraction": aux["dropped_fraction"]}
 
     def input_specs(shape: ShapeConfig) -> dict:
         b, s = shape.global_batch, shape.seq_len

@@ -1,22 +1,28 @@
-"""Decoder-only LM for the dense family: embed, attention blocks, logits.
+"""Decoder-only LM for the dense and MoE families: embed, attention blocks,
+logits.
 
 Counterpart of ``repro/models/transformer.py`` for ``layer_kind == "attn"``
-with a dense FFN (MiniCPM, Yi, the llama-like stacks).  The reference scans
-over groups of layers with remat; here :class:`DecoderLM` is an
-``nn.Module`` and the forward passes loop over its blocks in Python (no
-scan).  With ``cfg.remat`` and grad mode on, :func:`forward_hidden` wraps
-each block in ``torch.utils.checkpoint`` (non-reentrant), the reference's
-``jax.checkpoint(..., nothing_saveable)`` around a group (a dense group is
-one layer): only the block's input is kept, and its backward runs the
-block again.  Parameters keep the reference's layout and distributions
-(:func:`init_decoder`), and :mod:`repro_torch.convert` carries the
-reference's parameter pytree onto the module.  The parameters are
-trainable; the serving passes (``models/model.py``' prefill and decode,
+with a dense FFN (MiniCPM, Yi, the llama-like stacks) or an MoE FFN
+(qwen2-moe, qwen3-moe) on the layers of ``cfg.layer_has_moe``.  The
+reference groups layers by the pattern's period P (``cfg.pattern()``) and
+scans over the groups with remat; here :class:`DecoderLM` is an
+``nn.Module`` whose blocks follow the same pattern (block *i* holds ``moe``
+where ``cfg.layer_has_moe(i % P)`` and ``mlp`` otherwise) and the forward
+passes loop over them in Python (no scan).  With ``cfg.remat`` and grad
+mode on, :func:`forward_hidden` wraps each block in
+``torch.utils.checkpoint`` (non-reentrant), the reference's
+``jax.checkpoint(..., nothing_saveable)`` around a group: only the block's
+input is kept, and its backward runs the block again.  Parameters keep the
+reference's layout and distributions (:func:`init_decoder`), and
+:mod:`repro_torch.convert` carries the reference's parameter pytree onto
+the module (:func:`reference_leaves`).  The parameters are trainable; the
+serving passes (``models/model.py``' prefill and decode,
 :func:`forward_with_cache`, ``serve/engine.py``'s embedder) run under
 ``torch.no_grad``.
 
-Not ported: MoE layers (qwen2-moe, qwen3-moe), mamba (jamba), xLSTM and the
-vlm front end; each raises ``NotImplementedError`` naming its ROADMAP item.
+Not ported: mamba (jamba, the hybrid family), xLSTM (the ssm family), the
+vlm front end and the encoder-decoder; each raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -28,11 +34,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import Embedding, Linear, Norm, embed, \
     linear, rmsnorm
 
 _UNPORTED = {
-    "moe": "MoE layers",
     "hybrid": "mamba layers (hybrid family)",
     "ssm": "xLSTM layers (ssm family)",
     "vlm": "the vision front end (vlm family)",
@@ -42,19 +48,19 @@ _UNPORTED = {
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for a configuration whose layers are not ported yet."""
-    family = "moe" if cfg.n_experts else cfg.family
-    if family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: {_UNPORTED.get(family, family)} are not ported yet "
-            "(ROADMAP modules item 14); the port runs the dense decoder "
-            "family")
+            f"{cfg.name}: {_UNPORTED.get(cfg.family, cfg.family)} are not "
+            "ported yet (ROADMAP modules item 14); the port runs the dense "
+            "and MoE decoder families")
 
 
 class Block(nn.Module):
-    """One residual block: ``ln1``, ``attn``, ``ln2``, ``mlp``."""
+    """One residual block: ``ln1``, ``attn``, ``ln2``, then ``moe``
+    (:class:`~repro_torch.models.moe.MoE`) where ``has_moe``, else ``mlp``."""
 
-    def __init__(self, cfg: ArchConfig, *, device=None,
-                 dtype=torch.bfloat16):
+    def __init__(self, cfg: ArchConfig, *, has_moe: bool = False,
+                 device=None, dtype=torch.bfloat16):
         super().__init__()
         d = cfg.d_model
         self.ln1 = Norm(torch.empty((d,), device=device, dtype=torch.float32))
@@ -62,8 +68,13 @@ class Block(nn.Module):
                                        cfg.head_dim_, device=device,
                                        dtype=dtype)
         self.ln2 = Norm(torch.empty((d,), device=device, dtype=torch.float32))
-        self.mlp = ffn_mod.FFN(d, cfg.d_ff, activation=cfg.activation,
-                               device=device, dtype=dtype)
+        if has_moe:
+            self.moe = moe_mod.MoE(d, cfg.d_ff, cfg.n_experts,
+                                   n_shared_experts=cfg.n_shared_experts,
+                                   device=device, dtype=dtype)
+        else:
+            self.mlp = ffn_mod.FFN(d, cfg.d_ff, activation=cfg.activation,
+                                   device=device, dtype=dtype)
 
 
 class DecoderLM(nn.Module):
@@ -80,9 +91,11 @@ class DecoderLM(nn.Module):
         d, v = cfg.d_model, cfg.padded_vocab
         self.embed = Embedding(torch.empty((v, d), device=device,
                                            dtype=dtype))
+        period, _ = cfg.pattern()
         self.blocks = nn.ModuleList(
-            Block(cfg, device=device, dtype=dtype)
-            for _ in range(cfg.n_layers))
+            Block(cfg, has_moe=cfg.layer_has_moe(i % period), device=device,
+                  dtype=dtype)
+            for i in range(cfg.n_layers))
         self.final_norm = Norm(torch.empty((d,), device=device,
                                            dtype=torch.float32))
         self.lm_head = Linear(torch.empty((d, v), device=device,
@@ -96,13 +109,19 @@ class DecoderLM(nn.Module):
 def reference_leaves(model: nn.Module) -> dict:
     """{path in the reference's parameter pytree: the names of
     ``model.named_parameters()`` that form it}.  A top-level tensor is one
-    name (``("embed", "w")``); a block's tensor is every block's, in layer
-    order, under the reference's stacked group (``("layers", 0, "attn",
-    "wq", "w")``: ``blocks.0.attn.wq.w``, ``blocks.1.attn.wq.w``, ...)."""
+    name (``("embed", "w")``); block *i*'s tensor sits at index ``i // P``
+    of the reference's stacked leaf for pattern position ``i % P`` (P the
+    pattern's period), so each leaf lists its blocks in layer order
+    (``("layers", 0, "attn", "wq", "w")``: ``blocks.0.attn.wq.w``,
+    ``blocks.P.attn.wq.w``, ...)."""
+    period, _ = model.cfg.pattern()
     out: dict = {}
     for name, _ in model.named_parameters():
         parts = tuple(name.split("."))
-        path = ("layers", 0, *parts[2:]) if parts[0] == "blocks" else parts
+        if parts[0] == "blocks":
+            path = ("layers", int(parts[1]) % period, *parts[2:])
+        else:
+            path = parts
         out.setdefault(path, []).append(name)
     return out
 
@@ -125,8 +144,10 @@ def init_decoder(cfg: ArchConfig, *, generator: torch.Generator, device,
     """A :class:`DecoderLM` on ``device`` with the reference's
     distributions, drawn in float32 from ``generator`` (which must live on
     ``device``) and cast to ``dtype``: normal / sqrt(d_in) for the linears,
-    normal * 0.02 for the embedding, ones for the norms.  Draw order:
-    embedding, lm_head, then each block's wq, wk, wv, wo, w1, w3, w2."""
+    normal * 0.02 for the embedding, ones for the norms, an MoE block's
+    FFN by ``moe.init_moe`` (its router float32).  Draw order: embedding,
+    lm_head, then each block's wq, wk, wv, wo, and its FFN: w1, w3, w2, or
+    the MoE's leaves (``MoE.leaves``)."""
     model = DecoderLM(cfg, device=device, dtype=dtype)
 
     def draw(p: torch.Tensor, scale: float) -> None:
@@ -135,12 +156,17 @@ def init_decoder(cfg: ArchConfig, *, generator: torch.Generator, device,
         p.copy_(x * scale)
 
     draw(model.embed.w, 0.02)
-    for mat in [model.lm_head.w] + [
-            lin.w for blk in model.blocks
-            for lin in (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.attn.wo,
-                        *(getattr(blk.mlp, n) for n in ("w1", "w3", "w2")
-                          if hasattr(blk.mlp, n)))]:
-        draw(mat, mat.shape[0] ** -0.5)
+    draw(model.lm_head.w, cfg.d_model ** -0.5)
+    for blk in model.blocks:
+        for lin in (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.attn.wo):
+            draw(lin.w, lin.w.shape[0] ** -0.5)
+        if hasattr(blk, "moe"):
+            moe_mod.init_moe(blk.moe, generator=generator)
+            continue
+        for name in ("w1", "w3", "w2"):
+            if hasattr(blk.mlp, name):
+                w = getattr(blk.mlp, name).w
+                draw(w, w.shape[0] ** -0.5)
     for norm in [model.final_norm] + [n for blk in model.blocks
                                       for n in (blk.ln1, blk.ln2)]:
         norm.scale.fill_(1.0)
@@ -154,8 +180,9 @@ def init_decoder(cfg: ArchConfig, *, generator: torch.Generator, device,
 
 def _apply_block(blk: Block, x: torch.Tensor, cfg: ArchConfig, *,
                  cache: attn_mod.KVCache | None = None,
-                 cache_pos: int | None = None) -> torch.Tensor:
-    """One residual block (cache written in place)."""
+                 cache_pos: int | None = None) -> tuple:
+    """One residual block (cache written in place); returns (x, the MoE's
+    aux dict, or None for a dense block)."""
     h = rmsnorm(blk.ln1, x, cfg.norm_eps)
     out, _ = attn_mod.attention_forward(
         blk.attn, h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
@@ -165,27 +192,36 @@ def _apply_block(blk: Block, x: torch.Tensor, cfg: ArchConfig, *,
     )
     x = x + out
     h2 = rmsnorm(blk.ln2, x, cfg.norm_eps)
-    return x + ffn_mod.ffn(blk.mlp, h2, activation=cfg.activation)
+    if hasattr(blk, "moe"):
+        y, aux = moe_mod.moe(blk.moe, h2, top_k=cfg.top_k)
+        return x + y, aux
+    return x + ffn_mod.ffn(blk.mlp, h2, activation=cfg.activation), None
 
 
 def embed_tokens(model: DecoderLM, tokens: torch.Tensor) -> torch.Tensor:
     return embed(model.embed, tokens)
 
 
-def forward_hidden(model: DecoderLM, x: torch.Tensor) -> torch.Tensor:
+def forward_hidden(model: DecoderLM,
+                   x: torch.Tensor) -> tuple[torch.Tensor, dict]:
     """Training/scoring forward through the stack (causal, no cache); x:
-    (B, S, d).  Returns the final-normed hidden state.  With
-    ``cfg.remat`` and grad mode on, each block is checkpointed.  (The
-    reference also returns the MoE auxiliary losses, which a dense stack
-    does not have.)"""
+    (B, S, d).  Returns the final-normed hidden state and the MoE
+    auxiliary metrics summed over the MoE layers (float32 zeros for a
+    dense stack), as the reference.  With ``cfg.remat`` and grad mode on,
+    each block is checkpointed."""
     cfg = model.cfg
     remat = cfg.remat and torch.is_grad_enabled()
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = {"load_balance_loss": zero, "dropped_fraction": zero}
     for blk in model.blocks:
         if remat:
-            x = checkpoint(_apply_block, blk, x, cfg, use_reentrant=False)
+            x, layer_aux = checkpoint(_apply_block, blk, x, cfg,
+                                      use_reentrant=False)
         else:
-            x = _apply_block(blk, x, cfg)
-    return rmsnorm(model.final_norm, x, cfg.norm_eps)
+            x, layer_aux = _apply_block(blk, x, cfg)
+        if layer_aux is not None:
+            aux = {key: aux[key] + layer_aux[key] for key in aux}
+    return rmsnorm(model.final_norm, x, cfg.norm_eps), aux
 
 
 def logits_from_hidden(model: DecoderLM, x: torch.Tensor) -> torch.Tensor:
@@ -206,12 +242,13 @@ def forward_with_cache(model: DecoderLM, x: torch.Tensor,
                        cache_pos: int) -> tuple[torch.Tensor,
                                                 attn_mod.KVCache]:
     """Prefill (T > 1) or decode (T == 1) against the stacked caches of
-    :func:`init_caches`, written in place; returns (hidden, caches)."""
+    :func:`init_caches`, written in place; returns (hidden, caches).  The
+    MoE auxiliary metrics are dropped, as the reference drops them."""
     cfg = model.cfg
     for i, blk in enumerate(model.blocks):
-        x = _apply_block(blk, x, cfg,
-                         cache=attn_mod.KVCache(caches.k[i], caches.v[i]),
-                         cache_pos=cache_pos)
+        x, _ = _apply_block(blk, x, cfg,
+                            cache=attn_mod.KVCache(caches.k[i], caches.v[i]),
+                            cache_pos=cache_pos)
     return rmsnorm(model.final_norm, x, cfg.norm_eps), caches
 
 

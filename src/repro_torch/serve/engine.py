@@ -819,7 +819,7 @@ def mean_pool_embedder(bundle, model) -> Callable:
     def embed(tokens) -> torch.Tensor:
         x = tf.embed_tokens(
             model, torch.as_tensor(tokens, device=model.device).long())
-        h = tf.forward_hidden(model, x)
+        h, _ = tf.forward_hidden(model, x)
         return h.float().mean(dim=1).to(h.dtype).float()
 
     return embed

@@ -696,6 +696,117 @@ def test_card_minicpm_two_layers_matches_cpu(cuda):
     assert torch.nn.functional.cosine_similarity(e_cpu, e_gpu).min() >= 0.999
 
 
+# -- the MoE layer and a full-width MoE decoder, card against CPU -----------
+
+
+def test_moe_dispatch_on_card_equals_cpu(cuda):
+    """The capacity dispatch (stable sorts, ranks, drops, slots) of one set
+    of expert ids on the card and on the CPU: identical, with drops."""
+    from repro_torch.models import moe
+
+    g = torch.Generator().manual_seed(0)
+    for b, t, e, k in ((2, 320, 60, 4), (8, 1, 60, 4), (3, 64, 8, 2),
+                       (2, 48, 128, 8)):
+        # a skewed draw: low expert ids far more often, so long rows drop
+        idx = torch.multinomial(torch.linspace(4.0, 1.0, e).expand(b * t, e),
+                                k, generator=g).reshape(b, t, k)
+        cap = moe.capacity(t, e, k)
+        want = moe.dispatch(idx, e, cap)
+        got = moe.dispatch(idx.to(cuda), e, cap)
+        for name, w, x in zip(want._fields, want, got):
+            assert torch.equal(w, x.cpu()), (b, t, e, k, name)
+        if t >= 64:
+            assert not want.keep.all()
+
+
+@pytest.mark.parametrize("shared", [0, 4])
+def test_moe_layer_card_matches_cpu(cuda, shared):
+    """One MoE layer (60 experts top-4, qwen2's counts) in float32 on the
+    card against the CPU: identical routes at these inputs, outputs within
+    1e-4, aux within 1e-6."""
+    from repro_torch.models import moe
+
+    cpu = moe.init_moe(moe.MoE(64, 96, 60, n_shared_experts=shared,
+                               device="cpu", dtype=torch.float32),
+                       generator=torch.Generator().manual_seed(0))
+    gpu = moe.MoE(64, 96, 60, n_shared_experts=shared, device=cuda,
+                  dtype=torch.float32)
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randn((3, 200, 64), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want, aux_w = moe.moe(cpu, x, top_k=4)
+        got, aux_g = moe.moe(gpu, x.to(cuda), top_k=4)
+        r_w = moe.route(cpu, x, top_k=4)
+        r_g = moe.route(gpu, x.to(cuda), top_k=4)
+    assert torch.equal(r_w.expert_idx, r_g.expert_idx.cpu())
+    assert (got.cpu() - want).abs().max() <= 1e-4
+    for key in aux_w:
+        assert abs(aux_w[key].item() - aux_g[key].item()) <= 1e-6, key
+
+
+def test_card_qwen2_moe_one_layer_matches_cpu(cuda):
+    """qwen2-moe-a2.7b at full width and 1 layer, bf16, drawn on the CPU
+    and copied to the card: prefill and 8 decode steps (the card fed the
+    CPU's greedy tokens).  At least 0.98 of the (token, layer) top-4 sets
+    equal; where a row's routes all agree, every logit within 0.1 and equal
+    argmax where the CPU's top-2 gap exceeds 0.2."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import DecoderLM
+
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), n_layers=1)
+    bundle = build_model(cfg)
+    cpu = bundle.init(0, device="cpu")
+    gpu = DecoderLM(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 48)).astype(np.int32)
+    route = moe.route
+
+    def run(model, device, feed=None):
+        seen = []
+
+        def tap(*args, **kwargs):
+            r = route(*args, **kwargs)
+            seen.append(r.expert_idx.cpu())
+            return r
+
+        moe.route = tap
+        try:
+            caches = bundle.init_caches(2, 64, device=device)
+            logits, caches = bundle.prefill(model, {"tokens": prompts},
+                                            caches)
+            steps = [logits.float().cpu()]
+            for i in range(8):
+                tok = steps[-1].argmax(-1) if feed is None else feed[i]
+                logits, caches = bundle.decode(model, tok[:, None], caches,
+                                               48 + i)
+                steps.append(logits.float().cpu())
+        finally:
+            moe.route = route
+        return steps, seen
+
+    want, r_cpu = run(cpu, "cpu")
+    build.reset_launches()
+    got, r_gpu = run(gpu, cuda, feed=[w.argmax(-1) for w in want[:-1]])
+    assert build.LAUNCHES["flash_attention"] == 9
+    same = [(a.sort(-1).values == b.sort(-1).values).all(-1)
+            for a, b in zip(r_cpu, r_gpu)]
+    assert sum(int(m.sum()) for m in same) \
+        >= 0.98 * sum(m.numel() for m in same)
+    for w, gt, m in zip(want, got, same):
+        agree = m.all(dim=1)
+        real = w > -1e29
+        diff = (gt - w).abs().masked_fill(~real, 0.0).amax(dim=1)
+        assert (diff[agree] <= 0.1).all()
+        top2 = w.topk(2, dim=-1).values
+        clear = agree & (top2[:, 0] - top2[:, 1] > 0.2)
+        assert torch.equal(gt.argmax(-1)[clear], w.argmax(-1)[clear])
+
+
 # -- the serving engine and the graph X-ray, card against CPU ----------------
 
 

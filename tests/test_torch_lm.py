@@ -36,6 +36,9 @@ jax.config.update("jax_platform_name", "cpu")
 torch.set_num_threads(1)
 
 ARCHS = ("minicpm-2b", "yi-34b")
+# every config the port carries; the MoE decoders' numerics are
+# ``tests/test_torch_moe.py``'s
+CONFIGS = ARCHS + ("qwen2-moe-a2.7b", "qwen3-moe-30b-a3b")
 
 
 @pytest.fixture(autouse=True)
@@ -47,7 +50,7 @@ def _inference():
         yield
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", CONFIGS)
 def test_configs_are_copies(name):
     want, got = jax_get_config(name), get_config(name)
     for cfg_w, cfg_g in ((want, got), (want.smoke(), got.smoke())):
@@ -59,6 +62,10 @@ def test_configs_are_copies(name):
         assert cfg_g.padded_vocab == cfg_w.padded_vocab
         assert cfg_g.pattern() == cfg_w.pattern()
         assert cfg_g.seq_sharded_residual == cfg_w.seq_sharded_residual
+        assert cfg_g.active_param_count() == cfg_w.active_param_count()
+        for pos in range(cfg_w.n_layers):
+            assert cfg_g.layer_kind(pos) == cfg_w.layer_kind(pos)
+            assert cfg_g.layer_has_moe(pos) == cfg_w.layer_has_moe(pos)
     for key, shape in JSHAPES.items():
         assert dataclasses.asdict(SHAPES[key]) == dataclasses.asdict(shape)
         assert cell_is_supported(got, SHAPES[key]) == \
@@ -66,7 +73,7 @@ def test_configs_are_copies(name):
     assert set(SHAPES) == set(JSHAPES)
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", CONFIGS)
 def test_module_parameter_count_is_param_count(name):
     """Counted on the meta device: nothing is allocated."""
     cfg = get_config(name)
@@ -78,17 +85,39 @@ def test_module_parameter_count_is_param_count(name):
     if name == "minicpm-2b":
         assert cfg.param_count() == 3_008_102_400
         assert cfg.padded_vocab == 122_880
+    if cfg.n_experts:
+        assert cfg.active_param_count() < cfg.param_count()
+        blk = model.blocks[0].moe
+        assert blk.router.w.dtype == torch.float32
+        assert blk.w1.shape == (cfg.n_experts, cfg.d_model, cfg.d_ff)
+        assert hasattr(blk, "shared") == bool(cfg.n_shared_experts)
 
 
 def test_unported_families_raise():
     cfg = get_config("minicpm-2b").smoke()
-    for bad in (dataclasses.replace(cfg, family="moe", n_experts=4, top_k=2),
-                dataclasses.replace(cfg, family="hybrid"),
-                dataclasses.replace(cfg, family="ssm")):
+    for bad in (dataclasses.replace(cfg, family="hybrid"),
+                dataclasses.replace(cfg, family="ssm"),
+                dataclasses.replace(cfg, family="vlm",
+                                    frontend="patch_stub")):
         with pytest.raises(NotImplementedError, match="item 14"):
             tf.DecoderLM(bad, device="meta")
     with pytest.raises(NotImplementedError, match="item 14"):
         build_model(dataclasses.replace(cfg, family="encdec"))
+
+
+def test_moe_config_builds():
+    """MoE is ported: a dense config given experts builds, with an MoE FFN
+    in every block, and serves a decode step."""
+    cfg = dataclasses.replace(get_config("minicpm-2b").smoke(), family="moe",
+                              n_experts=4, top_k=2, moe_offset=0)
+    bundle = build_model(cfg)
+    model = bundle.init(0, device="cpu")
+    assert all(hasattr(blk, "moe") and not hasattr(blk, "mlp")
+               for blk in model.blocks)
+    caches = bundle.init_caches(2, 8, device="cpu")
+    logits, _ = bundle.decode(model, np.zeros((2, 1), np.int32), caches, 0)
+    assert logits.shape == (2, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits[:, :cfg.vocab_size]).all())
 
 
 @pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
@@ -205,8 +234,9 @@ def test_forward_hidden_and_logits(ref, key):
                                jtf.embed_tokens(params, jcfg,
                                                 jnp.asarray(tokens)))
     want = jtf.logits_from_hidden(params, jcfg, jh)
-    h = tf.forward_hidden(model, tf.embed_tokens(model,
-                                                 torch.from_numpy(tokens)))
+    h, aux = tf.forward_hidden(model, tf.embed_tokens(
+        model, torch.from_numpy(tokens)))
+    assert set(aux) == {"load_balance_loss", "dropped_fraction"}
     got = tf.logits_from_hidden(model, h)
     assert got.dtype == torch.float32 and got.shape == want.shape
     if key == "f32":

@@ -34,7 +34,8 @@ torch.set_num_threads(1)
 BUILD = dict(m=4, ef_construction=24, prune_pool=24, chunk=128)
 
 
-@pytest.fixture(scope="module", params=["minicpm-2b", "yi-34b"])
+@pytest.fixture(scope="module",
+                params=["minicpm-2b", "yi-34b", "qwen2-moe-a2.7b"])
 def lm(request):
     jcfg = jax_get_config(request.param).smoke()
     cfg = get_config(request.param).smoke()
