@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases build,kernels,fleet
     python3 chip_smoke.py --phases build,kernels,rag
     python3 chip_smoke.py --phases build,kernels,moe
+    python3 chip_smoke.py --phases build,kernels,hybrid,vlm
     python3 chip_smoke.py --phases build,kernels,train
     python3 chip_smoke.py --phases build,profile      # opt-in breakdown
     python3 chip_smoke.py --phases build,kernels,train,trainprof
@@ -43,10 +44,13 @@ Phases, in order; any failure raises and the script exits nonzero:
               1, 63, 64 and 65 (around a 64-key split), fully masked
               splits, a 4096-row cache, GQA groups of 4, hd in {16, 32,
               128}, prefill at q_offset 100 with a ragged Tq = 70, a
-              ragged embed, the MoE models' shapes at head_dim 128
+              ragged embed, the served models' shapes at head_dim 128
               (qwen2-moe: 16 heads, embed 64 x 64, prefill 8 x 320 over a
               384-row cache, decode at q_offset 320 and 351; qwen3-moe:
-              32 heads over 4 KV heads, prefill and decode), bf16 K/V read
+              32 heads over 4 KV heads, prefill and decode; jamba: 32
+              heads over 8, embed, prefill and decode; internvl2: 16 heads
+              over 8, prefill 8 x (256 patches + 64 tokens) and decode;
+              each logged with its time, bound and SDPA's), bf16 K/V read
               through a stacked cache's and a fused buffer's strides, and
               a misaligned K that must raise.
               Then each kernel's, its plain version's and one
@@ -83,7 +87,9 @@ Phases, in order; any failure raises and the script exits nonzero:
               (``torch.autograd.grad`` on a saved graph) as the library
               call; the float32 route is logged, not in the kernels
               line (no path launches it).
-3. parity   — the same N = 4000 builds and searches on ``device="cpu"`` and
+3. parity   — the same ``PARITY_N`` = 2000 builds and searches (4000
+              before the hybrid and vlm phases: a cut of depth, the same
+              on every host, that pays for them) on ``device="cpu"`` and
               on the card, beam-searched and IVF-seeded: identical
               partition, adjacency, medoid and candidate ids; the filter
               phase's labels and predicates on the beam-built graph: equal
@@ -127,7 +133,17 @@ Phases, in order; any failure raises and the script exits nonzero:
               greedy tokens there where the CPU's top-2 gap exceeds 0.2;
               the capacity dispatch of the CPU's expert ids, of the
               prefill and of a 2 x 320 scoring forward, identical on the
-              card); then training
+              card); one ``jamba-v0.1-52b`` mamba layer at full width
+              (``parity_mamba``: d 4096, d_inner 8192, bf16, a 2 x 64
+              prefill and 8 one-token steps with both states carried:
+              every output and the final states within 2^-5 of their
+              largest |value|); ``jamba-v0.1-52b.smoke()`` in float32
+              (``parity_jamba``: 16 layers, prefill and 8 decode steps,
+              routes equal >= 0.98, logits of rows whose routes all agree
+              within 1e-3, flash 2 x 9); ``internvl2-2b`` at full width
+              and 2 layers behind 256 seeded patches (``parity_vlm``:
+              parity_lm's rules from position 304, the loss's token count
+              2 x 48 and its value within 1e-2); then training
               (``parity_train``): the same model, B 2 x S 64, loss within
               1e-2 and gradients at relative L2 within 5e-2 (the
               backward kernel launched once a layer), one train step
@@ -327,6 +343,28 @@ moe         — MoE serving with RAG, run with nothing of the earlier
               dropped fraction of a scoring forward over the 8 augmented
               prompts (8 x 320, cap 32).  Then ``launch.serve.main``
               with ``--arch qwen2-moe-a2.7b --smoke --rag`` on the card.
+hybrid      — hybrid serving with RAG: ``jamba-v0.1-52b`` at full width and
+              ``HYBRID_LAYERS`` = 16 layers (two whole periods of its
+              pattern: 2 attention and 14 mamba layers, MoE 16 experts
+              top-2 on the odd ones; 2.605e10 matrix parameters, 52.1 GB
+              of bf16; 24 layers would take ~77 GB), weights from seed 0;
+              ``serve_lm`` over 1 024 + 128 documents: identical tokens in
+              two runs, ids in range, ``flash_attention`` twice a call
+              (the attention layers), on the tensor-core kernel for embed
+              and prefill and the split-KV kernel for decode, the bq
+              kernels in the build.  Printed: peak memory, prefill ms,
+              decode ms a token, embedding tokens/s.  Then
+              ``launch.serve`` with ``--arch jamba-v0.1-52b --smoke
+              --rag`` on the card.
+vlm         — vlm serving: ``internvl2-2b`` at full width and depth (24
+              layers, d 2048, 16 heads over 8, vocab 92 553, 1.89e9 bf16
+              parameters from seed 0): 8 prompts of 64 tokens behind 256
+              seeded patch embeddings each, 32 greedy tokens from
+              position 320, twice, identical; ``flash_attention`` 24
+              times a call (mma for prefill, split-KV for decode); a loss
+              over (patches, tokens, labels) counting 8 x 64 tokens.
+              Then ``launch.serve --arch internvl2-2b --smoke`` on the
+              card.
 train       — training ``minicpm-2b`` at full width and depth (40 layers,
               remat, bf16 from seed 0, float32 AdamW state) through
               ``Trainer``: ``TokenPipeline`` (vocab 122 753, T 256,
@@ -359,7 +397,8 @@ accumulation, copies and casts, and the microbatches' elementwise kernels
 
 The last three lines of standard output are the card's name and power
 limit (``nvidia-smi``), one JSON line of per-kernel numbers (``launches``
-sums phases 4, 5, 6, filter, stream, engine, fleet, 7, moe and train),
+sums phases 4, 5, 6, filter, stream, engine, fleet, 7, moe, hybrid, vlm
+and train),
 and ``{"ok": true, "device": {...}}``; each phase prints its seconds, and
 the line "all phases" all of them.  Without a CUDA device, or without the
 repository beside it, the script exits nonzero and prints no result.
@@ -379,7 +418,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "parity", "main", "ivf", "ladder", "filter",
-          "stream", "engine", "fleet", "rag", "moe", "train")
+          "stream", "engine", "fleet", "rag", "moe", "hybrid", "vlm",
+          "train")
 OPT_IN = ("profile", "trainprof")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the float32
@@ -859,13 +899,33 @@ FLASH_CASES = [
     ("qwen2 decode", 8, 1, 384, 16, 16, 128, 351, 352),
     ("qwen3 prefill", 8, 320, 384, 32, 4, 128, 0, 320),
     ("qwen3 decode", 8, 1, 384, 32, 4, 128, 351, 352),
+    # the hybrid and vlm serving shapes at head_dim 128: jamba's 32 heads
+    # over 8 in the hybrid phase's embed, prefill and decode; internvl2's 16
+    # over 8 in the vlm phase's prefill (256 patches + 64 tokens) and decode
+    ("jamba embed", 64, 64, 64, 32, 8, 128, 0, 64),
+    ("jamba prefill", 8, 320, 384, 32, 8, 128, 0, 320),
+    ("jamba decode", 8, 1, 384, 32, 8, 128, 351, 352),
+    ("internvl2 prefill", 8, 320, 384, 16, 8, 128, 0, 320),
+    ("internvl2 decode", 8, 1, 384, 16, 8, 128, 351, 352),
 ]
+# the labels of the served models' shapes at head_dim 128, whose checks and
+# timings are logged apart
+MODEL_SHAPES = ("qwen2", "qwen3", "jamba", "internvl2")
 # the cases timed in bf16 (and "embed" in float32 too), by (label,
-# q_offset): the RAG path's three steps, then qwen2-moe's and qwen3-moe's
+# q_offset): the RAG path's three steps, then the served models' (qwen2-moe,
+# qwen3-moe, jamba, internvl2)
 FLASH_TIMED = {("embed", 0), ("prefill", 0), ("decode", 351),
                ("qwen2 embed", 0), ("qwen2 prefill", 0),
                ("qwen2 decode", 351), ("qwen3 prefill", 0),
-               ("qwen3 decode", 351)}
+               ("qwen3 decode", 351), ("jamba embed", 0),
+               ("jamba prefill", 0), ("jamba decode", 351),
+               ("internvl2 prefill", 0), ("internvl2 decode", 351)}
+
+
+def model_of(label: str) -> str | None:
+    """The served model a flash case's label names, if any."""
+    first = str(label).split()[0]
+    return first if first in MODEL_SHAPES else None
 
 
 def flash_record_key(variant: str, label: str) -> str:
@@ -931,7 +991,7 @@ def flash_kernels(torch) -> dict:
 
     g = torch.Generator(device="cuda").manual_seed(14)
     out = {}
-    moe_s = 0.0                 # the MoE models' shapes: their checks' time
+    by_model = dict.fromkeys(MODEL_SHAPES, 0.0)  # their checks' seconds
     for label, b, tq, tk, h, kvh, hd, q_offset, valid in FLASH_CASES:
         t0 = time.perf_counter()
         for dtype in (torch.float32, torch.bfloat16):
@@ -981,10 +1041,10 @@ def flash_kernels(torch) -> dict:
                 # are logged
                 "log_only": key != variant or dtype == torch.float32,
             }
-        if label.startswith("qwen"):
-            moe_s += time.perf_counter() - t0
-    log(f"  flash_attention at the MoE models' shapes (hd 128): checks "
-        f"{moe_s:.1f} s")
+        if model_of(label):
+            by_model[model_of(label)] += time.perf_counter() - t0
+    log(f"  flash_attention at the served models' shapes (hd 128): checks "
+        + ", ".join(f"{m} {t:.1f} s" for m, t in by_model.items()))
     flash_strided(torch, g)
     return out
 
@@ -1187,7 +1247,7 @@ def check_library(name: str, result, kernel_out) -> None:
 def phase_times(torch, kernels: dict) -> None:
     """Time each kernel and its plain version on the inputs phase 2 kept
     (the main path's shapes)."""
-    moe_s = 0.0                 # the MoE models' shapes: their timing's time
+    by_model = dict.fromkeys(MODEL_SHAPES, 0.0)  # their timings' seconds
     for rec in kernels.values():
         t0 = time.perf_counter()
         kernel, plain, library = rec.pop("fns")
@@ -1213,9 +1273,10 @@ def phase_times(torch, kernels: dict) -> None:
                 "(torch.profiler; a kernel launched early by programmatic "
                 "dependent launch counts its wait)")
         del kernel, plain, library      # free this record's inputs now
-        if str(rec["shape"][0]).startswith("qwen"):
-            moe_s += time.perf_counter() - t0
-    log(f"  timing flash_attention at the MoE models' shapes: {moe_s:.1f} s")
+        if model_of(rec["shape"][0]):
+            by_model[model_of(rec["shape"][0])] += time.perf_counter() - t0
+    log("  timing flash_attention at the served models' shapes: "
+        + ", ".join(f"{m} {t:.1f} s" for m, t in by_model.items()))
     log(f"  clocks right after: {clocks()}")
 
 
@@ -1254,8 +1315,27 @@ def ids_match(a, b, scores_a, scores_b, tol: float = 1e-6) -> int:
     return int(diff.any(axis=1).sum())
 
 
+# phase 3's index corpus (cohere-surrogate) and its two probe corpora, in
+# rows: 4 000 before the hybrid and vlm phases; a cut of depth, the same on
+# every host, that pays for them
+PARITY_N = 2000
+
+
 def phase_parity(torch) -> None:
-    """The N = 4000 builds on the CPU and on the card must agree."""
+    """The CPU and the card must agree: the index work at ``PARITY_N``
+    (:func:`parity_index`), then the LMs."""
+    for check in (parity_index, parity_lm, parity_moe, parity_mamba,
+                  parity_jamba, parity_vlm, parity_train):
+        t0 = time.perf_counter()
+        check(torch)
+        log(f"  {check.__name__}: {time.perf_counter() - t0:.1f} s")
+
+
+def parity_index(torch) -> None:
+    """The builds and searches of ``PARITY_N`` rows of cohere-surrogate on
+    the CPU and on the card must agree, and every script run on them; the
+    fleet on its own corpus and ``build(nav="auto")`` on ``PARITY_N`` rows
+    of two."""
     import dataclasses
 
     import numpy as np
@@ -1264,7 +1344,7 @@ def phase_parity(torch) -> None:
     from repro_torch.core.vamana import BuildParams
     from repro_torch.data.datasets import make_dataset
 
-    base, queries = make_dataset("cohere-surrogate", 4000, queries=100)
+    base, queries = make_dataset("cohere-surrogate", PARITY_N, queries=100)
     params = BuildParams(m=16, ef_construction=64, prune_pool=64)
     parity_ivf(torch, base, queries,
                dataclasses.replace(params, ivf_candidates=True))
@@ -1299,13 +1379,10 @@ def phase_parity(torch) -> None:
     parity_fleet(torch)
     for name, want in (("sift-like", "float32"), ("cohere-surrogate", "bq2")):
         parity_auto(torch, name, want, params)
-    parity_lm(torch)
-    parity_moe(torch)
-    parity_train(torch)
 
 
 def parity_filter(torch, cpu, gpu, queries) -> None:
-    """The filter phase's labels and predicates on the N = 4000 graph, on
+    """The filter phase's labels and predicates on the ``PARITY_N`` graph, on
     the CPU and on the card, for the first 32 queries: equal entries and
     plans; identical ids and scores on the graph routes (searched with
     ``rerank=False``) and on the brute route without rerank; ids matched by
@@ -1386,7 +1463,7 @@ def assert_same_stream_state(torch, a: dict, b: dict, what: str) -> None:
 
 
 def parity_stream(torch, cpu, gpu, queries) -> tuple:
-    """The streaming mutation script on the N = 4000 graph (with the
+    """The streaming mutation script on the ``PARITY_N`` graph (with the
     filter phase's labels), on the CPU and on the card: ``from_index``,
     insert 400 (seeded perturbed copies of rows, with labels), delete 300
     (the medoid among them), searches on the graph and brute routes,
@@ -1872,6 +1949,350 @@ def parity_moe(torch) -> None:
     log(f"  parity_moe: {time.perf_counter() - t_all:.1f} s")
 
 
+# phase 3's mamba gate: each output, and each state after the last step,
+# within 2^-5 of its largest |value| (four bf16 ulps of it) on the two
+# devices (PERF.md section 2)
+MAMBA_REL_TOL = 2 ** -5
+
+
+def parity_mamba(torch) -> None:
+    """One ``jamba-v0.1-52b`` mamba layer at full width (d 4 096, d_inner
+    8 192, d_state 16, dt_rank 256), bf16, drawn on the CPU and copied to
+    the card: a prefill of 2 x 64 seeded inputs from zero states, then 8
+    one-token steps, each carrying both states.  Every step's output within
+    ``MAMBA_REL_TOL`` of its largest |value| on the two devices (bf16
+    products round at other places), and after the last step the conv and
+    float32 ssm states the same way."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import mamba
+
+    cfg = get_config("jamba-v0.1-52b")
+    t_all = time.perf_counter()
+    layers = {}
+    for dev in ("cpu", "cuda"):
+        layers[dev] = mamba.Mamba(cfg.d_model, d_state=cfg.d_state,
+                                  d_conv=cfg.d_conv, expand=cfg.ssm_expand,
+                                  device=dev)
+    mamba.init_mamba(layers["cpu"], generator=torch.Generator().manual_seed(0))
+    layers["cuda"].load_state_dict(layers["cpu"].state_dict())
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 72, cfg.d_model)).astype(np.float32)).bfloat16()
+    runs = {}
+    for dev, layer in layers.items():
+        t0 = time.perf_counter()
+        outs, conv, ssm = [], None, None
+        with torch.no_grad():
+            for lo, hi in [(0, 64)] + [(i, i + 1) for i in range(64, 72)]:
+                out, (conv, ssm) = mamba.mamba(layer, x[:, lo:hi].to(dev),
+                                               conv, ssm)
+                outs.append(out.float().cpu())
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        runs[dev] = (outs, conv.float().cpu(), ssm.cpu(),
+                     time.perf_counter() - t0)
+    (c_outs, c_conv, c_ssm, t_cpu), (g_outs, g_conv, g_ssm, t_gpu) = \
+        runs["cpu"], runs["cuda"]
+    worst = 0.0
+    for what, a, b in ([(f"step {i}", w, g)
+                        for i, (w, g) in enumerate(zip(c_outs, g_outs))]
+                       + [("conv state", c_conv, g_conv),
+                          ("ssm state", c_ssm, g_ssm)]):
+        if not bool(torch.isfinite(b).all()):
+            raise AssertionError(f"mamba {what} not finite on the card")
+        ratio = float((b - a).abs().max() / (MAMBA_REL_TOL * a.abs().max()))
+        worst = max(worst, ratio)
+        if ratio > 1.0:
+            raise AssertionError(f"mamba {what} differs by {ratio:.2f} x "
+                                 f"{MAMBA_REL_TOL} of its largest value")
+    log(f"  jamba mamba layer at full width (d {cfg.d_model}, d_inner "
+        f"{cfg.ssm_expand * cfg.d_model}), 2 x 64 prefill + 8 steps: CPU "
+        f"{t_cpu:.1f} s, card {t_gpu:.1f} s; outputs and states within "
+        f"{worst:.3f} of the bound (2^-5 of each one's largest |value|); "
+        f"parity_mamba {time.perf_counter() - t_all:.1f} s")
+
+
+# phase 3's jamba-smoke gates: in float32, the logits of rows whose routes all
+# agree (every MoE layer, every step so far); in bf16, each block on the
+# CPU's input and state within MAMBA_REL_TOL of its largest |value|
+JAMBA_LOGIT_TOL = 1e-3
+
+
+def parity_jamba(torch) -> None:
+    """``jamba-v0.1-52b.smoke()`` (16 layers: 14 mamba, 2 attention, 8 MoE)
+    drawn on the CPU and copied to the card, in float32 and in bf16: 2
+    prompts of 48 tokens, prefill and 8 greedy decode steps (the card fed
+    the CPU's tokens); ``flash_attention`` 2 layers x 9 calls.  In float32
+    the whole stack is gated: the share of (token, layer) top-2 sets equal
+    (>= ``MOE_ROUTE_SHARE``, ``parity_moe``'s rule), the logits of rows
+    whose routes all agreed so far within ``JAMBA_LOGIT_TOL`` (the float32
+    bound of the port's serving tests: the K/V caches are bf16), and equal
+    greedy tokens there where the CPU's top-2 gap exceeds
+    ``MOE_CLEAR_GAP``.  In bf16 a router near-tie flipped at one token
+    moves that token's hidden state, which every later mamba layer carries
+    to every later token of the row, so the whole stack's route share,
+    logit gap and greedy tokens are printed, not gated (two bf16
+    implementations of this stack differ by whole units of a logit,
+    ``tests/test_torch_hybrid.py``), and each block is held on its own, on
+    the CPU's input and state, by :func:`jamba_blocks`."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import build_model
+
+    cfg = get_config("jamba-v0.1-52b").smoke()
+    bundle = build_model(cfg)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 48)).astype(np.int32)
+
+    def run(model, device, feed=None):
+        steps, routes = [], []
+        with recorded_routes() as seen:
+            caches = bundle.init_caches(2, 64, device=device)
+            logits, caches = bundle.prefill(model, {"tokens": prompts},
+                                            caches)
+            steps.append(logits.float().cpu())
+            routes.append(list(seen))
+            for i in range(8):
+                tok = steps[-1].argmax(-1) if feed is None else feed[i]
+                logits, caches = bundle.decode(model, tok[:, None], caches,
+                                               48 + i)
+                steps.append(logits.float().cpu())
+                routes.append(seen[len(sum(routes, [])):])
+        return steps, routes
+
+    for dtype in (torch.float32, torch.bfloat16):
+        what = f"jamba smoke ({str(dtype)[6:]})"
+        t_all = time.perf_counter()
+        cpu = bundle.init(0, device="cpu", dtype=dtype)
+        gpu = tf.DecoderLM(cfg, device="cuda", dtype=dtype)
+        gpu.load_state_dict(cpu.state_dict())
+        t0 = time.perf_counter()
+        want, r_cpu = run(cpu, "cpu")
+        t_cpu = time.perf_counter() - t0
+        feed = [w.argmax(-1) for w in want[:-1]]
+        kbuild.reset_launches()
+        t0 = time.perf_counter()
+        got, r_gpu = run(gpu, "cuda", feed=feed)
+        t_gpu = time.perf_counter() - t0
+        if kbuild.LAUNCHES["flash_attention"] != 2 * 9:
+            raise AssertionError(f"{what}: flash_attention launched "
+                                 f"{kbuild.LAUNCHES['flash_attention']} "
+                                 "times, not 2 attention layers x 9 calls")
+        n_same = n_all = compared = equal = rows = 0
+        worst = 0.0
+        agree = torch.ones(2, dtype=torch.bool)      # every route so far
+        for w, gt, rc, rg in zip(want, got, r_cpu, r_gpu):
+            for a, b in zip(rc, rg):
+                m = same_sets(a, b)
+                n_same += int(m.sum())
+                n_all += m.numel()
+                agree &= m.all(dim=1)
+            rows += int(agree.sum())
+            real = w > -1e29
+            diff = (gt - w).abs().masked_fill(~real, 0.0).amax(dim=1)
+            if agree.any():
+                worst = max(worst, float(diff[agree].max()))
+            top2 = w.topk(2, dim=-1).values
+            clear = agree & (top2[:, 0] - top2[:, 1] > MOE_CLEAR_GAP)
+            compared += int(clear.sum())
+            equal += int((gt.argmax(-1) == w.argmax(-1))[clear].sum())
+        share = n_same / n_all
+        log(f"  {what}, 2 x 48 tokens, prefill + 8 decode steps: CPU "
+            f"{t_cpu:.1f} s, card {t_gpu:.1f} s; (token, layer) "
+            f"top-{cfg.top_k} sets equal {n_same} of {n_all} ({share:.4f}); "
+            f"{rows} of 18 (row, step) pairs with every route equal so far: "
+            f"max |logit diff| {worst:.2e}, greedy tokens equal at {equal} "
+            f"of {compared} with a top-2 gap > {MOE_CLEAR_GAP}")
+        if dtype == torch.bfloat16:
+            # printed, not gated: the whole stack carries each flip on
+            gap = max(float((gt - w).abs()[w > -1e29].max())
+                      for w, gt in zip(want, got))
+            same = sum(int((gt.argmax(-1) == w.argmax(-1)).sum())
+                       for w, gt in zip(want, got))
+            log(f"  {what}, the whole stack (printed, not gated): max "
+                f"|logit diff| over all 18 (row, step) pairs {gap:.4f}; "
+                f"greedy tokens equal at {same} of 18")
+            jamba_blocks(torch, cpu, gpu, prompts, feed)
+        else:
+            if share < MOE_ROUTE_SHARE:
+                raise AssertionError(f"{what}: only {share:.4f} of the "
+                                     f"routes agree (< {MOE_ROUTE_SHARE})")
+            if equal != compared:
+                raise AssertionError(f"{what}: greedy tokens differ at "
+                                     f"{compared - equal} (row, step) pairs")
+            if worst > JAMBA_LOGIT_TOL:
+                raise AssertionError(f"{what}: logits of agreeing rows "
+                                     f"differ by {worst} > "
+                                     f"{JAMBA_LOGIT_TOL}")
+        del gpu
+        torch.cuda.empty_cache()
+        log(f"  {what}: {time.perf_counter() - t_all:.1f} s")
+
+
+def jamba_blocks(torch, cpu, gpu, prompts, feed) -> None:
+    """Each of the card's blocks applied to the CPU's input of that block
+    and the CPU's serving state of its layer, for the prefill of
+    ``prompts`` and each decode step of ``feed`` (the CPU's own input and
+    states carried from block to block and call to call): the output, the
+    mamba layer's (conv, ssm) or the attention layer's K/V cache within
+    ``MAMBA_REL_TOL`` of the CPU's largest |value| (four bf16 ulps), but
+    for the tokens whose top-k set differs at an MoE block, which may be at
+    most ``1 - MOE_ROUTE_SHARE`` of the (token, MoE block) pairs."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.attention import KVCache
+
+    cfg = cpu.cfg
+    b = len(prompts)
+    caches = tf.init_caches(cfg, b, 64, device="cpu")
+    calls = [(torch.from_numpy(prompts).long(), 0)] + [
+        (tok[:, None].long(), prompts.shape[1] + i)
+        for i, tok in enumerate(feed)]
+
+    def ratio(got, want) -> float:
+        want = want.float()
+        return float((got.float().cpu() - want).abs().max()
+                     / (MAMBA_REL_TOL * want.abs().max()))
+
+    worst, flipped, pairs = 0.0, 0, 0
+    with torch.no_grad():
+        for tokens, pos in calls:
+            x = tf.embed_tokens(cpu, tokens)
+            for i, (cb, gb) in enumerate(zip(cpu.blocks, gpu.blocks)):
+                state = caches[i]
+                kind = "attention" if isinstance(state, KVCache) \
+                    else "mamba"
+                on_card = [t.cuda() for t in state]
+                on_card = KVCache(*on_card) if kind == "attention" \
+                    else tuple(on_card)
+                with recorded_routes() as rc:
+                    x_c, _, s_c = tf._apply_block(cb, x, cfg, cache=state,
+                                                  cache_pos=pos)
+                with recorded_routes() as rg:
+                    x_g, _, s_g = tf._apply_block(gb, x.cuda(), cfg,
+                                                  cache=on_card,
+                                                  cache_pos=pos)
+                keep = torch.ones(x.shape[:2], dtype=torch.bool)
+                if rc:
+                    keep = same_sets(rc[0], rg[0])
+                    flipped += int((~keep).sum())
+                    pairs += keep.numel()
+                for name, g, c in [("output", x_g.cpu()[keep], x_c[keep])] \
+                        + list(zip(("conv", "ssm") if kind == "mamba"
+                                   else ("K", "V"), s_g, s_c)):
+                    if not bool(torch.isfinite(g).all()):
+                        raise AssertionError(f"jamba block {i} ({kind}) "
+                                             f"{name} not finite at "
+                                             f"position {pos}")
+                    r = ratio(g, c)
+                    worst = max(worst, r)
+                    if r > 1.0:
+                        raise AssertionError(
+                            f"jamba block {i} ({kind}) {name} at position "
+                            f"{pos} differs by {r:.2f} x {MAMBA_REL_TOL} of "
+                            "its largest value")
+                caches[i], x = s_c, x_c
+    share = flipped / pairs
+    log(f"  jamba smoke (bfloat16) block by block, {len(calls)} calls x "
+        f"{cfg.n_layers} blocks on the CPU's inputs and states: outputs, "
+        f"mamba states and K/V within {worst:.3f} of the bound (2^-5 of "
+        f"each one's largest |value|); {flipped} of {pairs} (token, MoE "
+        f"block) pairs took another expert set ({share:.4f})")
+    if share > 1 - MOE_ROUTE_SHARE:
+        raise AssertionError(f"jamba smoke blocks: {share:.4f} of the "
+                             "routes differ")
+
+
+def parity_vlm(torch) -> None:
+    """``internvl2-2b`` at full width and 2 layers, bf16, drawn on the CPU
+    and copied to the card: 2 prompts of 48 tokens behind 256 seeded patch
+    embeddings, prefill and 8 greedy decode steps from position 304 (the
+    card fed the CPU's tokens) under ``parity_lm``'s rules (every logit
+    within 0.1, equal argmax where the CPU's top-2 gap exceeds 0.2);
+    ``flash_attention`` 2 layers x 9 calls; then the loss over (patches,
+    tokens, labels) on both: its token count 2 x 48 on both, the loss
+    within 1e-2 of the CPU's, relative."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config("internvl2-2b"), n_layers=2)
+    bundle = build_model(cfg)
+    t_all = time.perf_counter()
+    cpu = bundle.init(0, device="cpu")
+    gpu = tf.DecoderLM(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (2, 48)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size, (2, 48)).astype(np.int32)
+    patches = torch.from_numpy(rng.standard_normal(
+        (2, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)) \
+        .bfloat16()
+    start = 48 + cfg.n_frontend_tokens
+
+    def run(model, device, feed=None):
+        batch = {"tokens": prompts, "patches": patches.to(device)}
+        caches = bundle.init_caches(2, start + 16, device=device)
+        logits, caches = bundle.prefill(model, batch, caches)
+        steps = [logits.float().cpu()]
+        for i in range(8):
+            tok = steps[-1].argmax(-1) if feed is None else feed[i]
+            logits, caches = bundle.decode(model, tok[:, None], caches,
+                                           start + i)
+            steps.append(logits.float().cpu())
+        with torch.no_grad():
+            loss, metrics = bundle.loss(model, {**batch, "labels": labels})
+        return steps, float(loss), float(metrics["tokens"])
+
+    t0 = time.perf_counter()
+    want, l_cpu, n_cpu = run(cpu, "cpu")
+    t_cpu = time.perf_counter() - t0
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    got, l_gpu, n_gpu = run(gpu, "cuda",
+                            feed=[w.argmax(-1) for w in want[:-1]])
+    t_gpu = time.perf_counter() - t0
+    # 2 layers x (prefill + 8 decode steps + the loss's forward)
+    if kbuild.LAUNCHES["flash_attention"] != 2 * 10:
+        raise AssertionError(f"flash_attention launched "
+                             f"{kbuild.LAUNCHES['flash_attention']} times, "
+                             "not 2 layers x 10 calls")
+    worst, compared = 0.0, 0
+    for step, (w, gt) in enumerate(zip(want, got)):
+        real = w > -1e29
+        worst = max(worst, float((gt - w).abs()[real].max()))
+        top2 = w.topk(2, dim=-1).values
+        clear = top2[:, 0] - top2[:, 1] > 0.2
+        compared += int(clear.sum())
+        if not torch.equal(gt.argmax(-1)[clear], w.argmax(-1)[clear]):
+            raise AssertionError(f"internvl2: greedy token differs at step "
+                                 f"{step}")
+    if worst > 0.1:
+        raise AssertionError(f"internvl2: logits differ by {worst} > 0.1")
+    if not n_cpu == n_gpu == labels.size:
+        raise AssertionError(f"internvl2: the loss counted {n_cpu} / {n_gpu} "
+                             f"tokens, not {labels.size}")
+    if abs(l_gpu - l_cpu) > 1e-2 * abs(l_cpu):
+        raise AssertionError(f"internvl2: loss {l_gpu} on the card, {l_cpu} "
+                             "on the CPU")
+    log(f"  internvl2-2b x 2 layers, 2 x (256 patches + 48 tokens), "
+        f"prefill + 8 decode steps from position {start}: CPU {t_cpu:.1f} s, "
+        f"card {t_gpu:.1f} s; max |logit diff| {worst:.4f}; greedy tokens "
+        f"equal at all {compared} of 18 (row, step) pairs with a top-2 gap "
+        f"> 0.2; loss {l_cpu:.5f} / {l_gpu:.5f} over {n_gpu:.0f} tokens; "
+        f"parity_vlm {time.perf_counter() - t_all:.1f} s")
+    del gpu
+    torch.cuda.empty_cache()
+
+
 def tree_pairs(a, b, prefix=""):
     """(path, a leaf, b leaf) over two nested dict/list trees of one
     structure."""
@@ -2003,14 +2424,15 @@ def parity_train(torch) -> None:
 
 
 def parity_auto(torch, name: str, want: str, params) -> None:
-    """``build(nav="auto")`` on the CPU and on the card: the same report
-    verdict and policy, and ids matched by ``ids_match``."""
+    """``build(nav="auto")`` over ``PARITY_N`` rows of ``name`` on the CPU
+    and on the card: the same report verdict and policy, and ids matched by
+    ``ids_match``."""
     import dataclasses
 
     from repro_torch.core.index import QuIVerIndex
     from repro_torch.data.datasets import make_dataset
 
-    base, queries = make_dataset(name, 4000, queries=100)
+    base, queries = make_dataset(name, PARITY_N, queries=100)
     built = {}
     for dev in ("cpu", "cuda"):
         t0 = time.perf_counter()
@@ -3544,25 +3966,77 @@ def phase_fleet(torch, main: dict | None) -> dict:
     return {"launches": launches}
 
 
-def serve_lm(torch, kernels: dict, cfg, *, n_docs: int, n_held: int,
-             records: dict) -> dict:
-    """The RAG serving path of ``cfg`` at full width and depth on the card:
-    weights from seed 0 (bf16), ``n_docs`` + ``n_held`` seeded documents of
-    64 tokens embedded with ``mean_pool_embedder`` (batches of 64), a
-    ``QuIVerIndex`` (``BuildParams()``) over the first ``n_docs``, recall@10
-    at ef = 64 of the held-out ones (printed, not gated); 8 prompts of 64
-    tokens through ``Retriever(k=4, ef=64)`` and ``ServeEngine.generate``
-    (prefill T = 320, ``max_seq`` 384, 32 greedy tokens), twice.  Gates:
-    the module's parameters are ``param_count()``; identical tokens in the
-    two runs; every retrieved id in range and every context row its
-    document's tokens; the bq kernels launched in the build;
-    ``flash_attention`` launched ``n_layers`` times a call of embed,
-    prefill and decode, on the tensor-core kernel for embed and prefill and
-    on the split-KV kernel for decode.  Each step's ms a call is printed
-    with the flash kernel's share: its launches x the device time of
-    ``kernels[records[step]]`` (phase 2's record at the step's shape; not
-    measured without it).  Returns the launch counts and what the caller's
-    own checks need."""
+# the flash kernel each served step's calls must take
+STEP_KERNEL = {"embed": "flash_attention_mma",
+               "prefill": "flash_attention_mma",
+               "decode": "flash_attention_split_kv"}
+
+
+def counted(torch, tally: dict, launches, name: str, fn):
+    """``fn`` with the launch counts reset before each call and read after
+    it: a call's launches are added to ``tally[name]`` (a ``Counter``, with
+    its ``calls`` and ``s``, the call's time on the host clock around
+    synchronisation) and to ``launches``."""
+    from repro_torch.kernels import build as kbuild
+
+    def run(*args, **kwargs):
+        torch.cuda.synchronize()
+        kbuild.reset_launches()
+        t0 = time.perf_counter()
+        result = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        rec = tally[name]
+        rec["s"] += time.perf_counter() - t0
+        rec["calls"] += 1
+        rec.update(kbuild.LAUNCHES)
+        launches.update(kbuild.LAUNCHES)
+        return result
+    return run
+
+
+def check_step_flash(tally: dict, n_attn: int) -> None:
+    """Each served step of ``tally`` (see :func:`counted`) launched
+    ``flash_attention`` ``n_attn`` times a call, every launch through
+    ``STEP_KERNEL[step]``; logs the counts."""
+    for name, rec in tally.items():
+        variant = STEP_KERNEL[name]
+        counts = {key: rec[key] for key in ("flash_attention_mma",
+                                            "flash_attention_split_kv",
+                                            "flash_attention_fma")}
+        log(f"  {name}: {rec['calls']} calls, {rec['flash_attention']} "
+            f"flash_attention launches {counts}")
+        if rec["calls"] == 0 \
+                or rec["flash_attention"] != n_attn * rec["calls"]:
+            raise AssertionError(f"flash_attention did not launch "
+                                 f"{n_attn} times a call in {name}")
+        if rec[variant] != rec["flash_attention"]:
+            raise AssertionError(f"not every {name} call of flash_attention "
+                                 f"took {variant}: {counts}")
+
+
+def serve_lm(torch, kernels: dict, cfg, *, records: dict, n_docs: int = 0,
+             n_held: int = 0) -> dict:
+    """The serving path of ``cfg`` at full width and depth on the card:
+    weights from seed 0 (bf16); 8 prompts of 64 tokens through
+    ``ServeEngine.generate`` (``max_seq`` 384, 32 greedy tokens), twice.
+    With ``n_docs``, RAG: ``n_docs`` + ``n_held`` seeded documents of 64
+    tokens embedded with ``mean_pool_embedder`` (batches of 64), a
+    ``QuIVerIndex`` (``BuildParams()``) over the first ``n_docs``,
+    recall@10 at ef = 64 of the held-out ones (printed, not gated), and
+    the prompts served through ``Retriever(k=4, ef=64)`` (prefill T =
+    320).  A vlm (``frontend="patch_stub"``) is served behind its seeded
+    patch embeddings (``extra_batch``; prefill T = 256 + 64).  Gates: the
+    module's matrices are ``param_count()`` less
+    ``transformer.param_count_gap`` (mamba's 1-D leaves); identical tokens
+    in the two runs, in range; with RAG, every retrieved id in range,
+    every context row its document's tokens and the bq kernels launched in
+    the build; ``flash_attention`` launched once an attention layer a call
+    of embed, prefill and decode, on the tensor-core kernel for embed and
+    prefill and on the split-KV kernel for decode.  Each step's ms a call
+    is printed with the flash kernel's share: its launches x the device
+    time of ``kernels[records[step]]`` (phase 2's record at the step's
+    shape; not measured without it).  Returns the launch counts and what
+    the caller's own checks need."""
     import collections
 
     import numpy as np
@@ -3572,12 +4046,14 @@ def serve_lm(torch, kernels: dict, cfg, *, n_docs: int, n_held: int,
     from repro_torch.core.vamana import BuildParams
     from repro_torch.kernels import build as kbuild
     from repro_torch.models.model import build_model
-    from repro_torch.models.transformer import matrix_param_count
+    from repro_torch.models.transformer import layer_kinds, \
+        matrix_param_count, param_count_gap
     from repro_torch.serve.engine import Retriever, ServeEngine, \
         mean_pool_embedder
 
     doc_len, batch = 64, 64
     n_prompts, prompt_len, max_new, max_seq, k = 8, 64, 32, 384, 4
+    n_front = cfg.n_frontend_tokens if cfg.frontend == "patch_stub" else 0
     bundle = build_model(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3585,110 +4061,114 @@ def serve_lm(torch, kernels: dict, cfg, *, n_docs: int, n_held: int,
     model = bundle.init(0, device="cuda")
     torch.cuda.synchronize()
     n_params = matrix_param_count(model)
+    n_attn = layer_kinds(cfg).count("attn")
     experts = (f", {cfg.n_experts} routed experts of {cfg.d_ff} top-"
                f"{cfg.top_k} + {cfg.n_shared_experts} shared, router "
                "float32" if cfg.n_experts else "")
-    log(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+    mixers = (f", {n_attn} attention and {cfg.n_layers - n_attn} mamba "
+              f"layers (d_inner {cfg.ssm_expand * cfg.d_model}, d_state "
+              f"{cfg.d_state})" if n_attn < cfg.n_layers else "")
+    front = f", {n_front} patch embeddings a prompt" if n_front else ""
+    log(f"  {cfg.name}: {cfg.n_layers} layers{mixers}, d {cfg.d_model}, "
         f"{cfg.n_heads} heads of {cfg.head_dim_} over {cfg.n_kv_heads}, "
         f"d_ff {cfg.d_ff}{experts}, vocab {cfg.vocab_size} -> "
-        f"{cfg.padded_vocab}, bf16: {n_params} parameters (param_count() "
-        f"{cfg.param_count()}; plus "
-        f"{sum(p.numel() for p in model.parameters()) - n_params} norm "
-        f"scales), drawn in {time.perf_counter() - t0:.1f} s")
-    if n_params != cfg.param_count():
+        f"{cfg.padded_vocab}{front}, bf16: {n_params} matrix parameters "
+        f"(param_count() {cfg.param_count()}, param_count_gap "
+        f"{param_count_gap(cfg)}; "
+        f"{sum(p.numel() for p in model.parameters() if p.ndim == 1)} "
+        f"elements of 1-D parameters in all), drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if n_params + param_count_gap(cfg) != cfg.param_count():
         raise AssertionError("the module's parameters are not param_count()")
 
     launches: collections.Counter = collections.Counter()
-    variants = dict.fromkeys(("flash_attention_mma",
-                              "flash_attention_split_kv",
-                              "flash_attention_fma"), 0)
-    tally = {name: {"calls": 0, "flash": 0, "s": 0.0, **variants}
-             for name in ("embed", "prefill", "decode")}
-
-    def counted(name, fn):
-        """``fn`` with the launch counts reset before each call and read
-        after it, and its time on the host clock around synchronisation."""
-        def run(*args, **kwargs):
-            torch.cuda.synchronize()
-            kbuild.reset_launches()
-            t0 = time.perf_counter()
-            result = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            rec = tally[name]
-            rec["s"] += time.perf_counter() - t0
-            rec["calls"] += 1
-            rec["flash"] += kbuild.LAUNCHES["flash_attention"]
-            for key in variants:
-                rec[key] += kbuild.LAUNCHES[key]
-            launches.update(kbuild.LAUNCHES)
-            return result
-        return run
-
+    steps = STEP_KERNEL if n_docs else ("prefill", "decode")
+    tally = {name: collections.Counter() for name in steps}
     rng = np.random.default_rng(0)
-    docs = rng.integers(0, cfg.vocab_size,
-                        (n_docs + n_held, doc_len)).astype(np.int32)
-    embed_fn = counted("embed", mean_pool_embedder(bundle, model))
-    emb = torch.cat([embed_fn(docs[i:i + batch])
-                     for i in range(0, len(docs), batch)])
-    embed_s = tally["embed"]["s"]
-    log(f"  embed {len(docs)} documents x {doc_len} tokens in batches of "
-        f"{batch}: {embed_s:.2f} s, {docs.size / embed_s:.0f} tokens/s")
-    if emb.shape != (len(docs), cfg.d_model) \
-            or not bool(torch.isfinite(emb).all()):
-        raise AssertionError("embeddings malformed")
-    corpus, held = emb[:n_docs], emb[n_docs:]
+    served = {"launches": launches, "model": model, "bundle": bundle}
+    retriever = None
+    if n_docs:
+        docs = rng.integers(0, cfg.vocab_size,
+                            (n_docs + n_held, doc_len)).astype(np.int32)
+        embed_fn = counted(torch, tally, launches, "embed",
+                           mean_pool_embedder(bundle, model))
+        emb = torch.cat([embed_fn(docs[i:i + batch])
+                         for i in range(0, len(docs), batch)])
+        embed_s = tally["embed"]["s"]
+        log(f"  embed {len(docs)} documents x {doc_len} tokens in batches "
+            f"of {batch}: {embed_s:.2f} s, {docs.size / embed_s:.0f} "
+            "tokens/s")
+        if emb.shape != (len(docs), cfg.d_model) \
+                or not bool(torch.isfinite(emb).all()):
+            raise AssertionError("embeddings malformed")
+        corpus, held = emb[:n_docs], emb[n_docs:]
 
-    torch.cuda.synchronize()
-    kbuild.reset_launches()
-    t0 = time.perf_counter()
-    index = QuIVerIndex.build(corpus, BuildParams(), device="cuda")
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    build_counts = dict(kbuild.LAUNCHES)
-    launches.update(build_counts)
-    stats = index.build_stats
-    log(f"  QuIVerIndex.build over {n_docs} x {cfg.d_model}: {build_s:.2f} s "
-        f"(linking {stats.seconds:.2f} s, {stats.chunks} chunks, mean hops "
-        f"{stats.mean_hops:.1f}, {stats.consolidations} consolidations); "
-        f"launches {build_counts}")
-    for name in ("binarize", "bq_dist_rows", "bq_pairwise"):
-        if build_counts.get(name, 0) == 0:
-            raise AssertionError(f"{name} never launched in the build")
+        torch.cuda.synchronize()
+        kbuild.reset_launches()
+        t0 = time.perf_counter()
+        index = QuIVerIndex.build(corpus, BuildParams(), device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        build_counts = dict(kbuild.LAUNCHES)
+        launches.update(build_counts)
+        stats = index.build_stats
+        log(f"  QuIVerIndex.build over {n_docs} x {cfg.d_model}: "
+            f"{build_s:.2f} s (linking {stats.seconds:.2f} s, {stats.chunks} "
+            f"chunks, mean hops {stats.mean_hops:.1f}, {stats.consolidations} "
+            f"consolidations); launches {build_counts}")
+        for name in ("binarize", "bq_dist_rows", "bq_pairwise"):
+            if build_counts.get(name, 0) == 0:
+                raise AssertionError(f"{name} never launched in the build")
 
-    truth, _ = flat_search(corpus, held, 10, device="cuda")
-    kbuild.reset_launches()
-    t0 = time.perf_counter()
-    ids, scores = index.search(held, k=10, ef=64)
-    search_s = time.perf_counter() - t0
-    launches.update(kbuild.LAUNCHES)
-    recall = recall_at_k(ids, truth)
-    log(f"  recall@10 at ef=64 of {n_held} held-out documents: {recall:.4f} "
-        f"({n_held / search_s:.1f} QPS; printed, not gated)")
-    if ids.shape != (n_held, 10) or not np.isfinite(scores).all() \
-            or ids.min() < 0 or ids.max() >= n_docs:
-        raise AssertionError("held-out search output malformed")
+        truth, _ = flat_search(corpus, held, 10, device="cuda")
+        kbuild.reset_launches()
+        t0 = time.perf_counter()
+        ids, scores = index.search(held, k=10, ef=64)
+        search_s = time.perf_counter() - t0
+        launches.update(kbuild.LAUNCHES)
+        recall = recall_at_k(ids, truth)
+        log(f"  recall@10 at ef=64 of {n_held} held-out documents: "
+            f"{recall:.4f} ({n_held / search_s:.1f} QPS; printed, not gated)")
+        if ids.shape != (n_held, 10) or not np.isfinite(scores).all() \
+                or ids.min() < 0 or ids.max() >= n_docs:
+            raise AssertionError("held-out search output malformed")
+        served.update(docs=docs, corpus=corpus, index=index,
+                      embed_fn=embed_fn)
 
     prompts = rng.integers(0, cfg.vocab_size,
                            (n_prompts, prompt_len)).astype(np.int32)
-    retriever = Retriever(index=index, doc_tokens=docs[:n_docs],
-                          embed_fn=embed_fn, k=k, ef=64)
-    served = bundle._replace(prefill=counted("prefill", bundle.prefill),
-                             decode=counted("decode", bundle.decode))
-    engine = ServeEngine(served, model, max_seq=max_seq, device="cuda")
+    extra = None
+    if n_docs:
+        retriever = Retriever(index=index, doc_tokens=docs[:n_docs],
+                              embed_fn=embed_fn, k=k, ef=64)
+        what = (f"{n_prompts} prompts x {prompt_len} tokens + {k} x "
+                f"{doc_len} retrieved = prefill T = "
+                f"{k * doc_len + prompt_len}")
+    else:
+        what = f"{n_prompts} prompts x {prompt_len} tokens"
+    if n_front:
+        extra = {"patches": torch.from_numpy(rng.standard_normal(
+            (n_prompts, n_front, cfg.d_model)).astype(np.float32))
+            .to("cuda", torch.bfloat16)}
+        what = (f"{n_prompts} x ({n_front} patches + {prompt_len} tokens) "
+                f"= prefill T = {n_front + prompt_len}")
+    served.update(prompts=prompts, retriever=retriever, extra_batch=extra)
+    engine = ServeEngine(bundle._replace(
+        prefill=counted(torch, tally, launches, "prefill", bundle.prefill),
+        decode=counted(torch, tally, launches, "decode", bundle.decode)),
+        model, max_seq=max_seq, device="cuda")
     runs = []
     for attempt in range(2):
-        before = {name: dict(rec) for name, rec in tally.items()}
+        before = {name: rec["s"] for name, rec in tally.items()}
         t0 = time.perf_counter()
         tokens = engine.generate(prompts, max_new=max_new,
-                                 retriever=retriever)
+                                 retriever=retriever, extra_batch=extra)
         wall = time.perf_counter() - t0
         runs.append(tokens)
-        pre = tally["prefill"]["s"] - before["prefill"]["s"]
-        dec = tally["decode"]["s"] - before["decode"]["s"]
-        log(f"  generate {attempt + 1}: {n_prompts} prompts x {prompt_len} "
-            f"tokens + {k} x {doc_len} retrieved = prefill T = "
-            f"{k * doc_len + prompt_len}: prefill {pre * 1e3:.1f} ms, decode "
-            f"{dec / max_new * 1e3:.2f} ms a token, "
+        pre = tally["prefill"]["s"] - before["prefill"]
+        dec = tally["decode"]["s"] - before["decode"]
+        log(f"  generate {attempt + 1}: {what}: prefill {pre * 1e3:.1f} ms, "
+            f"decode {dec / max_new * 1e3:.2f} ms a token, "
             f"{tokens.size / wall:.1f} new tokens/s ({wall:.2f} s in all)")
     if not np.array_equal(runs[0], runs[1]):
         raise AssertionError("two generate runs gave different tokens")
@@ -3696,45 +4176,35 @@ def serve_lm(torch, kernels: dict, cfg, *, n_docs: int, n_held: int,
             or runs[0].max() >= cfg.vocab_size:
         raise AssertionError("generated tokens malformed")
 
-    # the retrieval the prompts were served with
-    hits, _ = index.search(embed_fn(prompts), k=k, ef=64)
-    if hits.min() < 0 or hits.max() >= n_docs:
-        raise AssertionError("a retrieved id is out of range")
-    ctx = retriever.augment(prompts)[:, :k * doc_len] \
-        .reshape(n_prompts, k, doc_len)
-    if not np.array_equal(ctx, docs[hits]):
-        raise AssertionError("a context row is not its document's tokens")
-    log(f"  retrieval: {hits.size} ids in range, every context row its "
-        f"document's tokens; first prompt's ids {hits[0].tolist()}")
+    if n_docs:
+        # the retrieval the prompts were served with
+        hits, _ = index.search(embed_fn(prompts), k=k, ef=64)
+        if hits.min() < 0 or hits.max() >= n_docs:
+            raise AssertionError("a retrieved id is out of range")
+        ctx = retriever.augment(prompts)[:, :k * doc_len] \
+            .reshape(n_prompts, k, doc_len)
+        if not np.array_equal(ctx, docs[hits]):
+            raise AssertionError("a context row is not its document's "
+                                 "tokens")
+        log(f"  retrieval: {hits.size} ids in range, every context row its "
+            f"document's tokens; first prompt's ids {hits[0].tolist()}")
 
+    check_step_flash(tally, n_attn)
     # each step's flash kernel: its launches x its phase-2 device time at
     # the step's shape (decode at 352 keys, the longest step)
-    taken = {"embed": "flash_attention_mma", "prefill": "flash_attention_mma",
-             "decode": "flash_attention_split_kv"}
     for name, rec in tally.items():
-        variant, record = taken[name], records[name]
-        counts = {key: rec[key] for key in variants}
-        log(f"  {name}: {rec['calls']} calls, {rec['flash']} flash_attention "
-            f"launches {counts}")
-        if rec["calls"] == 0 or rec["flash"] != cfg.n_layers * rec["calls"]:
-            raise AssertionError(f"flash_attention did not launch "
-                                 f"{cfg.n_layers} times a call in {name}")
-        if rec[variant] != rec["flash"]:
-            raise AssertionError(f"not every {name} call of flash_attention "
-                                 f"took {variant}: {counts}")
+        variant, record = STEP_KERNEL[name], records[name]
         call_ms = rec["s"] / rec["calls"] * 1e3
         if record in kernels:
-            flash_ms = cfg.n_layers * kernels[record]["ms"]
+            flash_ms = n_attn * kernels[record]["ms"]
             log(f"  {name}: {call_ms:.3f} ms a call, of which {variant} "
-                f"{flash_ms:.3f} ms ({cfg.n_layers} launches x "
+                f"{flash_ms:.3f} ms ({n_attn} launches x "
                 f"{kernels[record]['ms']:.4f} ms device time, phase 2): "
                 f"{flash_ms / call_ms:.1%}")
         else:
             log(f"  {name}: {call_ms:.3f} ms a call; the flash kernel's "
                 "share not measured (phase 2 did not run)")
-    return {"launches": launches, "model": model, "docs": docs,
-            "corpus": corpus, "index": index, "prompts": prompts,
-            "retriever": retriever, "embed_fn": embed_fn}
+    return served
 
 
 def phase_rag(torch, kernels: dict) -> dict:
@@ -3813,7 +4283,6 @@ def phase_moe(torch, kernels: dict) -> dict:
     --rag`` on the card; returns its launch counts."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import build as kbuild
-    from repro_torch.launch import serve as launch_serve
     from repro_torch.models import transformer as tf
 
     cfg = get_config("qwen2-moe-a2.7b")
@@ -3844,14 +4313,99 @@ def phase_moe(torch, kernels: dict) -> dict:
         f"loss {float(aux['load_balance_loss']) / cfg.n_layers:.4f} a layer")
     del served, model, x
     torch.cuda.empty_cache()
+    launch_smoke(["--arch", cfg.name, "--smoke", "--rag"])
+    return {"launches": dict(launches)}
+
+
+def launch_smoke(argv: list) -> None:
+    """``launch.serve.main(argv)`` on the card; raises unless it returns 0."""
+    from repro_torch.launch import serve as launch_serve
 
     t0 = time.perf_counter()
-    rc = launch_serve.main(["--arch", cfg.name, "--smoke", "--rag"])
+    rc = launch_serve.main(argv)
     if rc != 0:
-        raise AssertionError(f"launch.serve --arch {cfg.name} --smoke --rag "
-                             f"returned {rc}")
-    log(f"  launch.serve --arch {cfg.name} --smoke --rag on the card: "
+        raise AssertionError(f"launch.serve {' '.join(argv)} returned {rc}")
+    log(f"  launch.serve {' '.join(argv)} on the card: "
         f"{time.perf_counter() - t0:.1f} s")
+
+
+# the hybrid phase's depth: two whole periods of jamba's 8-layer pattern
+# (4 attention and 28 mamba layers at 32; 24 layers would take ~77 GB)
+HYBRID_LAYERS = 16
+
+
+def phase_hybrid(torch, kernels: dict) -> dict:
+    """Hybrid serving with RAG, ``jamba-v0.1-52b`` at full width and
+    ``HYBRID_LAYERS`` layers (``serve_lm`` over 1 024 + 128 documents:
+    ``flash_attention`` once an attention layer a call, the mamba layers'
+    states carried through decode), then ``launch.serve --smoke --rag`` on
+    the card; returns its launch counts."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.transformer import param_count_gap
+
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"),
+                              n_layers=HYBRID_LAYERS)
+    served = serve_lm(
+        torch, kernels, cfg, n_docs=1024, n_held=128,
+        records={step: flash_record_key(variant, f"jamba {step}")
+                 for step, variant in (("embed", "flash_attention_mma"),
+                                       ("prefill", "flash_attention_mma"),
+                                       ("decode",
+                                        "flash_attention_split_kv"))})
+    log(f"  max_memory_allocated {torch.cuda.max_memory_allocated()} bytes "
+        f"(bf16 matrices {2 * (cfg.param_count() - param_count_gap(cfg))} "
+        "bytes)")
+    launches = served["launches"]
+    del served
+    gc.collect()
+    torch.cuda.empty_cache()
+    launch_smoke(["--arch", cfg.name, "--smoke", "--rag"])
+    return {"launches": dict(launches)}
+
+
+def phase_vlm(torch, kernels: dict) -> dict:
+    """vlm serving, ``internvl2-2b`` at full width and depth (``serve_lm``
+    without RAG: 8 prompts of 64 tokens behind 256 seeded patch embeddings
+    each, 32 greedy tokens from position 320, twice; ``flash_attention``
+    24 times a call), then a loss over (patches, tokens, labels), finite,
+    its ``tokens`` metric B x (S - 256) = 512, and ``launch.serve
+    --smoke`` on the card; returns the launch counts."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build as kbuild
+
+    cfg = get_config("internvl2-2b")
+    served = serve_lm(
+        torch, kernels, cfg,
+        records={step: flash_record_key(variant, f"internvl2 {step}")
+                 for step, variant in (("prefill", "flash_attention_mma"),
+                                       ("decode",
+                                        "flash_attention_split_kv"))})
+    launches, bundle = served["launches"], served["bundle"]
+    prompts = served["prompts"]
+    n_prompts, prompt_len = prompts.shape
+    labels = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, prompts.shape).astype(np.int32)
+    kbuild.reset_launches()
+    with torch.no_grad():
+        loss, metrics = bundle.loss(served["model"], {
+            "tokens": prompts, "labels": labels, **served["extra_batch"]})
+    launches.update(kbuild.LAUNCHES)
+    n_tok = float(metrics["tokens"])
+    log(f"  loss over {n_prompts} x ({cfg.n_frontend_tokens} patches + "
+        f"{prompt_len} tokens): {float(loss):.4f} over {n_tok:.0f} tokens")
+    if n_tok != n_prompts * prompt_len or not np.isfinite(float(loss)):
+        raise AssertionError(f"the loss counted {n_tok} tokens, not "
+                             f"{n_prompts * prompt_len}, or is not finite")
+    log(f"  max_memory_allocated {torch.cuda.max_memory_allocated()} bytes "
+        f"(bf16 weights {2 * cfg.param_count()} bytes)")
+    del served
+    gc.collect()
+    torch.cuda.empty_cache()
+    launch_smoke(["--arch", cfg.name, "--smoke"])
     return {"launches": dict(launches)}
 
 
@@ -4339,8 +4893,8 @@ def main(argv=None) -> int:
             kernels = phase_kernels(torch)
             phase_times(torch, kernels)
     if "parity" in phases:
-        with timed("parity", "phase 3: the N=4000 builds on the CPU and on "
-                   "the card"):
+        with timed("parity", f"phase 3: the N={PARITY_N} builds and the "
+                   "LMs on the CPU and on the card"):
             phase_parity(torch)
     paths = []
     main_path = ivf_path = None
@@ -4397,6 +4951,21 @@ def main(argv=None) -> int:
             log(f"  memory_allocated at the start "
                 f"{torch.cuda.memory_allocated()} bytes")
             paths.append(phase_moe(torch, kernels))
+    if "hybrid" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        with timed("hybrid", "phase hybrid: hybrid serving with RAG, "
+                   f"jamba-v0.1-52b at full width and {HYBRID_LAYERS} "
+                   "layers"):
+            log(f"  memory_allocated at the start "
+                f"{torch.cuda.memory_allocated()} bytes")
+            paths.append(phase_hybrid(torch, kernels))
+    if "vlm" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        with timed("vlm", "phase vlm: vlm serving, internvl2-2b at full "
+                   "width and depth with 256 patch embeddings a prompt"):
+            paths.append(phase_vlm(torch, kernels))
     if "train" in phases:
         gc.collect()
         torch.cuda.empty_cache()

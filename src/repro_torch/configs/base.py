@@ -7,10 +7,14 @@ it.  ``smoke()`` derives a reduced config of the same family for CPU tests;
 :class:`ShapeConfig` and :data:`SHAPES` are the reference's workload
 shapes (``input_specs``, ``suggest_n_micro``).
 The port carries the configs whose family it runs: ``minicpm-2b`` (dense
-MHA), ``yi-34b`` (dense GQA), ``qwen2-moe-a2.7b`` (MoE, 60 routed experts
-top-4 plus 4 shared) and ``qwen3-moe-30b-a3b`` (MoE, 128 experts top-8,
-head_dim 128 over GQA 32/4).  The other six come with their families
-(ROADMAP, modules item 14).
+MHA), ``yi-34b``, ``command-r-plus-104b`` (dense GQA) and
+``nemotron-4-340b`` (dense GQA, squared-ReLU FFN), ``qwen2-moe-a2.7b``
+(MoE, 60 routed experts top-4 plus 4 shared) and ``qwen3-moe-30b-a3b``
+(MoE, 128 experts top-8, head_dim 128 over GQA 32/4), ``jamba-v0.1-52b``
+(hybrid: mamba with attention at one position in 8, MoE 16 experts top-2
+on every second layer) and ``internvl2-2b`` (vlm: 256 patch embeddings
+prepended to the tokens).  ``xlstm-1.3b`` and ``whisper-medium`` come with
+their families (ROADMAP, modules items 14c and 14d).
 """
 
 from __future__ import annotations
@@ -225,15 +229,19 @@ def get_config(name: str) -> ArchConfig:
         _load_all()
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; the port carries "
-                       f"{sorted(_REGISTRY)} (the other families come with "
-                       "ROADMAP modules item 14)")
+                       f"{sorted(_REGISTRY)} (xlstm-1.3b and whisper-medium "
+                       "come with ROADMAP modules items 14c and 14d)")
     return _REGISTRY[name]
 
 
 def _load_all():
     # importing a config module registers it
     from repro_torch.configs import (  # noqa: F401
+        command_r_plus_104b,
+        internvl2_2b,
+        jamba_v0_1_52b,
         minicpm_2b,
+        nemotron_4_340b,
         qwen2_moe_a2_7b,
         qwen3_moe_30b_a3b,
         yi_34b,

@@ -420,9 +420,12 @@ def load_lm_params(model: DecoderLM, params: dict) -> DecoderLM:
     """Copy the reference's parameter pytree (numpy arrays or tensors, as
     :func:`lm_params_to_numpy` or ``ckpt.checkpoint.restore`` give it) into
     ``model``'s parameters, each cast to its slot's dtype (so an MoE's
-    float32 router stays float32).  The model's own layer kinds are checked
-    where it is made (``transformer.check_supported``: the hybrid and ssm
-    layers are not ported)."""
+    float32 router stays float32, and a mamba layer's ``dt_bias``,
+    ``a_log`` and ``d_skip``).  A hybrid stack's pattern positions hold
+    ``attn`` or ``mamba`` leaves, each block's at index ``i // P`` as for
+    any stack (``transformer.reference_leaves``).  The model's own layer
+    kinds are checked where it is made (``transformer.check_supported``:
+    the ssm layers are not ported)."""
     period, _ = model.cfg.pattern()
     if len(params["layers"]) != period:
         raise ValueError(f"{len(params['layers'])} stacked layer groups for "

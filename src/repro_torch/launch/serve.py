@@ -3,15 +3,18 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm-2b --rag
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \
         --rag
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-2b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-34b --smoke \
         --device cpu --batch 4 --max-new 16 [--rag]
 
 Counterpart of ``repro/launch/serve.py``, with the same flags plus
-``--device`` (default: the CUDA card), for the dense and MoE decoder
-families.  ``--smoke`` serves the reduced config anywhere.  A full config
-runs on one card when its bf16 weights (``param_count() * 2`` bytes, every
-expert counted) and KV caches fit in the card's memory, and is refused
-otherwise, and on the CPU.  Weights are drawn from ``--seed``.
+``--device`` (default: the CUDA card), for the decoder families (dense,
+MoE, hybrid, vlm).  ``--smoke`` serves the reduced config anywhere.  A full
+config runs on one card when its bf16 weights (``param_count() * 2`` bytes,
+every expert counted) and serving state fit in the card's memory, and is
+refused otherwise, and on the CPU.  Weights are drawn from ``--seed``; a
+vlm's patch embeddings (``frontend="patch_stub"``) are drawn from the same
+numpy generator after the prompts, as the reference draws them.
 """
 
 from __future__ import annotations
@@ -25,15 +28,21 @@ import torch
 from repro_torch.configs.base import get_config
 from repro_torch.device import resolve_device
 from repro_torch.models.model import build_model
+from repro_torch.models.transformer import layer_kinds
 from repro_torch.serve.engine import Retriever, ServeEngine, \
     mean_pool_embedder
 
 
 def full_config_bytes(cfg, batch: int, max_seq: int) -> int:
-    """bf16 weights plus the bf16 K and V caches of ``batch`` sequences."""
-    caches = 2 * cfg.n_layers * batch * max_seq * cfg.n_kv_heads \
-        * cfg.head_dim_
-    return 2 * (cfg.param_count() + caches)
+    """bf16 weights plus the serving state of ``batch`` sequences: the bf16
+    K and V caches of the attention layers, and each mamba layer's bf16
+    conv state (d_conv - 1 inputs) and float32 ssm state."""
+    kinds = layer_kinds(cfg)
+    n_attn, n_mamba = kinds.count("attn"), kinds.count("mamba")
+    d_inner = cfg.ssm_expand * cfg.d_model
+    kv = 2 * 2 * batch * max_seq * cfg.n_kv_heads * cfg.head_dim_
+    mamba = batch * d_inner * (2 * (cfg.d_conv - 1) + 4 * cfg.d_state)
+    return 2 * cfg.param_count() + n_attn * kv + n_mamba * mamba
 
 
 def main(argv=None) -> int:
@@ -80,6 +89,11 @@ def main(argv=None) -> int:
     prompts = rng.integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len)
     ).astype(np.int32)
+    extra = None
+    if cfg.frontend == "patch_stub":
+        extra = {"patches": torch.from_numpy(rng.standard_normal(
+            (args.batch, cfg.n_frontend_tokens, cfg.d_model)))
+            .to(device, torch.bfloat16)}
 
     retriever = None
     if args.rag:
@@ -100,7 +114,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     out = engine.generate(
         prompts, max_new=args.max_new, retriever=retriever,
-        temperature=args.temperature, seed=args.seed,
+        temperature=args.temperature, seed=args.seed, extra_batch=extra,
     )
     dt = time.perf_counter() - t0
     for i, row in enumerate(out):

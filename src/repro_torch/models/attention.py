@@ -13,9 +13,9 @@ row at ``cache_pos`` (the reference writes a new cache with
 the whole ``max_seq`` cache with ``kv_valid_len = cache_pos + T`` and
 ``q_offset = cache_pos``.
 
-Not ported: ``sliding_window`` (jamba, ROADMAP modules item 14, the hybrid
-family) and cross-attention (whisper, the encdec family); both raise
-``NotImplementedError``.
+Not ported: ``sliding_window`` (no configuration sets it: the reference's
+``ArchConfig`` defaults it to 0) and cross-attention (whisper, the encdec
+family, ROADMAP modules item 14d); both raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -68,8 +68,10 @@ def flash_attention(
     del kv_chunk
     if sliding_window:
         raise NotImplementedError(
-            "sliding-window attention is not ported yet (jamba, the hybrid "
-            "family: ROADMAP modules item 14)")
+            "sliding-window attention is not ported: no configuration sets "
+            "sliding_window (the reference's ArchConfig defaults it to 0); "
+            "port the mask with the first one that does (ROADMAP modules "
+            "item 14)")
     return kflash.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
                                   kv_valid_len=kv_valid_len)
 
@@ -133,4 +135,4 @@ def cross_attention_forward(*args, **kwargs):
     """Cross-attention over encoder K/V (whisper's decoder): not ported."""
     raise NotImplementedError(
         "cross-attention is not ported yet (whisper, the encdec family: "
-        "ROADMAP modules item 14)")
+        "ROADMAP modules item 14d)")

@@ -7,17 +7,24 @@ Counterpart of ``repro/models/model.py``.  ``build_model(cfg)`` returns a
     loss(model, batch)                  -> (loss, metrics)
     prefill(model, batch, caches)       -> (last_logits, caches)
     decode(model, tokens, caches, pos)  -> (logits, caches)
-    init_caches(b, max_seq, device=None) -> KVCache (written in place)
+    init_caches(b, max_seq, device=None) -> serving state (written in place)
     input_specs(shape)                  -> {name: (shape, dtype)} (global)
 
-for the dense and MoE decoder families; ``device=None`` means the CUDA
-card.  The
-module takes the place of the reference's parameter pytree.  Batch layout:
-``{"tokens": (B, S) integers, "labels": (B, S) integers}`` (labels for
-``loss`` only; numpy arrays or tensors).  ``loss`` runs with gradients (a
-caller calls ``backward()`` on it); prefill and decode run under
-``torch.no_grad``.  The encoder-decoder bundle (whisper) is not ported
-and raises.
+for the decoder families (dense, MoE, hybrid, vlm); ``device=None`` means
+the CUDA card.  The module takes the place of the reference's parameter
+pytree.  Batch layouts (numpy arrays or tensors; labels for ``loss``
+only):
+
+    decoder LM : tokens (B, S) labels (B, S)
+    vlm        : patches (B, P, d) tokens (B, S - P) labels (B, S - P)
+
+The vlm front end is the reference's stub (``frontend="patch_stub"``):
+``P = cfg.n_frontend_tokens`` precomputed patch embeddings are put before
+the token embeddings, cast to their dtype; the loss counts token positions
+only, and decode continues at position ``P + S`` (``serve.engine``).
+``loss`` runs with gradients (a caller calls ``backward()`` on it); prefill
+and decode run under ``torch.no_grad``.  The encoder-decoder bundle
+(whisper) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -62,6 +69,8 @@ def _as_tokens(tokens, device) -> torch.Tensor:
 
 def _decoder_bundle(cfg: ArchConfig) -> ModelBundle:
     tf.check_supported(cfg)
+    is_vlm = cfg.frontend == "patch_stub"
+    n_front = cfg.n_frontend_tokens if is_vlm else 0
 
     def init(seed: int | torch.Generator = 0, *, device=None,
              dtype=torch.bfloat16) -> tf.DecoderLM:
@@ -72,13 +81,21 @@ def _decoder_bundle(cfg: ArchConfig) -> ModelBundle:
         return tf.init_decoder(cfg, generator=gen, device=device,
                                dtype=dtype)
 
+    def _embed_batch(model, batch):
+        x = tf.embed_tokens(model, _as_tokens(batch["tokens"], model.device))
+        if is_vlm:
+            patches = torch.as_tensor(batch["patches"], device=model.device)
+            x = torch.cat([patches.to(x.dtype), x], dim=1)
+        return x
+
     def loss(model, batch):
-        device = model.device
-        x = tf.embed_tokens(model, _as_tokens(batch["tokens"], device))
-        h, aux = tf.forward_hidden(model, x)
+        h, aux = tf.forward_hidden(model, _embed_batch(model, batch))
+        if n_front:
+            h = h[:, n_front:]
         logits = tf.logits_from_hidden(model, h)
-        ce, n_tok = cross_entropy(logits, _as_tokens(batch["labels"], device),
-                                  cfg.vocab_size)
+        ce, n_tok = cross_entropy(
+            logits, _as_tokens(batch["labels"], model.device),
+            cfg.vocab_size)
         # the MoE layers' auxiliary metrics, summed over layers (zeros for a
         # dense stack)
         total = ce + 0.01 * aux["load_balance_loss"]
@@ -90,9 +107,11 @@ def _decoder_bundle(cfg: ArchConfig) -> ModelBundle:
         b, s = shape.global_batch, shape.seq_len
         if shape.kind == "decode":
             return {"tokens": ((b, 1), torch.int32)}
-        specs = {"tokens": ((b, s), torch.int32)}
+        specs = {"tokens": ((b, s - n_front), torch.int32)}
+        if is_vlm:
+            specs["patches"] = ((b, n_front, cfg.d_model), torch.bfloat16)
         if shape.kind == "train":
-            specs["labels"] = ((b, s), torch.int32)
+            specs["labels"] = ((b, s - n_front), torch.int32)
         return specs
 
     def init_caches(b: int, max_seq: int, *, device=None):
@@ -100,8 +119,8 @@ def _decoder_bundle(cfg: ArchConfig) -> ModelBundle:
 
     @torch.no_grad()
     def prefill(model, batch, caches):
-        x = tf.embed_tokens(model, _as_tokens(batch["tokens"], model.device))
-        h, caches = tf.forward_with_cache(model, x, caches, 0)
+        h, caches = tf.forward_with_cache(model, _embed_batch(model, batch),
+                                          caches, 0)
         logits = tf.logits_from_hidden(model, h[:, -1:])
         return logits[:, 0], caches
 
@@ -120,5 +139,5 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
     if cfg.family == "encdec":
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder bundle is not ported yet "
-            "(ROADMAP modules item 14)")
+            "(ROADMAP modules item 14d)")
     return _decoder_bundle(cfg)

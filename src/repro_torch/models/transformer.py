@@ -1,15 +1,16 @@
-"""Decoder-only LM for the dense and MoE families: embed, attention blocks,
-logits.
+"""Decoder-only LM: embed, residual blocks, logits.
 
-Counterpart of ``repro/models/transformer.py`` for ``layer_kind == "attn"``
-with a dense FFN (MiniCPM, Yi, the llama-like stacks) or an MoE FFN
-(qwen2-moe, qwen3-moe) on the layers of ``cfg.layer_has_moe``.  The
-reference groups layers by the pattern's period P (``cfg.pattern()``) and
-scans over the groups with remat; here :class:`DecoderLM` is an
-``nn.Module`` whose blocks follow the same pattern (block *i* holds ``moe``
-where ``cfg.layer_has_moe(i % P)`` and ``mlp`` otherwise) and the forward
-passes loop over them in Python (no scan).  With ``cfg.remat`` and grad
-mode on, :func:`forward_hidden` wraps each block in
+Counterpart of ``repro/models/transformer.py`` for the dense, MoE, hybrid
+and vlm families.  A block's mixer is attention (``cfg.layer_kind == "attn"``:
+MiniCPM, Yi, the llama-like stacks, InternVL2's decoder) or mamba
+(``"mamba"``: Jamba's recurrent layers, ``models/mamba.py``), and its FFN an
+MoE (``cfg.layer_has_moe``: qwen2-moe, qwen3-moe, every second jamba layer)
+or a dense one.  The reference groups layers by the pattern's period P
+(``cfg.pattern()``; jamba's is 8: attention at position 4, MoE at odd
+positions) and scans over the groups with remat; here :class:`DecoderLM` is
+an ``nn.Module`` whose block *i* follows pattern position ``i % P``, and the
+forward passes loop over the blocks in Python (no scan).  With
+``cfg.remat`` and grad mode on, :func:`forward_hidden` wraps each block in
 ``torch.utils.checkpoint`` (non-reentrant), the reference's
 ``jax.checkpoint(..., nothing_saveable)`` around a group: only the block's
 input is kept, and its backward runs the block again.  Parameters keep the
@@ -20,8 +21,12 @@ serving passes (``models/model.py``' prefill and decode,
 :func:`forward_with_cache`, ``serve/engine.py``'s embedder) run under
 ``torch.no_grad``.
 
-Not ported: mamba (jamba, the hybrid family), xLSTM (the ssm family), the
-vlm front end and the encoder-decoder; each raises
+Serving state (:func:`init_caches`): a stack of attention layers keeps one
+stacked ``KVCache`` of (n_layers, B, max_seq, K, hd); a hybrid stack keeps
+a list with one entry a layer, a ``KVCache`` of (B, max_seq, K, hd) for an
+attention layer and a mamba layer's ``(conv_state, ssm_state)``.
+
+Not ported: xLSTM (the ssm family) and the encoder-decoder; each raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 
@@ -34,39 +39,49 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import Embedding, Linear, Norm, embed, \
     linear, rmsnorm
 
 _UNPORTED = {
-    "hybrid": "mamba layers (hybrid family)",
-    "ssm": "xLSTM layers (ssm family)",
-    "vlm": "the vision front end (vlm family)",
-    "encdec": "the encoder-decoder (encdec family)",
+    "ssm": ("xLSTM layers (ssm family)", "14c"),
+    "encdec": ("the encoder-decoder (encdec family)", "14d"),
 }
 
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for a configuration whose layers are not ported yet."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family in _UNPORTED:
+        what, item = _UNPORTED[cfg.family]
         raise NotImplementedError(
-            f"{cfg.name}: {_UNPORTED.get(cfg.family, cfg.family)} are not "
-            "ported yet (ROADMAP modules item 14); the port runs the dense "
-            "and MoE decoder families")
+            f"{cfg.name}: {what} not ported yet (ROADMAP modules item "
+            f"{item}); the port runs the dense, MoE, hybrid and vlm decoder "
+            "families")
 
 
 class Block(nn.Module):
-    """One residual block: ``ln1``, ``attn``, ``ln2``, then ``moe``
-    (:class:`~repro_torch.models.moe.MoE`) where ``has_moe``, else ``mlp``."""
+    """One residual block: ``ln1``, the mixer of ``kind`` (``attn``, or
+    ``mamba``: :class:`~repro_torch.models.mamba.Mamba`), ``ln2``, then
+    ``moe`` (:class:`~repro_torch.models.moe.MoE`) where ``has_moe``, else
+    ``mlp``."""
 
-    def __init__(self, cfg: ArchConfig, *, has_moe: bool = False,
-                 device=None, dtype=torch.bfloat16):
+    def __init__(self, cfg: ArchConfig, *, kind: str = "attn",
+                 has_moe: bool = False, device=None, dtype=torch.bfloat16):
         super().__init__()
         d = cfg.d_model
         self.ln1 = Norm(torch.empty((d,), device=device, dtype=torch.float32))
-        self.attn = attn_mod.Attention(d, cfg.n_heads, cfg.n_kv_heads,
-                                       cfg.head_dim_, device=device,
-                                       dtype=dtype)
+        if kind == "attn":
+            self.attn = attn_mod.Attention(d, cfg.n_heads, cfg.n_kv_heads,
+                                           cfg.head_dim_, device=device,
+                                           dtype=dtype)
+        elif kind == "mamba":
+            self.mamba = mamba_mod.Mamba(d, d_state=cfg.d_state,
+                                         d_conv=cfg.d_conv,
+                                         expand=cfg.ssm_expand,
+                                         device=device, dtype=dtype)
+        else:
+            raise ValueError(f"layer kind {kind!r}")
         self.ln2 = Norm(torch.empty((d,), device=device, dtype=torch.float32))
         if has_moe:
             self.moe = moe_mod.MoE(d, cfg.d_ff, cfg.n_experts,
@@ -75,6 +90,13 @@ class Block(nn.Module):
         else:
             self.mlp = ffn_mod.FFN(d, cfg.d_ff, activation=cfg.activation,
                                    device=device, dtype=dtype)
+
+
+def layer_kinds(cfg: ArchConfig) -> list[str]:
+    """Each layer's mixer, in stack order: ``cfg.layer_kind`` of its
+    position in the pattern (``attn`` or ``mamba`` here)."""
+    period, _ = cfg.pattern()
+    return [cfg.layer_kind(i % period) for i in range(cfg.n_layers)]
 
 
 class DecoderLM(nn.Module):
@@ -93,9 +115,9 @@ class DecoderLM(nn.Module):
                                            dtype=dtype))
         period, _ = cfg.pattern()
         self.blocks = nn.ModuleList(
-            Block(cfg, has_moe=cfg.layer_has_moe(i % period), device=device,
-                  dtype=dtype)
-            for i in range(cfg.n_layers))
+            Block(cfg, kind=kind, has_moe=cfg.layer_has_moe(i % period),
+                  device=device, dtype=dtype)
+            for i, kind in enumerate(layer_kinds(cfg)))
         self.final_norm = Norm(torch.empty((d,), device=device,
                                            dtype=torch.float32))
         self.lm_head = Linear(torch.empty((d, v), device=device,
@@ -134,8 +156,21 @@ def param_groups(model: nn.Module) -> list:
 
 def matrix_param_count(model: nn.Module) -> int:
     """Elements of the model's matrices: what ``ArchConfig.param_count()``
-    counts (it leaves out the norm scales)."""
+    counts (it leaves out the norm scales), less :func:`param_count_gap`."""
     return sum(p.numel() for p in model.parameters() if p.ndim >= 2)
+
+
+def param_count_gap(cfg: ArchConfig) -> int:
+    """``cfg.param_count()`` less :func:`matrix_param_count` of its module,
+    exactly.  The formula also counts each mamba layer's two 1-D leaves
+    (``dt_bias`` and ``d_skip``: 2 d_inner), and reckons the layer's
+    ``dt_rank`` as d // 16 where the layer has ``max(16, d // 16)``
+    (``mamba.dt_rank_of``), so below d = 256 it misses 2 d_inner for each
+    rank short (``x_proj``'s columns and ``dt_proj``'s rows).  Zero for a
+    stack without mamba layers."""
+    n = layer_kinds(cfg).count("mamba")
+    short = mamba_mod.dt_rank_of(cfg.d_model) - cfg.d_model // 16
+    return n * 2 * cfg.ssm_expand * cfg.d_model * (1 - short)
 
 
 @torch.no_grad()
@@ -144,10 +179,13 @@ def init_decoder(cfg: ArchConfig, *, generator: torch.Generator, device,
     """A :class:`DecoderLM` on ``device`` with the reference's
     distributions, drawn in float32 from ``generator`` (which must live on
     ``device``) and cast to ``dtype``: normal / sqrt(d_in) for the linears,
-    normal * 0.02 for the embedding, ones for the norms, an MoE block's
-    FFN by ``moe.init_moe`` (its router float32).  Draw order: embedding,
-    lm_head, then each block's wq, wk, wv, wo, and its FFN: w1, w3, w2, or
-    the MoE's leaves (``MoE.leaves``)."""
+    normal * 0.02 for the embedding, ones for the norms, a mamba mixer by
+    ``mamba.init_mamba`` (its ``dt_bias``, ``a_log`` and ``d_skip``
+    float32), an MoE block's FFN by ``moe.init_moe`` (its router float32).
+    Draw order: embedding, lm_head, then each block's mixer (attention's
+    wq, wk, wv, wo, or mamba's in_proj, conv_w, x_proj, dt_proj,
+    out_proj) and its FFN: w1, w3, w2, or the MoE's leaves
+    (``MoE.leaves``)."""
     model = DecoderLM(cfg, device=device, dtype=dtype)
 
     def draw(p: torch.Tensor, scale: float) -> None:
@@ -158,8 +196,11 @@ def init_decoder(cfg: ArchConfig, *, generator: torch.Generator, device,
     draw(model.embed.w, 0.02)
     draw(model.lm_head.w, cfg.d_model ** -0.5)
     for blk in model.blocks:
-        for lin in (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.attn.wo):
-            draw(lin.w, lin.w.shape[0] ** -0.5)
+        if hasattr(blk, "mamba"):
+            mamba_mod.init_mamba(blk.mamba, generator=generator)
+        else:
+            for lin in (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.attn.wo):
+                draw(lin.w, lin.w.shape[0] ** -0.5)
         if hasattr(blk, "moe"):
             moe_mod.init_moe(blk.moe, generator=generator)
             continue
@@ -178,24 +219,35 @@ def init_decoder(cfg: ArchConfig, *, generator: torch.Generator, device,
 # ---------------------------------------------------------------------------
 
 
-def _apply_block(blk: Block, x: torch.Tensor, cfg: ArchConfig, *,
-                 cache: attn_mod.KVCache | None = None,
-                 cache_pos: int | None = None) -> tuple:
-    """One residual block (cache written in place); returns (x, the MoE's
-    aux dict, or None for a dense block)."""
-    h = rmsnorm(blk.ln1, x, cfg.norm_eps)
-    out, _ = attn_mod.attention_forward(
+def _mix(blk: Block, h: torch.Tensor, cfg: ArchConfig, cache,
+         cache_pos: int | None) -> tuple:
+    """The block's mixer over ``h``: (out, its serving state): the
+    ``KVCache`` written in place, or mamba's new ``(conv, ssm)`` pair (the
+    state from zeros when ``cache`` is None)."""
+    if hasattr(blk, "mamba"):
+        conv, ssm = (None, None) if cache is None else cache
+        return mamba_mod.mamba(blk.mamba, h, conv, ssm)
+    return attn_mod.attention_forward(
         blk.attn, h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta,
         sliding_window=cfg.sliding_window, kv_chunk=cfg.kv_chunk,
         cache=cache, cache_pos=cache_pos,
     )
+
+
+def _apply_block(blk: Block, x: torch.Tensor, cfg: ArchConfig, *,
+                 cache=None, cache_pos: int | None = None) -> tuple:
+    """One residual block; returns (x, the MoE's aux dict or None for a
+    dense FFN, the mixer's serving state (see :func:`_mix`))."""
+    h = rmsnorm(blk.ln1, x, cfg.norm_eps)
+    out, state = _mix(blk, h, cfg, cache, cache_pos)
     x = x + out
     h2 = rmsnorm(blk.ln2, x, cfg.norm_eps)
     if hasattr(blk, "moe"):
         y, aux = moe_mod.moe(blk.moe, h2, top_k=cfg.top_k)
-        return x + y, aux
-    return x + ffn_mod.ffn(blk.mlp, h2, activation=cfg.activation), None
+        return x + y, aux, state
+    return x + ffn_mod.ffn(blk.mlp, h2, activation=cfg.activation), None, \
+        state
 
 
 def embed_tokens(model: DecoderLM, tokens: torch.Tensor) -> torch.Tensor:
@@ -215,10 +267,10 @@ def forward_hidden(model: DecoderLM,
     aux = {"load_balance_loss": zero, "dropped_fraction": zero}
     for blk in model.blocks:
         if remat:
-            x, layer_aux = checkpoint(_apply_block, blk, x, cfg,
-                                      use_reentrant=False)
+            x, layer_aux, _ = checkpoint(_apply_block, blk, x, cfg,
+                                         use_reentrant=False)
         else:
-            x, layer_aux = _apply_block(blk, x, cfg)
+            x, layer_aux, _ = _apply_block(blk, x, cfg)
         if layer_aux is not None:
             aux = {key: aux[key] + layer_aux[key] for key in aux}
     return rmsnorm(model.final_norm, x, cfg.norm_eps), aux
@@ -237,28 +289,51 @@ def logits_from_hidden(model: DecoderLM, x: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def forward_with_cache(model: DecoderLM, x: torch.Tensor,
-                       caches: attn_mod.KVCache,
-                       cache_pos: int) -> tuple[torch.Tensor,
-                                                attn_mod.KVCache]:
-    """Prefill (T > 1) or decode (T == 1) against the stacked caches of
-    :func:`init_caches`, written in place; returns (hidden, caches).  The
-    MoE auxiliary metrics are dropped, as the reference drops them."""
+def forward_with_cache(model: DecoderLM, x: torch.Tensor, caches,
+                       cache_pos: int) -> tuple:
+    """Prefill (T > 1) or decode (T == 1) against the serving state of
+    :func:`init_caches`; returns (hidden, caches).  A stacked ``KVCache`` is
+    written in place; a hybrid stack's list is updated in place, each
+    attention layer's ``KVCache`` written into and each mamba layer's pair
+    replaced by its new states (float32 ``ssm``; ``conv`` in the promoted
+    dtype of the old state and the activations, as the reference's
+    concatenation gives it: bf16 for a bf16 model).  The MoE auxiliary
+    metrics are dropped, as the reference drops them."""
     cfg = model.cfg
+    stacked = isinstance(caches, attn_mod.KVCache)
     for i, blk in enumerate(model.blocks):
-        x, _ = _apply_block(blk, x, cfg,
-                            cache=attn_mod.KVCache(caches.k[i], caches.v[i]),
-                            cache_pos=cache_pos)
+        cache = attn_mod.KVCache(caches.k[i], caches.v[i]) if stacked \
+            else caches[i]
+        x, _, state = _apply_block(blk, x, cfg, cache=cache,
+                                   cache_pos=cache_pos)
+        if not stacked:
+            caches[i] = state
     return rmsnorm(model.final_norm, x, cfg.norm_eps), caches
 
 
 def init_caches(cfg: ArchConfig, b: int, max_seq: int, *, device,
-                dtype=torch.bfloat16) -> attn_mod.KVCache:
-    """One zeroed tensor each for K and V, (n_layers, B, max_seq, K, hd),
-    bf16 as in the reference (whatever the parameters' dtype)."""
+                dtype=torch.bfloat16):
+    """Zeroed serving state, bf16 as in the reference (whatever the
+    parameters' dtype).  A stack of attention layers: one tensor each for K
+    and V, (n_layers, B, max_seq, K, hd).  A hybrid stack: a list of one
+    entry a layer, ``KVCache`` (B, max_seq, K, hd) for attention and
+    ``mamba.init_mamba_state``'s ``(conv (B, d_conv - 1, d_inner), ssm (B,
+    d_inner, d_state) float32)`` for mamba."""
     check_supported(cfg)
-    shape = (cfg.n_layers, b, max_seq, cfg.n_kv_heads, cfg.head_dim_)
-    return attn_mod.KVCache(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
-    )
+    kinds = layer_kinds(cfg)
+    kv = (b, max_seq, cfg.n_kv_heads, cfg.head_dim_)
+    if all(kind == "attn" for kind in kinds):
+        shape = (cfg.n_layers, *kv)
+        return attn_mod.KVCache(
+            k=torch.zeros(shape, dtype=dtype, device=device),
+            v=torch.zeros(shape, dtype=dtype, device=device),
+        )
+    return [
+        attn_mod.KVCache(k=torch.zeros(kv, dtype=dtype, device=device),
+                         v=torch.zeros(kv, dtype=dtype, device=device))
+        if kind == "attn" else
+        mamba_mod.init_mamba_state(b, cfg.d_model, d_state=cfg.d_state,
+                                   d_conv=cfg.d_conv, expand=cfg.ssm_expand,
+                                   device=device, dtype=dtype)
+        for kind in kinds
+    ]

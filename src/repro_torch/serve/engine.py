@@ -775,26 +775,36 @@ class ServeEngine:
         retriever: Retriever | None = None,
         temperature: float = 0.0,
         seed: int = 0,
+        extra_batch: dict | None = None,
     ) -> np.ndarray:
         """(B, max_new) int32 new tokens.  Greedy (``argmax``, ties to the
         lower index, as ``jnp.argmax``) at ``temperature == 0``; otherwise
         sampled from a ``torch.Generator`` seeded with ``seed`` (not the
-        reference's ``jax.random`` draws).  Tokens stay on the device until
-        the end."""
+        reference's ``jax.random`` draws).  ``extra_batch`` joins the
+        prefill's batch: a vlm's ``patches`` (B, P, d), which the prefill
+        puts before the tokens, so decode starts at position ``P + S`` (the
+        reference's ``prompt_len``) and the cache must hold ``P + S +
+        max_new`` rows.  Tokens stay on the device until the end."""
         if retriever is not None:
             tokens = retriever.augment(tokens)
         tokens = np.asarray(tokens, dtype=np.int32)
         b, s = tokens.shape
-        assert s + max_new <= self.max_seq, (s, max_new, self.max_seq)
+        batch = {"tokens": torch.from_numpy(tokens)}
+        if extra_batch:
+            batch.update(extra_batch)
+        prompt_len = s
+        if self.bundle.cfg.frontend == "patch_stub" and extra_batch:
+            prompt_len += extra_batch["patches"].shape[1]
+        assert prompt_len + max_new <= self.max_seq, \
+            (prompt_len, max_new, self.max_seq)
 
         caches = self.bundle.init_caches(b, self.max_seq, device=self.device)
-        logits, caches = self.bundle.prefill(
-            self.model, {"tokens": torch.from_numpy(tokens)}, caches)
+        logits, caches = self.bundle.prefill(self.model, batch, caches)
         gen = None
         if temperature > 0:
             gen = torch.Generator(device=self.device).manual_seed(seed)
         out = torch.empty((b, max_new), dtype=torch.int64, device=self.device)
-        pos = s
+        pos = prompt_len
         for i in range(max_new):
             if temperature > 0:
                 probs = torch.softmax(logits / temperature, dim=-1)

@@ -539,6 +539,13 @@ FLASH_CASES = {
     "decode_bidirectional": (2, 1, 150, 4, 2, 32, False, 0, 130),
     "prefill_offset_ragged": (2, 70, 256, 8, 4, 64, True, 100, 170),
     "embed_ragged": (4, 45, 45, 8, 8, 64, True, 0, 45),
+    # the hybrid and vlm serving shapes: jamba's 32 heads over 8 and
+    # internvl2's 16 over 8 at head_dim 128
+    "jamba_embed": (64, 64, 64, 32, 8, 128, True, 0, 64),
+    "jamba_prefill": (8, 320, 384, 32, 8, 128, True, 0, 320),
+    "jamba_decode": (8, 1, 384, 32, 8, 128, True, 351, 352),
+    "internvl2_prefill": (8, 320, 384, 16, 8, 128, True, 0, 320),
+    "internvl2_decode": (8, 1, 384, 16, 8, 128, True, 351, 352),
 }
 
 
@@ -804,6 +811,123 @@ def test_card_qwen2_moe_one_layer_matches_cpu(cuda):
         assert (diff[agree] <= 0.1).all()
         top2 = w.topk(2, dim=-1).values
         clear = agree & (top2[:, 0] - top2[:, 1] > 0.2)
+        assert torch.equal(gt.argmax(-1)[clear], w.argmax(-1)[clear])
+
+
+# -- the hybrid and vlm families, card against CPU ---------------------------
+
+
+def test_card_mamba_layer_matches_cpu(cuda):
+    """One jamba mamba layer at full width (d 4096, d_inner 8192), bf16,
+    drawn on the CPU and copied to the card: a prefill of 2 x 64 then 8
+    one-token steps with both states carried; every output, and both
+    states after the last step, within 2^-5 of its largest |value| (four
+    bf16 ulps of it: bf16 products round at other places)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import mamba
+
+    cfg = get_config("jamba-v0.1-52b")
+    layers = {dev: mamba.Mamba(cfg.d_model, d_state=cfg.d_state,
+                               device=dev) for dev in ("cpu", "cuda")}
+    mamba.init_mamba(layers["cpu"], generator=torch.Generator().manual_seed(0))
+    layers["cuda"].load_state_dict(layers["cpu"].state_dict())
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 72, cfg.d_model)).astype(np.float32)).bfloat16()
+    runs = {}
+    with torch.no_grad():
+        for dev, layer in layers.items():
+            outs, conv, ssm = [], None, None
+            for lo, hi in [(0, 64)] + [(i, i + 1) for i in range(64, 72)]:
+                out, (conv, ssm) = mamba.mamba(layer, x[:, lo:hi].to(dev),
+                                               conv, ssm)
+                outs.append(out.float().cpu())
+            runs[dev] = outs + [conv.float().cpu(), ssm.cpu()]
+    for want, got in zip(runs["cpu"], runs["cuda"]):
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max() <= 2 ** -5 * want.abs().max()
+
+
+def test_card_jamba_smoke_matches_cpu(cuda):
+    """``jamba-v0.1-52b.smoke()`` in float32, drawn on the CPU and copied to
+    the card: prefill and 8 decode steps (the card fed the CPU's greedy
+    tokens), every logit within 1e-3 and the same argmax; the mamba states
+    and attention caches carried on the card as on the CPU; flash 2 x 9."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import DecoderLM
+
+    cfg = get_config("jamba-v0.1-52b").smoke()
+    bundle = build_model(cfg)
+    cpu = bundle.init(0, device="cpu", dtype=torch.float32)
+    gpu = DecoderLM(cfg, device=cuda, dtype=torch.float32)
+    gpu.load_state_dict(cpu.state_dict())
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 48)).astype(np.int32)
+
+    def run(model, device, feed=None):
+        caches = bundle.init_caches(2, 64, device=device)
+        logits, caches = bundle.prefill(model, {"tokens": prompts}, caches)
+        steps = [logits.float().cpu()]
+        for i in range(8):
+            tok = steps[-1].argmax(-1) if feed is None else feed[i]
+            logits, caches = bundle.decode(model, tok[:, None], caches,
+                                           48 + i)
+            steps.append(logits.float().cpu())
+        return steps
+
+    want = run(cpu, "cpu")
+    build.reset_launches()
+    got = run(gpu, cuda, feed=[w.argmax(-1) for w in want[:-1]])
+    assert build.LAUNCHES["flash_attention"] == 2 * 9
+    for w, gt in zip(want, got):
+        real = w > -1e29
+        assert (gt - w).abs()[real].max() <= 1e-3
+        assert torch.equal(gt.argmax(-1), w.argmax(-1))
+
+
+def test_card_internvl2_two_layers_matches_cpu(cuda):
+    """internvl2-2b at full width and 2 layers, bf16, 256 seeded patches
+    before 48 tokens: prefill and 8 decode steps from position 304, every
+    logit within 0.1 and equal argmax where the CPU's top-2 gap exceeds
+    0.2; the loss's token count 2 x 48 on both devices."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import DecoderLM
+
+    cfg = dataclasses.replace(get_config("internvl2-2b"), n_layers=2)
+    bundle = build_model(cfg)
+    cpu = bundle.init(0, device="cpu")
+    gpu = DecoderLM(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (2, 48)).astype(np.int32)
+    patches = torch.from_numpy(rng.standard_normal(
+        (2, 256, cfg.d_model)).astype(np.float32)).bfloat16()
+
+    def run(model, device, feed=None):
+        batch = {"tokens": prompts, "patches": patches.to(device)}
+        caches = bundle.init_caches(2, 320, device=device)
+        logits, caches = bundle.prefill(model, batch, caches)
+        steps = [logits.float().cpu()]
+        for i in range(8):
+            tok = steps[-1].argmax(-1) if feed is None else feed[i]
+            logits, caches = bundle.decode(model, tok[:, None], caches,
+                                           304 + i)
+            steps.append(logits.float().cpu())
+        with torch.no_grad():
+            _, metrics = bundle.loss(model, {**batch, "labels": prompts})
+        return steps, float(metrics["tokens"])
+
+    want, n_cpu = run(cpu, "cpu")
+    got, n_gpu = run(gpu, cuda, feed=[w.argmax(-1) for w in want[:-1]])
+    assert n_cpu == n_gpu == 96
+    for w, gt in zip(want, got):
+        real = w > -1e29
+        assert (gt - w).abs()[real].max() <= 0.1
+        top2 = w.topk(2, dim=-1).values
+        clear = top2[:, 0] - top2[:, 1] > 0.2
         assert torch.equal(gt.argmax(-1)[clear], w.argmax(-1)[clear])
 
 

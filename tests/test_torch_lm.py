@@ -35,10 +35,14 @@ jax.config.update("jax_platform_name", "cpu")
 # the suite runs in parallel worker processes: one thread each
 torch.set_num_threads(1)
 
-ARCHS = ("minicpm-2b", "yi-34b")
-# every config the port carries; the MoE decoders' numerics are
-# ``tests/test_torch_moe.py``'s
-CONFIGS = ARCHS + ("qwen2-moe-a2.7b", "qwen3-moe-30b-a3b")
+# the dense configs: minicpm (MHA), yi and command-r-plus (GQA), nemotron
+# (GQA, squared-ReLU FFN)
+ARCHS = ("minicpm-2b", "yi-34b", "command-r-plus-104b", "nemotron-4-340b")
+# every config the port carries; the MoE, hybrid and vlm decoders'
+# numerics are ``tests/test_torch_moe.py``'s, ``test_torch_hybrid.py``'s and
+# ``test_torch_vlm.py``'s
+CONFIGS = ARCHS + ("qwen2-moe-a2.7b", "qwen3-moe-30b-a3b", "jamba-v0.1-52b",
+                   "internvl2-2b")
 
 
 @pytest.fixture(autouse=True)
@@ -78,7 +82,11 @@ def test_module_parameter_count_is_param_count(name):
     """Counted on the meta device: nothing is allocated."""
     cfg = get_config(name)
     model = tf.DecoderLM(cfg, device="meta")
-    assert tf.matrix_param_count(model) == cfg.param_count()
+    # the formula counts mamba's 1-D dt_bias and d_skip too (2 d_inner a
+    # mamba layer): 28 of jamba's 32 layers
+    gap = 28 * 2 * 8192 if name == "jamba-v0.1-52b" else 0
+    assert tf.param_count_gap(cfg) == gap
+    assert tf.matrix_param_count(model) + gap == cfg.param_count()
     norms = (2 * cfg.n_layers + 1) * cfg.d_model
     assert sum(p.numel() for p in model.parameters()) \
         == cfg.param_count() + norms
@@ -87,22 +95,39 @@ def test_module_parameter_count_is_param_count(name):
         assert cfg.padded_vocab == 122_880
     if cfg.n_experts:
         assert cfg.active_param_count() < cfg.param_count()
-        blk = model.blocks[0].moe
+        blk = next(b.moe for b in model.blocks if hasattr(b, "moe"))
         assert blk.router.w.dtype == torch.float32
         assert blk.w1.shape == (cfg.n_experts, cfg.d_model, cfg.d_ff)
         assert hasattr(blk, "shared") == bool(cfg.n_shared_experts)
 
 
+def test_param_count_gap_at_smoke_width():
+    """Below d = 256 the formula also reckons mamba's dt_rank as d // 16
+    where the layer has max(16, d // 16): ``param_count_gap`` carries both
+    differences exactly (jamba's smoke: 14 mamba layers, d 64, d_inner
+    128, dt_rank 16 against 4)."""
+    cfg = get_config("jamba-v0.1-52b").smoke()
+    model = tf.DecoderLM(cfg, device="meta")
+    vectors = sum(p.numel() for n, p in model.named_parameters()
+                  if n.endswith((".dt_bias", ".d_skip")))
+    assert vectors == 14 * 2 * 128
+    short = 14 * 2 * 128 * (16 - 64 // 16)
+    assert tf.param_count_gap(cfg) == vectors - short
+    assert tf.matrix_param_count(model) + tf.param_count_gap(cfg) \
+        == cfg.param_count()
+    # the served cut: 16 layers at full width, 14 mamba
+    cut = dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=16)
+    assert tf.param_count_gap(cut) == 229_376
+
+
 def test_unported_families_raise():
     cfg = get_config("minicpm-2b").smoke()
-    for bad in (dataclasses.replace(cfg, family="hybrid"),
-                dataclasses.replace(cfg, family="ssm"),
-                dataclasses.replace(cfg, family="vlm",
-                                    frontend="patch_stub")):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            tf.DecoderLM(bad, device="meta")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 14c"):
+        tf.DecoderLM(dataclasses.replace(cfg, family="ssm"), device="meta")
+    with pytest.raises(NotImplementedError, match="item 14d"):
         build_model(dataclasses.replace(cfg, family="encdec"))
+    with pytest.raises(KeyError, match="14c and 14d"):
+        get_config("xlstm-1.3b")
 
 
 def test_moe_config_builds():
