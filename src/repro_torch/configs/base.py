@@ -12,9 +12,10 @@ MHA), ``yi-34b``, ``command-r-plus-104b`` (dense GQA) and
 (MoE, 60 routed experts top-4 plus 4 shared) and ``qwen3-moe-30b-a3b``
 (MoE, 128 experts top-8, head_dim 128 over GQA 32/4), ``jamba-v0.1-52b``
 (hybrid: mamba with attention at one position in 8, MoE 16 experts top-2
-on every second layer) and ``internvl2-2b`` (vlm: 256 patch embeddings
-prepended to the tokens).  ``xlstm-1.3b`` and ``whisper-medium`` come with
-their families (ROADMAP, modules items 14c and 14d).
+on every second layer), ``internvl2-2b`` (vlm: 256 patch embeddings
+prepended to the tokens), ``xlstm-1.3b`` (ssm: 7 mLSTM and 1 sLSTM block
+in every 8) and ``whisper-medium`` (encdec: 24 encoder and 24 decoder
+layers over stub frame embeddings): all ten of the reference's.
 """
 
 from __future__ import annotations
@@ -229,8 +230,7 @@ def get_config(name: str) -> ArchConfig:
         _load_all()
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; the port carries "
-                       f"{sorted(_REGISTRY)} (xlstm-1.3b and whisper-medium "
-                       "come with ROADMAP modules items 14c and 14d)")
+                       f"{sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 
@@ -244,5 +244,7 @@ def _load_all():
         nemotron_4_340b,
         qwen2_moe_a2_7b,
         qwen3_moe_30b_a3b,
+        whisper_medium,
+        xlstm_1_3b,
         yi_34b,
     )

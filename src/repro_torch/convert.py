@@ -26,7 +26,9 @@ its policy and report as ``policy_*`` / ``probe_*`` fields, and
 reference gives its fleets no archive, so neither has one here.
 
 An LM's parameters travel as the reference's pytree (one stacked group
-per position of the layer pattern, layers stacked on a leading axis,
+per position of the layer pattern, layers stacked on a leading axis; an
+xLSTM layer's cell under ``layers[pos]["cell"]``; an encoder-decoder's
+``enc_layers`` and ``dec_layers`` each stacked over its layers;
 ``models/transformer.py::reference_leaves``; an MoE's ``router.w`` stays
 float32 whatever the matrices' dtype), its optimizer
 state as ``{"mu", "nu", "count"[, "ef"]}`` in the same layout: the tree a
@@ -53,7 +55,9 @@ from repro_torch.core.vamana import BuildParams
 from repro_torch.device import resolve_device
 from repro_torch.filter import LabelStore
 from repro_torch.ivf import IVFPartition
-from repro_torch.models.transformer import DecoderLM, reference_leaves
+from repro_torch.models.model import lm_module
+from repro_torch.models.transformer import STACKED, DecoderLM, \
+    reference_leaves
 from repro_torch.obs.graph import GraphHealthReport
 from repro_torch.probe import CompatibilityReport, NavPolicy, ProbeAccumulator
 from repro_torch.stream.mutable import MutableQuIVerIndex
@@ -390,7 +394,7 @@ def _reference_tree(model: DecoderLM, named: dict, leaf) -> dict:
     order)."""
     out: dict = {}
     for path, names in reference_leaves(model).items():
-        _put(out, path, leaf([named[n] for n in names], path[0] == "layers"))
+        _put(out, path, leaf([named[n] for n in names], path[0] in STACKED))
     return out
 
 
@@ -412,7 +416,7 @@ def _cut(model: DecoderLM, tree: dict):
     for path, names in reference_leaves(model).items():
         a = _get(tree, path)
         for i, n in enumerate(names):
-            yield n, _tensor(a[i] if path[0] == "layers" else a)
+            yield n, _tensor(a[i] if path[0] in STACKED else a)
 
 
 @torch.no_grad()
@@ -421,13 +425,13 @@ def load_lm_params(model: DecoderLM, params: dict) -> DecoderLM:
     :func:`lm_params_to_numpy` or ``ckpt.checkpoint.restore`` give it) into
     ``model``'s parameters, each cast to its slot's dtype (so an MoE's
     float32 router stays float32, and a mamba layer's ``dt_bias``,
-    ``a_log`` and ``d_skip``).  A hybrid stack's pattern positions hold
-    ``attn`` or ``mamba`` leaves, each block's at index ``i // P`` as for
-    any stack (``transformer.reference_leaves``).  The model's own layer
-    kinds are checked where it is made (``transformer.check_supported``:
-    the ssm layers are not ported)."""
+    ``a_log`` and ``d_skip``, an xLSTM cell's ``norm_scale``).  A hybrid or
+    xLSTM stack's pattern positions hold ``attn``, ``mamba`` or ``cell``
+    leaves, each block's at index ``i // P`` as for any stack; an
+    encoder-decoder's layer *i* at index *i* of ``enc_layers`` or
+    ``dec_layers`` (``transformer.reference_leaves``)."""
     period, _ = model.cfg.pattern()
-    if len(params["layers"]) != period:
+    if "layers" in params and len(params["layers"]) != period:
         raise ValueError(f"{len(params['layers'])} stacked layer groups for "
                          f"{model.cfg.name}, whose pattern has period "
                          f"{period}")
@@ -444,13 +448,14 @@ def load_lm_params(model: DecoderLM, params: dict) -> DecoderLM:
 def lm_params_from_numpy(params: dict, cfg, *, dtype=None,
                          device=None) -> DecoderLM:
     """The reference's parameter pytree (numpy arrays, e.g.
-    ``jax.tree.map(np.asarray, params)``) as a :class:`DecoderLM` on
-    ``device`` (default: the CUDA card).  The matrices keep their dtype
+    ``jax.tree.map(np.asarray, params)``) as the module of ``cfg``'s family
+    (``models.model.lm_module``: a :class:`DecoderLM`, or an ``EncDecLM``)
+    on ``device`` (default: the CUDA card).  The matrices keep their dtype
     unless ``dtype`` is given; norm scales stay float32."""
     device = resolve_device(device)
     if dtype is None:
         dtype = _tensor(params["embed"]["w"]).dtype
-    return load_lm_params(DecoderLM(cfg, device=device, dtype=dtype), params)
+    return load_lm_params(lm_module(cfg, device=device, dtype=dtype), params)
 
 
 def named_to_numpy(named: dict, model: DecoderLM, *,

@@ -4,15 +4,18 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \
         --rag
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-2b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b --rag
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-34b --smoke \
         --device cpu --batch 4 --max-new 16 [--rag]
 
 Counterpart of ``repro/launch/serve.py``, with the same flags plus
 ``--device`` (default: the CUDA card), for the decoder families (dense,
-MoE, hybrid, vlm).  ``--smoke`` serves the reduced config anywhere.  A full
-config runs on one card when its bf16 weights (``param_count() * 2`` bytes,
-every expert counted) and serving state fit in the card's memory, and is
-refused otherwise, and on the CPU.  Weights are drawn from ``--seed``; a
+MoE, hybrid, ssm, vlm); an encoder-decoder (whisper) needs frame inputs
+and is refused, as in the reference (``ServeEngine.generate(extra_batch=
+{"frames": ...})`` serves it).  ``--smoke`` serves the reduced config
+anywhere.  A full config runs on one card when its bf16 weights
+(``param_count() * 2`` bytes, every expert counted) and serving state fit
+in the card's memory, and is refused otherwise, and on the CPU.  Weights are drawn from ``--seed``; a
 vlm's patch embeddings (``frontend="patch_stub"``) are drawn from the same
 numpy generator after the prompts, as the reference draws them.
 """
@@ -35,14 +38,19 @@ from repro_torch.serve.engine import Retriever, ServeEngine, \
 
 def full_config_bytes(cfg, batch: int, max_seq: int) -> int:
     """bf16 weights plus the serving state of ``batch`` sequences: the bf16
-    K and V caches of the attention layers, and each mamba layer's bf16
-    conv state (d_conv - 1 inputs) and float32 ssm state."""
+    K and V caches of the attention layers, each mamba layer's bf16 conv
+    state (d_conv - 1 inputs) and float32 ssm state, and each xLSTM cell's
+    float32 state (an mLSTM's C, n and m; an sLSTM's c, n, m and h)."""
     kinds = layer_kinds(cfg)
     n_attn, n_mamba = kinds.count("attn"), kinds.count("mamba")
     d_inner = cfg.ssm_expand * cfg.d_model
     kv = 2 * 2 * batch * max_seq * cfg.n_kv_heads * cfg.head_dim_
     mamba = batch * d_inner * (2 * (cfg.d_conv - 1) + 4 * cfg.d_state)
-    return 2 * cfg.param_count() + n_attn * kv + n_mamba * mamba
+    hd = int(cfg.xlstm_expand * cfg.d_model) // cfg.n_heads
+    mlstm = 4 * batch * cfg.n_heads * (hd * hd + hd + 1)
+    slstm = 4 * batch * 4 * cfg.d_model
+    return 2 * cfg.param_count() + n_attn * kv + n_mamba * mamba \
+        + kinds.count("mlstm") * mlstm + kinds.count("slstm") * slstm
 
 
 def main(argv=None) -> int:
@@ -77,8 +85,8 @@ def main(argv=None) -> int:
                   "--smoke.")
             return 1
     if cfg.family == "encdec":
-        print("[serve] enc-dec serving needs frame inputs and is not "
-              "ported; decoder-family archs only here.")
+        print("[serve] use examples/ for enc-dec serving "
+              "(needs frame inputs); decoder-family archs only here.")
         return 1
 
     bundle = build_model(cfg)

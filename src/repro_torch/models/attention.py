@@ -13,9 +13,14 @@ row at ``cache_pos`` (the reference writes a new cache with
 the whole ``max_seq`` cache with ``kv_valid_len = cache_pos + T`` and
 ``q_offset = cache_pos``.
 
+Cross-attention (whisper's decoder, ``models/encdec.py``) holds the same
+four matrices as self-attention: :func:`cross_attention_kv` projects the
+encoder's output to K/V once a sequence, and :func:`cross_attention_forward`
+attends over them without a causal mask and without rotary, through the same
+kernel.
+
 Not ported: ``sliding_window`` (no configuration sets it: the reference's
-``ArchConfig`` defaults it to 0) and cross-attention (whisper, the encdec
-family, ROADMAP modules item 14d); both raise ``NotImplementedError``.
+``ArchConfig`` defaults it to 0); it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -49,6 +54,22 @@ class Attention(nn.Module):
         self.wk = mat(d_model, n_kv_heads * head_dim)
         self.wv = mat(d_model, n_kv_heads * head_dim)
         self.wo = mat(n_heads * head_dim, d_model)
+
+
+@torch.no_grad()
+def init_attention(p: Attention, *, generator: torch.Generator) -> Attention:
+    """The reference's distributions: ``wq``, ``wk``, ``wv`` and ``wo``
+    normal / sqrt(d_in), drawn in float32 from ``generator`` in that order
+    and cast to their dtype."""
+    for lin in (p.wq, p.wk, p.wv, p.wo):
+        x = torch.randn(lin.w.shape, generator=generator,
+                        device=lin.w.device, dtype=torch.float32)
+        lin.w.copy_(x * lin.w.shape[0] ** -0.5)
+    return p
+
+
+# a decoder layer's cross-attention has self-attention's leaves and draws
+init_cross_attention = init_attention
 
 
 def flash_attention(
@@ -131,8 +152,30 @@ def attention_forward(
     return linear(p.wo, out), cache
 
 
-def cross_attention_forward(*args, **kwargs):
-    """Cross-attention over encoder K/V (whisper's decoder): not ported."""
-    raise NotImplementedError(
-        "cross-attention is not ported yet (whisper, the encdec family: "
-        "ROADMAP modules item 14d)")
+def cross_attention_kv(p: Attention, enc_out: torch.Tensor, *,
+                       n_kv_heads: int, head_dim: int) -> KVCache:
+    """The encoder side's K/V (B, S_enc, K, hd), computed once a sequence
+    (whisper's decoder); no rotary."""
+    b, s, _ = enc_out.shape
+    k = linear(p.wk, enc_out).reshape(b, s, n_kv_heads, head_dim)
+    v = linear(p.wv, enc_out).reshape(b, s, n_kv_heads, head_dim)
+    return KVCache(k=k, v=v)
+
+
+def cross_attention_forward(
+    p: Attention,
+    x: torch.Tensor,                 # (B, T, d)
+    enc_kv: KVCache,                 # (B, S_enc, K, hd)
+    *,
+    n_heads: int,
+    head_dim: int,
+    kv_chunk: int = 1024,
+) -> torch.Tensor:
+    """Every query row over every encoder key (``causal=False``), through
+    the flash kernel: the tensor-core kernel for T > 1 in bf16, the
+    split-KV decode for T = 1."""
+    b, t, _ = x.shape
+    q = linear(p.wq, x).reshape(b, t, n_heads, head_dim)
+    out = flash_attention(q, enc_kv.k, enc_kv.v, causal=False,
+                          kv_chunk=kv_chunk)
+    return linear(p.wo, out.reshape(b, t, n_heads * head_dim))

@@ -82,6 +82,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(t: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (T, d), float32: the sines
+    of ``pos / 10000^(2i / d)`` for i < d / 2, then their cosines.  The
+    angles are taken in float64, as the reference's numpy does, and
+    rounded once."""
+    pos = torch.arange(t, dtype=torch.float64)[:, None]
+    i = torch.arange(d // 2, dtype=torch.float64)[None, :]
+    angles = pos / (10000 ** (2 * i / d))
+    out = torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
+    return out.to(device=device, dtype=torch.float32)
+
+
 # -- activations -------------------------------------------------------------
 
 

@@ -3,28 +3,33 @@
 Counterpart of ``repro/models/model.py``.  ``build_model(cfg)`` returns a
 :class:`ModelBundle` exposing
 
-    init(seed, device=None, dtype=bf16) -> DecoderLM
+    init(seed, device=None, dtype=bf16) -> DecoderLM or EncDecLM
     loss(model, batch)                  -> (loss, metrics)
     prefill(model, batch, caches)       -> (last_logits, caches)
     decode(model, tokens, caches, pos)  -> (logits, caches)
     init_caches(b, max_seq, device=None) -> serving state (written in place)
     input_specs(shape)                  -> {name: (shape, dtype)} (global)
 
-for the decoder families (dense, MoE, hybrid, vlm); ``device=None`` means
-the CUDA card.  The module takes the place of the reference's parameter
-pytree.  Batch layouts (numpy arrays or tensors; labels for ``loss``
-only):
+for every family; ``device=None`` means the CUDA card.  The module takes
+the place of the reference's parameter pytree.  Batch layouts (numpy
+arrays or tensors; labels for ``loss`` only):
 
     decoder LM : tokens (B, S) labels (B, S)
     vlm        : patches (B, P, d) tokens (B, S - P) labels (B, S - P)
+    encdec     : frames (B, S, d) tokens (B, S // 4) labels (B, S // 4)
 
 The vlm front end is the reference's stub (``frontend="patch_stub"``):
 ``P = cfg.n_frontend_tokens`` precomputed patch embeddings are put before
 the token embeddings, cast to their dtype; the loss counts token positions
 only, and decode continues at position ``P + S`` (``serve.engine``).
+The encoder-decoder (whisper, ``frontend="audio_stub"``) encodes the
+frames (cast to the model's dtype: the reference's ``input_specs`` gives
+them in bf16), and its decoder starts at position 0 of its own cache, so
+decode continues at the token prompt's length S.  Its ``init_caches(b,
+max_seq)`` sizes the cross K/V to ``max_seq`` too, as the reference's;
+prefill replaces it with the encoder's S_enc rows.
 ``loss`` runs with gradients (a caller calls ``backward()`` on it); prefill
-and decode run under ``torch.no_grad``.  The encoder-decoder bundle
-(whisper) is not ported and raises.
+and decode run under ``torch.no_grad``.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf
 
 
@@ -67,19 +73,23 @@ def _as_tokens(tokens, device) -> torch.Tensor:
     return torch.as_tensor(tokens, device=device).long()
 
 
-def _decoder_bundle(cfg: ArchConfig) -> ModelBundle:
-    tf.check_supported(cfg)
-    is_vlm = cfg.frontend == "patch_stub"
-    n_front = cfg.n_frontend_tokens if is_vlm else 0
-
+def _init_fn(cfg: ArchConfig, init_model: Callable) -> Callable:
+    """The bundle's ``init``: ``init_model(cfg, generator=, device=,
+    dtype=)`` from a seed or a generator on the device."""
     def init(seed: int | torch.Generator = 0, *, device=None,
-             dtype=torch.bfloat16) -> tf.DecoderLM:
+             dtype=torch.bfloat16):
         device = resolve_device(device)
         gen = seed
         if not isinstance(seed, torch.Generator):
             gen = torch.Generator(device=device).manual_seed(int(seed))
-        return tf.init_decoder(cfg, generator=gen, device=device,
-                               dtype=dtype)
+        return init_model(cfg, generator=gen, device=device, dtype=dtype)
+    return init
+
+
+def _decoder_bundle(cfg: ArchConfig) -> ModelBundle:
+    is_vlm = cfg.frontend == "patch_stub"
+    n_front = cfg.n_frontend_tokens if is_vlm else 0
+    init = _init_fn(cfg, tf.init_decoder)
 
     def _embed_batch(model, batch):
         x = tf.embed_tokens(model, _as_tokens(batch["tokens"], model.device))
@@ -135,9 +145,71 @@ def _decoder_bundle(cfg: ArchConfig) -> ModelBundle:
                        input_specs)
 
 
+def _encdec_bundle(cfg: ArchConfig) -> ModelBundle:
+    dec_ratio = 4   # audio frames per text token (training shapes)
+    init = _init_fn(cfg, encdec_mod.init_encdec)
+
+    def _frames(model, batch) -> torch.Tensor:
+        return torch.as_tensor(batch["frames"], device=model.device).to(
+            model.frontend_adapter.w.dtype)
+
+    def loss(model, batch):
+        enc_out = encdec_mod.encode(model, _frames(model, batch))
+        h = encdec_mod.decode_train(
+            model, _as_tokens(batch["tokens"], model.device), enc_out)
+        logits = tf.logits_from_hidden(model, h)
+        ce, n_tok = cross_entropy(
+            logits, _as_tokens(batch["labels"], model.device),
+            cfg.vocab_size)
+        zero = torch.zeros((), dtype=torch.float32, device=model.device)
+        return ce, {"ce": ce, "tokens": n_tok, "load_balance_loss": zero,
+                    "dropped_fraction": zero}
+
+    def init_caches(b: int, max_seq: int, *, device=None):
+        # self K/V sized for the decoder; cross K/V sized for the encoder
+        return encdec_mod.init_encdec_caches(cfg, b, max_seq, max_seq,
+                                             device=resolve_device(device))
+
+    @torch.no_grad()
+    def prefill(model, batch, caches):
+        enc_out = encdec_mod.encode(model, _frames(model, batch))
+        caches = encdec_mod.EncDecCaches(
+            self_kv=caches.self_kv,
+            cross_kv=encdec_mod.make_cross_kv(model, enc_out))
+        h, caches = encdec_mod.decode_with_cache(
+            model, _as_tokens(batch["tokens"], model.device), caches, 0)
+        return tf.logits_from_hidden(model, h[:, -1:])[:, 0], caches
+
+    @torch.no_grad()
+    def decode(model, tokens, caches, pos: int):
+        h, caches = encdec_mod.decode_with_cache(
+            model, _as_tokens(tokens, model.device), caches, int(pos))
+        return tf.logits_from_hidden(model, h[:, -1:])[:, 0], caches
+
+    def input_specs(shape: ShapeConfig) -> dict:
+        b, s = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"tokens": ((b, 1), torch.int32)}
+        specs = {"frames": ((b, s, cfg.d_model), torch.bfloat16),
+                 "tokens": ((b, s // dec_ratio), torch.int32)}
+        if shape.kind == "train":
+            specs["labels"] = ((b, s // dec_ratio), torch.int32)
+        return specs
+
+    return ModelBundle(cfg, init, loss, prefill, decode, init_caches,
+                       input_specs)
+
+
 def build_model(cfg: ArchConfig) -> ModelBundle:
     if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder bundle is not ported yet "
-            "(ROADMAP modules item 14d)")
+        return _encdec_bundle(cfg)
     return _decoder_bundle(cfg)
+
+
+def lm_module(cfg: ArchConfig, *, device=None, dtype=torch.bfloat16):
+    """The uninitialised module of ``cfg``'s family (``device="meta"``
+    allocates nothing): an :class:`~repro_torch.models.encdec.EncDecLM`
+    for an encoder-decoder, else a
+    :class:`~repro_torch.models.transformer.DecoderLM`."""
+    cls = encdec_mod.EncDecLM if cfg.family == "encdec" else tf.DecoderLM
+    return cls(cfg, device=device, dtype=dtype)

@@ -132,8 +132,6 @@ def test_unported_variants_raise():
     q = torch.zeros((1, 4, 2, 16))
     with pytest.raises(NotImplementedError, match="item 14"):
         attn.flash_attention(q, q, q, sliding_window=8)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        attn.cross_attention_forward(None, q, None, n_heads=2, head_dim=16)
 
 
 @pytest.fixture(scope="module")

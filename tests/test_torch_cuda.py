@@ -546,6 +546,15 @@ FLASH_CASES = {
     "jamba_decode": (8, 1, 384, 32, 8, 128, True, 351, 352),
     "internvl2_prefill": (8, 320, 384, 16, 8, 128, True, 0, 320),
     "internvl2_decode": (8, 1, 384, 16, 8, 128, True, 351, 352),
+    # the encdec serving shapes at head_dim 64, 16 heads over 16: whisper's
+    # encoder over 1 500 frames and its cross-attention over them (prefill
+    # 64 tokens, decode one) without a causal mask; a ragged Tq and Tk
+    # without one
+    "whisper_encoder": (8, 1500, 1500, 16, 16, 64, False, 0, 1500),
+    "whisper_cross_prefill": (8, 64, 1500, 16, 16, 64, False, 0, 1500),
+    "whisper_cross_decode": (8, 1, 1500, 16, 16, 64, False, 0, 1500),
+    "whisper_self_decode": (8, 1, 96, 16, 16, 64, True, 95, 96),
+    "ragged_noncausal": (2, 70, 130, 8, 4, 64, False, 0, 130),
 }
 
 
@@ -842,6 +851,42 @@ def test_card_mamba_layer_matches_cpu(cuda):
                                                conv, ssm)
                 outs.append(out.float().cpu())
             runs[dev] = outs + [conv.float().cpu(), ssm.cpu()]
+    for want, got in zip(runs["cpu"], runs["cuda"]):
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max() <= 2 ** -5 * want.abs().max()
+
+
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_card_xlstm_layer_matches_cpu(cuda, kind):
+    """One ``xlstm-1.3b`` cell at full width (d 2 048, 4 heads; the mLSTM's
+    d_inner 4 096, head blocks of 1 024), bf16, drawn on the CPU and copied
+    to the card: a prefill of 2 x 64 from zeros, then 8 one-token steps
+    with the state carried; every output, and each float32 state after the
+    last step, within 2^-5 of its largest |value| (four bf16 ulps of it:
+    bf16 products round at other places)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import xlstm
+
+    cfg = get_config("xlstm-1.3b")
+    if kind == "mlstm":
+        cls, init, block = xlstm.MLSTM, xlstm.init_mlstm, xlstm.mlstm_block
+    else:
+        cls, init, block = xlstm.SLSTM, xlstm.init_slstm, xlstm.slstm_block
+    cells = {dev: cls(cfg.d_model, n_heads=cfg.n_heads, device=dev)
+             for dev in ("cpu", "cuda")}
+    init(cells["cpu"], generator=torch.Generator().manual_seed(0))
+    cells["cuda"].load_state_dict(cells["cpu"].state_dict())
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 72, cfg.d_model)).astype(np.float32)).bfloat16()
+    runs = {}
+    with torch.no_grad():
+        for dev, cell in cells.items():
+            outs, state = [], None
+            for lo, hi in [(0, 64)] + [(i, i + 1) for i in range(64, 72)]:
+                out, state = block(cell, x[:, lo:hi].to(dev),
+                                   n_heads=cfg.n_heads, state=state)
+                outs.append(out.float().cpu())
+            runs[dev] = outs + [s.cpu() for s in state]
     for want, got in zip(runs["cpu"], runs["cuda"]):
         assert torch.isfinite(got).all()
         assert (got - want).abs().max() <= 2 ** -5 * want.abs().max()

@@ -68,6 +68,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.data.pipeline", "repro_torch.launch.train"} <= set(mods)
     assert {"repro_torch.models.moe", "repro_torch.configs.qwen2_moe_a2_7b",
             "repro_torch.configs.qwen3_moe_30b_a3b"} <= set(mods)
+    assert {"repro_torch.models.mamba", "repro_torch.models.xlstm",
+            "repro_torch.models.encdec", "repro_torch.configs.xlstm_1_3b",
+            "repro_torch.configs.whisper_medium"} <= set(mods)
     _run_fresh(
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from repro.configs.base import SHAPES as JSHAPES
+from repro.configs.base import all_configs as jax_all_configs
 from repro.configs.base import cell_is_supported as jax_cell_is_supported
 from repro.configs.base import get_config as jax_get_config
 from repro.models import ffn as jffn
@@ -29,7 +30,8 @@ from repro_torch import convert
 from repro_torch.configs.base import SHAPES, cell_is_supported, get_config
 from repro_torch.models import ffn, layers
 from repro_torch.models import transformer as tf
-from repro_torch.models.model import build_model
+from repro_torch.models.encdec import EncDecLM
+from repro_torch.models.model import build_model, lm_module
 
 jax.config.update("jax_platform_name", "cpu")
 # the suite runs in parallel worker processes: one thread each
@@ -38,11 +40,15 @@ torch.set_num_threads(1)
 # the dense configs: minicpm (MHA), yi and command-r-plus (GQA), nemotron
 # (GQA, squared-ReLU FFN)
 ARCHS = ("minicpm-2b", "yi-34b", "command-r-plus-104b", "nemotron-4-340b")
-# every config the port carries; the MoE, hybrid and vlm decoders'
-# numerics are ``tests/test_torch_moe.py``'s, ``test_torch_hybrid.py``'s and
-# ``test_torch_vlm.py``'s
-CONFIGS = ARCHS + ("qwen2-moe-a2.7b", "qwen3-moe-30b-a3b", "jamba-v0.1-52b",
-                   "internvl2-2b")
+# the decoder configs of attention and mamba layers; the MoE, hybrid and vlm
+# decoders' numerics are ``tests/test_torch_moe.py``'s,
+# ``test_torch_hybrid.py``'s and ``test_torch_vlm.py``'s
+DECODERS = ARCHS + ("qwen2-moe-a2.7b", "qwen3-moe-30b-a3b", "jamba-v0.1-52b",
+                    "internvl2-2b")
+# every config the port carries: all ten of the reference's (the ssm and
+# encdec families' numerics are ``tests/test_torch_xlstm.py``'s and
+# ``test_torch_encdec.py``'s)
+CONFIGS = DECODERS + ("xlstm-1.3b", "whisper-medium")
 
 
 @pytest.fixture(autouse=True)
@@ -77,7 +83,7 @@ def test_configs_are_copies(name):
     assert set(SHAPES) == set(JSHAPES)
 
 
-@pytest.mark.parametrize("name", CONFIGS)
+@pytest.mark.parametrize("name", DECODERS)
 def test_module_parameter_count_is_param_count(name):
     """Counted on the meta device: nothing is allocated."""
     cfg = get_config(name)
@@ -120,14 +126,22 @@ def test_param_count_gap_at_smoke_width():
     assert tf.param_count_gap(cut) == 229_376
 
 
-def test_unported_families_raise():
-    cfg = get_config("minicpm-2b").smoke()
-    with pytest.raises(NotImplementedError, match="item 14c"):
-        tf.DecoderLM(dataclasses.replace(cfg, family="ssm"), device="meta")
-    with pytest.raises(NotImplementedError, match="item 14d"):
-        build_model(dataclasses.replace(cfg, family="encdec"))
-    with pytest.raises(KeyError, match="14c and 14d"):
-        get_config("xlstm-1.3b")
+@pytest.mark.parametrize("name", sorted(jax_all_configs()))
+def test_every_reference_config_builds(name):
+    """All ten of the reference's configs resolve through ``get_config`` and
+    build on the meta device (nothing allocated), their module's matrices
+    ``param_count()`` less ``param_count_gap``; an encoder-decoder is an
+    ``EncDecLM``, every other family a ``DecoderLM``."""
+    cfg = get_config(name)
+    assert cfg.name == name
+    model = lm_module(cfg, device="meta")
+    assert isinstance(model, EncDecLM if cfg.family == "encdec"
+                      else tf.DecoderLM)
+    assert tf.matrix_param_count(model) + tf.param_count_gap(cfg) \
+        == cfg.param_count()
+    assert build_model(cfg).cfg is cfg
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config(name + "-x")
 
 
 def test_moe_config_builds():
