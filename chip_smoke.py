@@ -92,7 +92,16 @@ Phases, in order; any failure raises and the script exits nonzero:
               shape, the bf16 one split by kernel, with SDPA's backward
               (``torch.autograd.grad`` on a saved graph) as the library
               call; the float32 route is logged, not in the kernels
-              line (no path launches it).
+              line (no path launches it).  Head width 192 and sliding
+              windows (``FLASH_WINDOW_CASES``, and the backward's
+              nemotron and window cases): every forward kernel and both
+              backward routes against their plain versions, ptxas's
+              report of every hd-192 instance free of spills
+              (``ptxas_spills``), and nemotron's embed, prefill and
+              decode (96 heads over 8, hd 192), the windows of 128 and
+              1 024 keys and the backward at them timed beside their
+              bounds and SDPA's time (a boolean mask where a window
+              applies), logged.
 3. parity   — run in a child process beside phases 4 to fleet when any
               of them runs (``start_parity_child``: a fresh interpreter
               with its torch threads capped at ``os.cpu_count()`` - 2,
@@ -179,7 +188,20 @@ Phases, in order; any failure raises and the script exits nonzero:
               backward kernel launched once a layer), one train step
               each (loss and grad norm within 1e-2, updates at cosine >=
               0.9), and the card's state as a checkpoint restored on the
-              CPU, identical leaf for leaf.
+              CPU, identical leaf for leaf; then the multi-chip substrate
+              (``parity_dist``): a ``nemotron-4-340b`` attention layer at
+              full width (hd 192) within 0.1 of the CPU's; on a world-1
+              mesh (NCCL and gloo), a 2-layer full-width ``minicpm-2b``
+              step under ``use_mesh`` equal bit for bit to the same step
+              without it, and a 1-layer full-width ``qwen2-moe-a2.7b``
+              forward through the MoE mesh branch in float32, card
+              against CPU (top-4 sets >= 0.98 equal, logits within 1e-3,
+              the flat row's dispatch identical), and in bf16 (on each
+              device the branch's top-4 sets equal the unmeshed path's,
+              card against CPU both flip the same tokens, the flat row's
+              dispatch identical); the dry-run cells
+              ``minicpm-2b x train_4k x 16x16`` and ``quiver-1m x
+              16x16``, printed.
 4. main     — the main path at deployment size: cohere-surrogate (768-d),
               N = 100 000, 1 000 queries, ``BuildParams()`` defaults;
               build, search at k = 10, ef = 64, recall@10 against exact
@@ -187,9 +209,10 @@ Phases, in order; any failure raises and the script exits nonzero:
               ids).  Launch counts are reset just before this phase and
               read just after; every kernel must have launched, and
               the ``bq_pairwise`` launches are printed by pool size.
-5. ivf      — the IVF path over the first ``IVF_N`` = 50 000 rows of
+5. ivf      — the IVF path over the first ``IVF_N`` = 20 000 rows of
               phase 4's corpus (a cut of depth, the same on every host,
-              that pays for the moe phase): ``BuildParams(
+              that pays for the moe phase and the multi-chip checks):
+              ``BuildParams(
               ivf_candidates=True)``, partition and linking timed apart;
               search ``nav="bq2"`` at ef = 64 (recall gate 0.80) and
               ``nav="ivf"`` at ef = 128 with default probes and with
@@ -480,7 +503,8 @@ PHASES = ("build", "kernels", "parity", "main", "ivf", "ladder", "filter",
 # so it runs in a child process beside them (:func:`start_parity_child`)
 INDEX_PHASES = ("main", "ivf", "ladder", "filter", "stream", "engine",
                 "fleet")
-# host cores left to the parent's loop while the child runs phase 3
+# host cores left to the parent's loop while the child runs phase 3 (4 made
+# the smoke no shorter, PERF.md §5)
 PARENT_CORES = 2
 # the longest the parent waits for phase 3's child after the index phases
 PARITY_WAIT_S = 600
@@ -920,14 +944,26 @@ def hamming_library(torch, sign_words, q, ids, dim: int, got):
     return partial(torch.bmm, lr, lq)
 
 
-def flash_bound(b, tq, h, kvh, hd, causal, q_offset, valid, elem):
+def visible_keys(tq, causal, q_offset, valid, window=0) -> list:
+    """(first, last + 1) of each query row's visible keys."""
+    out = []
+    for i in range(tq):
+        pos = q_offset + i
+        hi = min(valid, pos + 1) if causal else valid
+        lo = max(0, pos - window + 1) if window else 0
+        out.append((lo, max(lo, hi)))
+    return out
+
+
+def flash_bound(b, tq, h, kvh, hd, causal, q_offset, valid, elem,
+                window=0):
     """(ms, "bytes" or "operations") for one attention call: 4 hd flops for
     each visible (row, key) pair at the bf16 tensor-core rate, against Q,
-    the visible K/V rows and O moved once."""
-    rows = [min(valid, q_offset + i + 1) if causal else valid
-            for i in range(tq)]
-    flops = 4 * hd * sum(rows) * b * h
-    nbytes = elem * hd * (2 * b * tq * h + 2 * b * kvh * max(rows))
+    the visible K/V rows (those some row sees) and O moved once."""
+    rows = visible_keys(tq, causal, q_offset, valid, window)
+    flops = 4 * hd * sum(hi - lo for lo, hi in rows) * b * h
+    span = max(hi for _, hi in rows) - min(lo for lo, _ in rows)
+    nbytes = elem * hd * (2 * b * tq * h + 2 * b * kvh * span)
     return bound(nbytes, flops, TENSOR_FLOPS_PER_S)
 
 
@@ -1069,6 +1105,7 @@ def flash_kernels(torch) -> dict:
 
     from repro_torch.kernels import flash_attention as kf
 
+    ptxas_spills()
     g = torch.Generator(device="cuda").manual_seed(14)
     out = {}
     by_model = dict.fromkeys(MODEL_SHAPES, 0.0)  # their checks' seconds
@@ -1129,19 +1166,139 @@ def flash_kernels(torch) -> dict:
     log(f"  flash_attention at the served models' shapes (hd 128): checks "
         + ", ".join(f"{m} {t:.1f} s" for m, t in by_model.items()))
     flash_strided(torch, g)
+    out.update(flash_window_kernels(torch, g))
     return out
 
 
-def flash_bwd_bound(b, tq, tk, h, kvh, hd, causal, q_offset, valid, elem):
+# the instances of head width 192 must compile with no spill: ptxas's
+# report (build.ptxas_report) for every kernel instanced at 192
+HD192 = "Li192E"
+
+
+def ptxas_spills() -> None:
+    """Every hd-192 instance of the flash sources built with no spill store
+    or load in ptxas's report; each one's registers logged."""
+    from repro_torch.kernels import build as kbuild
+
+    for name in ("flash_attention", "flash_attention_bwd"):
+        kbuild.load(name)
+        report = kbuild.ptxas_report(name)
+        if not report:
+            raise AssertionError(f"no ptxas report beside {name}'s library")
+        found = 0
+        for fn, r in sorted(report.items()):
+            if HD192 not in fn:
+                continue
+            found += 1
+            if r.get("spill_stores", 0) or r.get("spill_loads", 0):
+                raise AssertionError(f"{fn} spills at hd 192: {r}")
+            log(f"  ptxas {name} {fn[:60]}: {r.get('registers')} registers, "
+                f"0 bytes spilled")
+        if not found:
+            raise AssertionError(f"{name} has no hd-192 instance")
+
+
+# (label, b, tq, tk, h, kv heads, hd, q_offset, kv_valid_len, causal,
+# window): nemotron-4-340b's attention (96 heads over 8 KV heads, head width
+# 192) at the RAG path's three steps, and sliding windows of 128 and 1 024
+# keys in prefill and decode (and at hd 192), each in float32 and bf16
+# through the kernel its dtype and Tq select; every bf16 one timed beside
+# its bound and SDPA's time (a boolean mask where a window applies)
+FLASH_WINDOW_CASES = [
+    ("nemotron embed", 64, 64, 64, 96, 8, 192, 0, 64, True, 0),
+    ("nemotron prefill", 8, 320, 384, 96, 8, 192, 0, 320, True, 0),
+    ("nemotron decode", 8, 1, 384, 96, 8, 192, 351, 352, True, 0),
+    ("window128 prefill", 8, 320, 384, 36, 36, 64, 0, 320, True, 128),
+    ("window128 decode", 8, 1, 1536, 36, 36, 64, 1200, 1201, True, 128),
+    ("window1024 prefill", 2, 2048, 2048, 16, 16, 64, 0, 2048, True, 1024),
+    ("window1024 decode", 8, 1, 2048, 36, 36, 64, 1999, 2000, True, 1024),
+    ("window128 hd192 prefill", 2, 320, 384, 96, 8, 192, 0, 320, True, 128),
+    ("window128 hd192 decode", 8, 1, 1536, 96, 8, 192, 1200, 1201, True,
+     128),
+]
+
+
+def window_mask(torch, tq, tk, causal, q_offset, valid, window):
+    """The (Tq, Tk) boolean mask of visible keys, for SDPA."""
+    k_pos = torch.arange(tk, device="cuda")
+    q_pos = q_offset + torch.arange(tq, device="cuda")[:, None]
+    mask = k_pos < valid
+    if causal:
+        mask = mask & (k_pos <= q_pos)
+    if window:
+        mask = mask & (k_pos > q_pos - window)
+    return mask
+
+
+def flash_window_kernels(torch, g) -> dict:
+    """``flash_attention`` at ``FLASH_WINDOW_CASES`` against its plain
+    version (float32 within 2e-3, bf16 within 2e-2; split-KV also against
+    its mirror): logged, with the bf16 calls' numbers kept for phase 2's
+    timing (SDPA on the same inputs, with a boolean mask, as the library
+    call)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from repro_torch.kernels import flash_attention as kf
+
+    out = {}
+    for (label, b, tq, tk, h, kvh, hd, q_offset, valid, causal,
+         window) in FLASH_WINDOW_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((b, tq, h, hd), generator=g, device="cuda",
+                            dtype=dtype)
+            k = torch.randn((b, tk, kvh, hd), generator=g, device="cuda",
+                            dtype=dtype)
+            v = torch.randn((b, tk, kvh, hd), generator=g, device="cuda",
+                            dtype=dtype)
+            kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=valid,
+                      sliding_window=window)
+            got, err = flash_check(torch, label, q, k, v, **kw)
+            variant = flash_variant(torch, q)
+            log(f"  flash_attention {label} B={b} Tq={tq} Tk={tk} H={h} "
+                f"K={kvh} hd={hd} q_offset={q_offset} kv_valid={valid} "
+                f"window={window} {str(dtype)[6:]} ({variant}): max |err| "
+                f"{err:.2e}")
+            if dtype == torch.float32:
+                continue
+            mask = window_mask(torch, tq, tk, causal, q_offset, valid,
+                               window)
+            lib = partial(sdpa, q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), attn_mask=mask,
+                          enable_gqa=h != kvh)
+            lib_err = float((lib().transpose(1, 2).float()
+                             - got.float()).abs().max())
+            if lib_err > 2e-2:
+                raise AssertionError(f"SDPA disagrees with flash_attention "
+                                     f"at {label} by {lib_err}")
+            b_ms, b_by = flash_bound(b, tq, h, kvh, hd, causal, q_offset,
+                                     valid, q.element_size(), window)
+            out[f"{variant}_{label.replace(' ', '_')}"] = {
+                "name": variant, "route": "cuda",
+                "source": "src/repro_torch/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:28",
+                "max_abs_err": err,
+                "fns": (partial(kf.flash_attention, q, k, v, **kw),
+                        partial(kf.flash_attention_plain, q, k, v, **kw),
+                        lib),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "shape": [label, b, tq, tk, h, hd, q_offset, valid, window,
+                          str(dtype)[6:]],
+                "log_only": True,
+            }
+    return out
+
+
+def flash_bwd_bound(b, tq, tk, h, kvh, hd, causal, q_offset, valid, elem,
+                    window=0):
     """(ms, "bytes" or "operations") for one backward call: the five
     products (S again, dP, dQ, dK, dV), 2 hd flops each for every visible
     (row, key) pair, at the bf16 tensor-core rate, against q, O, dO, dQ,
     the visible K/V rows and dK, dV moved once, and for bf16 the forward's
     float32 log-sum-exp read once."""
-    rows = [min(valid, q_offset + i + 1) if causal else valid
-            for i in range(tq)]
-    flops = 10 * hd * sum(rows) * b * h
-    nbytes = elem * hd * (4 * b * tq * h + 2 * b * kvh * max(rows)
+    rows = visible_keys(tq, causal, q_offset, valid, window)
+    flops = 10 * hd * sum(hi - lo for lo, hi in rows) * b * h
+    span = max(hi for _, hi in rows) - min(lo for lo, _ in rows)
+    nbytes = elem * hd * (4 * b * tq * h + 2 * b * kvh * span
                           + 2 * b * kvh * tk)
     if elem == 2:
         nbytes += 4 * b * h * tq
@@ -1149,20 +1306,35 @@ def flash_bwd_bound(b, tq, tk, h, kvh, hd, causal, q_offset, valid, elem):
 
 
 # (label, b, tq, tk, h, kv heads, hd, causal, q_offset, kv_valid_len, dtype
-# name): the train phase's attention (minicpm-2b, B 4, T 256, bf16), GQA at
-# hd 128, a ragged Tq over a ragged cache at q_offset 50, one query row (its
-# forward is the split-KV decode, so the backward gets the log-sum-exp from
-# the tensor-core forward), hd 16 without a causal mask, 4096 keys, and the
-# train shape in float32
+# name, window): the train phase's attention (minicpm-2b, B 4, T 256,
+# bf16), GQA at hd 128, a ragged Tq over a ragged cache at q_offset 50, one
+# query row (its forward is the split-KV decode, so the backward gets the
+# log-sum-exp from the tensor-core forward), hd 16 without a causal mask,
+# 4096 keys, and the train shape in float32; nemotron-4-340b's attention
+# at head width 192 (96 heads over 8, T 256) in both dtypes, and the train
+# shape under sliding windows of 128 and 1 024 keys (T 2048 for the latter)
 FLASH_BWD_CASES = [
-    ("train", 4, 256, 256, 36, 36, 64, True, 0, 256, "bfloat16"),
-    ("gqa hd128", 2, 256, 256, 56, 8, 128, True, 0, 256, "bfloat16"),
-    ("ragged q_offset", 2, 65, 130, 4, 2, 64, True, 50, 115, "bfloat16"),
-    ("one row", 2, 1, 90, 4, 2, 32, True, 60, 63, "bfloat16"),
-    ("hd16 bidirectional", 2, 70, 70, 4, 4, 16, False, 0, 60, "bfloat16"),
-    ("long cache", 1, 128, 4096, 4, 4, 64, True, 3968, 4096, "bfloat16"),
-    ("train float32", 4, 256, 256, 36, 36, 64, True, 0, 256, "float32"),
+    ("train", 4, 256, 256, 36, 36, 64, True, 0, 256, "bfloat16", 0),
+    ("gqa hd128", 2, 256, 256, 56, 8, 128, True, 0, 256, "bfloat16", 0),
+    ("ragged q_offset", 2, 65, 130, 4, 2, 64, True, 50, 115, "bfloat16", 0),
+    ("one row", 2, 1, 90, 4, 2, 32, True, 60, 63, "bfloat16", 0),
+    ("hd16 bidirectional", 2, 70, 70, 4, 4, 16, False, 0, 60, "bfloat16",
+     0),
+    ("long cache", 1, 128, 4096, 4, 4, 64, True, 3968, 4096, "bfloat16", 0),
+    ("train float32", 4, 256, 256, 36, 36, 64, True, 0, 256, "float32", 0),
+    ("nemotron hd192", 1, 256, 256, 96, 8, 192, True, 0, 256, "bfloat16",
+     0),
+    ("nemotron hd192 float32", 1, 256, 256, 96, 8, 192, True, 0, 256,
+     "float32", 0),
+    ("window128 train", 4, 256, 256, 36, 36, 64, True, 0, 256, "bfloat16",
+     128),
+    ("window1024 train", 1, 2048, 2048, 16, 16, 64, True, 0, 2048,
+     "bfloat16", 1024),
 ]
+# the backward cases timed: the train shape in both routes (the kernels
+# line's), and nemotron's and the windows' (logged)
+FLASH_BWD_TIMED = ("train", "train float32", "nemotron hd192",
+                   "window128 train", "window1024 train")
 # the bf16 kernel against its mirror (flash_attention_backward_mma_plain):
 # |got - want| <= MIRROR_RTOL |want| + MIRROR_ATOL max|want|, element by
 # element: the two round the same float32 values to bf16, reached by sums
@@ -1202,13 +1374,14 @@ def flash_bwd_kernels(torch) -> dict:
     g = torch.Generator(device="cuda").manual_seed(22)
     out = {}
     for (label, b, tq, tk, h, kvh, hd, causal, q_offset, valid,
-         dname) in FLASH_BWD_CASES:
+         dname, window) in FLASH_BWD_CASES:
         dtype = getattr(torch, dname)
         q, do = (torch.randn((b, tq, h, hd), generator=g, device="cuda",
                              dtype=dtype) for _ in range(2))
         k, v = (torch.randn((b, tk, kvh, hd), generator=g, device="cuda",
                             dtype=dtype) for _ in range(2))
-        kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=valid)
+        kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=valid,
+                  sliding_window=window)
         route = "mma" if dtype == torch.bfloat16 else "fma"
         if route == "mma":
             o, lse = kf.flash_attention_lse(q, k, v, **kw)
@@ -1253,14 +1426,20 @@ def flash_bwd_kernels(torch) -> dict:
                        if route == "mma" else "")
         log(f"  flash_attention_bwd {label} B={b} Tq={tq} Tk={tk} H={h} "
             f"K={kvh} hd={hd} causal={causal} q_offset={q_offset} "
-            f"kv_valid={valid} {dname} ({kf.BWD_VARIANTS[route]}): max |err| "
-            f"{err:.2e}{mirror_note}, two calls identical")
-        if not label.startswith("train"):
+            f"kv_valid={valid} window={window} {dname} "
+            f"({kf.BWD_VARIANTS[route]}): max |err| {err:.2e}{mirror_note}, "
+            "two calls identical")
+        if label not in FLASH_BWD_TIMED:
             continue
         # the library call: SDPA's backward on a saved graph, (B, H, T, hd)
         leaves = [t.transpose(1, 2).detach().requires_grad_(True)
                   for t in (q, k, v)]
-        lib_out = sdpa(*leaves, is_causal=True)
+        if window:
+            lib_out = sdpa(*leaves, attn_mask=window_mask(
+                torch, tq, tk, causal, q_offset, valid, window),
+                enable_gqa=h != kvh)
+        else:
+            lib_out = sdpa(*leaves, is_causal=True, enable_gqa=h != kvh)
         lib = partial(torch.autograd.grad, lib_out, leaves,
                       do.transpose(1, 2), retain_graph=True)
         for name, a, w in zip("qkv", got, lib()):
@@ -1269,10 +1448,13 @@ def flash_bwd_kernels(torch) -> dict:
                 raise AssertionError(f"SDPA's backward disagrees with "
                                      f"flash_attention_bwd in d{name} by {e}")
         b_ms, b_by = flash_bwd_bound(b, tq, tk, h, kvh, hd, causal, q_offset,
-                                     valid, q.element_size())
+                                     valid, q.element_size(), window)
         plain = (kf.flash_attention_backward_mma_plain if route == "mma"
                  else kf.flash_attention_backward_plain)
-        out[kf.BWD_VARIANTS[route]] = {
+        key = kf.BWD_VARIANTS[route]
+        if not label.startswith("train") or window:
+            key = f"{key}_{label.replace(' ', '_')}"
+        out[key] = {
             "name": kf.BWD_VARIANTS[route], "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/models/attention.py:49",
@@ -1281,9 +1463,10 @@ def flash_bwd_kernels(torch) -> dict:
                             lse=lse, **kw),
                     partial(plain, q, k, v, o, do, **kw), lib),
             "bound_ms": b_ms, "bound_by": b_by,
-            "shape": [label, b, tq, tk, h, hd, dname],
-            # no path launches the float32 route: logged, not in the line
-            "log_only": route == "fma",
+            "shape": [label, b, tq, tk, h, hd, window, dname],
+            # no path launches the float32 route: logged, not in the line;
+            # nemotron's and the windows' are logged too
+            "log_only": route == "fma" or key != kf.BWD_VARIANTS[route],
         }
     return out
 
@@ -1412,7 +1595,7 @@ def phase_parity(torch) -> None:
     (:func:`parity_index`), then the LMs."""
     for check in (parity_index, parity_lm, parity_moe, parity_mamba,
                   parity_jamba, parity_vlm, parity_xlstm, parity_whisper,
-                  parity_train):
+                  parity_train, parity_dist):
         t0 = time.perf_counter()
         check(torch)
         log(f"  {check.__name__}: {time.perf_counter() - t0:.1f} s")
@@ -2618,6 +2801,390 @@ def cosine(torch, a, b) -> float:
     return float(a @ b / (a.norm() * b.norm()).clamp_min(1e-30))
 
 
+# phase 3's nemotron gate: the attention layer's outputs within this of the
+# CPU's (bf16 products round at other places; parity_lm's logit bound)
+NEMOTRON_TOL = 0.1
+DRYRUN_DIR = ROOT / "experiments" / "dryrun_torch"
+
+
+def parity_dist(torch) -> None:
+    """The multi-chip substrate on the card: one ``nemotron-4-340b``
+    attention layer at full width (96 heads of 192 over 8 KV heads) card
+    against CPU; then, on a one-card mesh (``make_host_mesh``, NCCL and
+    gloo in one world-1 group), a 2-layer full-width ``minicpm-2b`` training
+    step under ``use_mesh`` against the same step without it, and a 1-layer
+    full-width ``qwen2-moe-a2.7b`` forward through the MoE mesh branch, card
+    against CPU; then two dry-run cells, ``minicpm-2b x train_4k x 16x16``
+    and ``quiver-1m x 16x16`` (``launch/dryrun.py``), printed."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    t0 = time.perf_counter()
+    parity_nemotron_layer(torch)
+    log(f"  parity_nemotron_layer: {time.perf_counter() - t0:.1f} s")
+    try:
+        for check in (parity_mesh_train, parity_mesh_moe):
+            t0 = time.perf_counter()
+            check(torch)
+            log(f"  {check.__name__}: {time.perf_counter() - t0:.1f} s")
+    finally:
+        mesh_mod.close_mesh()
+    t0 = time.perf_counter()
+    parity_dryrun_cells(torch)
+    log(f"  parity_dryrun_cells: {time.perf_counter() - t0:.1f} s")
+
+
+def parity_nemotron_layer(torch) -> None:
+    """One ``nemotron-4-340b`` attention layer at full width (d 18 432, 96
+    heads of 192 over 8 KV heads, 7.4e8 parameters, 1.5 GB in bf16), drawn
+    on the card and copied to the CPU: 2 prompts of 48 rows, prefill into a
+    64-row cache, then 4 decode steps; every output within
+    ``NEMOTRON_TOL`` of the CPU's (the card through the flash kernels at
+    head width 192: one tensor-core launch, then one split-KV launch a
+    step)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.models import attention as attn
+
+    cfg = get_config("nemotron-4-340b")
+    d, h, kh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    if hd != 192:
+        raise AssertionError(f"nemotron's head width is {hd}, not 192")
+    t0 = time.perf_counter()
+    gpu = attn.Attention(d, h, kh, hd, device="cuda")
+    attn.init_attention(gpu, generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    cpu = attn.Attention(d, h, kh, hd, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    n_par = sum(p.numel() for p in cpu.parameters())
+    log(f"  nemotron-4-340b attention layer ({n_par} parameters) drawn on "
+        f"the card and copied: {time.perf_counter() - t0:.1f} s")
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 52, d), generator=g).to(torch.bfloat16)
+    kw = dict(n_heads=h, n_kv_heads=kh, head_dim=hd,
+              rope_theta=cfg.rope_theta, kv_chunk=cfg.kv_chunk)
+
+    def run(p, device):
+        cache = attn.KVCache(
+            torch.zeros((2, 64, kh, hd), dtype=torch.bfloat16, device=device),
+            torch.zeros((2, 64, kh, hd), dtype=torch.bfloat16, device=device))
+        outs = []
+        with torch.no_grad():
+            for pos, t in ((0, 48), (48, 1), (49, 1), (50, 1), (51, 1)):
+                o, _ = attn.attention_forward(
+                    p, x[:, pos:pos + t].to(device), cache=cache,
+                    cache_pos=pos, **kw)
+                outs.append(o.float().cpu())
+        return outs
+
+    t0 = time.perf_counter()
+    want = run(cpu, "cpu")
+    t_cpu = time.perf_counter() - t0
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    got = run(gpu, "cuda")
+    t_gpu = time.perf_counter() - t0
+    launches = {k: kbuild.LAUNCHES[k] for k in (
+        "flash_attention_mma", "flash_attention_split_kv")}
+    if launches != {"flash_attention_mma": 1, "flash_attention_split_kv": 4}:
+        raise AssertionError(f"nemotron's layer launched {launches}")
+    worst = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    rel = max(float((a - b).norm() / b.norm()) for a, b in zip(got, want))
+    log(f"  nemotron-4-340b attention layer, 2 x 48 rows + 4 decode steps "
+        f"at hd 192: CPU {t_cpu:.1f} s, card {t_gpu:.1f} s; max |out diff| "
+        f"{worst:.4f} (relative L2 {rel:.2e}); launches {launches}")
+    if worst > NEMOTRON_TOL:
+        raise AssertionError(f"nemotron's layer differs by {worst} > "
+                             f"{NEMOTRON_TOL}")
+    del gpu
+    torch.cuda.empty_cache()
+
+
+def _whole(x):
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def parity_mesh_train(torch) -> None:
+    """``minicpm-2b`` at full width and 2 layers in bf16, one training step
+    (B 4, T 256, bf16 AdamW state) on the card, twice from the same draw:
+    under ``use_mesh`` with the training layout (parameters, gradients and
+    moments DTensors of the world-1 card mesh, attention through the
+    ``local_map`` core) and without a mesh.  The loss, grad norm, every
+    parameter and both moments equal bit for bit; the flash kernels
+    launched alike."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.dist.sharding import use_mesh
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+    from repro_torch.train.trainer import distribute_train_state
+
+    cfg = dataclasses.replace(get_config("minicpm-2b"), n_layers=2)
+    bundle = build_model(cfg)
+    tc = TrainConfig(n_micro=1, warmup=2, adamw=AdamWConfig(
+        state_dtype=torch.bfloat16))
+    tok = np.random.default_rng(7).integers(0, cfg.vocab_size, (4, 257))
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    mesh = make_host_mesh()
+
+    def run(meshed):
+        model = bundle.init(0, device="cuda")
+        opt = init_opt_state(dict(model.named_parameters()), tc.adamw)
+        opt["count"] += 4
+        step = make_train_step(bundle, tc)
+        kbuild.reset_launches()
+        t0 = time.perf_counter()
+        if meshed:
+            model, opt = distribute_train_state(model, opt, mesh)
+            with use_mesh(mesh):
+                model, opt, metrics = step(model, opt, batch)
+        else:
+            model, opt, metrics = step(model, opt, batch)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in kbuild.LAUNCHES.items()
+                    if k.startswith("flash")}
+        params = {n: _whole(p.detach()).cpu()
+                  for n, p in model.named_parameters()}
+        moments = {k: {n: _whole(t).cpu() for n, t in opt[k].items()}
+                   for k in ("mu", "nu")}
+        metrics = {k: _whole(v).cpu() for k, v in metrics.items()}
+        del model, opt
+        torch.cuda.empty_cache()
+        return params, moments, metrics, launches, seconds
+
+    p0, m0, met0, l0, s0 = run(False)
+    p1, m1, met1, l1, s1 = run(True)
+    if l0 != l1:
+        raise AssertionError(f"flash launches differ: {l0} against {l1}")
+    differ = [f"metric {k}" for k in met0 if not torch.equal(met0[k],
+                                                             met1[k])]
+    differ += [f"parameter {n}" for n in p0 if not torch.equal(p0[n], p1[n])]
+    differ += [f"{k} {n}" for k in m0 for n in m0[k]
+               if not torch.equal(m0[k][n], m1[k][n])]
+    log(f"  minicpm-2b x 2 layers, one step of 4 x 256 under use_mesh "
+        f"(card mesh of world size 1) against none: {len(p0)} parameters "
+        f"and both moments compared, {len(differ)} differ; loss "
+        f"{float(met0['loss']):.6f} / {float(met1['loss']):.6f}; step "
+        f"{s0:.2f} s / {s1:.2f} s; flash launches {l1}")
+    if differ:
+        raise AssertionError(f"the meshed step differs in {differ[:8]}")
+
+
+# the MoE mesh branch's float32 logits, card against CPU (jamba's float32
+# serving bound)
+MESH_MOE_LOGIT_TOL = 1e-3
+
+
+def parity_mesh_moe(torch) -> None:
+    """``qwen2-moe-a2.7b`` at full width and 1 layer in float32, drawn on
+    the CPU and copied to the card, each distributed in the training layout
+    on its device's world-1 mesh: one forward of 2 x 48 tokens through the
+    MoE mesh branch (one flat row of 96 tokens, cap ``capacity(96)``, the
+    FSDP all-gathers and the tp all-reduce over one rank).  Gated as
+    ``parity_moe`` gates its routes: the share of top-4 sets equal >= 0.98
+    and the dispatch of the CPU's expert ids (the flat row) identical on
+    the card; the logits, where every route agrees, within
+    ``MESH_MOE_LOGIT_TOL``.  In float32, because the branch is what is held
+    here: in bf16 a router near-tie flips a set on either device, and one
+    flip moves the ranks of the whole flat row.  The served precision is
+    held after it (:func:`parity_mesh_moe_bf16`)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.dist.sharding import distribute_params, \
+        param_shardings, use_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), n_layers=1)
+    bundle = build_model(cfg)
+    t0 = time.perf_counter()
+    gpu = bundle.init(0, device="cuda", dtype=torch.float32)
+    cpu = tf.DecoderLM(cfg, device="cpu", dtype=torch.float32)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    log(f"  qwen2-moe-a2.7b x 1 layer in float32 drawn on the card and "
+        f"copied: {time.perf_counter() - t0:.1f} s")
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 48))
+
+    def run(model, device):
+        mesh = make_host_mesh(device)
+        distribute_params(model, mesh, param_shardings(mesh, model))
+        with recorded_routes() as routes, torch.no_grad(), use_mesh(mesh):
+            x = tf.embed_tokens(model, torch.from_numpy(tokens).to(device))
+            h, aux = tf.forward_hidden(model, x)
+            logits = tf.logits_from_hidden(model, h)
+        return _whole(logits).float().cpu(), routes, {
+            k: float(_whole(v)) for k, v in aux.items()}
+
+    t0 = time.perf_counter()
+    want, r_cpu, aux_cpu = run(cpu, "cpu")
+    t_cpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got, r_gpu, aux_gpu = run(gpu, "cuda")
+    t_gpu = time.perf_counter() - t0
+    if len(r_cpu) != 1 or r_cpu[0].shape != (1, 96, cfg.top_k):
+        raise AssertionError(f"the mesh branch routed {len(r_cpu)} rows of "
+                             f"{[tuple(r.shape) for r in r_cpu]}, not one "
+                             "flat row of 96 tokens")
+    same = same_sets(r_cpu[0], r_gpu[0])
+    share = float(same.float().mean())
+    worst = float((got - want).abs().masked_fill(want < -1e29, 0).max())
+    cap = moe.capacity(96, cfg.n_experts, cfg.top_k)
+    a = moe.dispatch(r_cpu[0], cfg.n_experts, cap)
+    b = moe.dispatch(r_cpu[0].cuda(), cfg.n_experts, cap)
+    for name, x, y in zip(a._fields, a, b):
+        if not torch.equal(x, y.cpu()):
+            raise AssertionError(f"dispatch {name} of the CPU's flat row "
+                                 "differs on the card")
+    log(f"  qwen2-moe-a2.7b x 1 layer (float32) through the MoE mesh branch, "
+        f"one flat row of 2 x 48 tokens (cap {cap}): CPU {t_cpu:.1f} s, card "
+        f"{t_gpu:.1f} s; top-{cfg.top_k} sets equal {int(same.sum())} of "
+        f"{same.numel()} ({share:.4f}); max |logit diff| {worst:.4f}; aux "
+        f"CPU {aux_cpu}, card {aux_gpu}; dispatch of the CPU's expert ids "
+        f"identical on the card ({int((~a.keep).sum())} of "
+        f"{a.keep.numel()} pairs dropped)")
+    if share < MOE_ROUTE_SHARE:
+        raise AssertionError(f"only {share:.4f} of the routes agree")
+    if bool(same.all()) and worst > MESH_MOE_LOGIT_TOL:
+        raise AssertionError(f"logits differ by {worst} > "
+                             f"{MESH_MOE_LOGIT_TOL}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    parity_mesh_moe_bf16(torch, tokens)
+
+
+def parity_mesh_moe_bf16(torch, tokens) -> None:
+    """The MoE mesh branch at its served precision: the same layer in bf16
+    (drawn on the card and copied to the CPU), the same 2 x 48 tokens, each
+    device routing them twice, through the unmeshed path (two rows) and
+    through the mesh branch on its world-1 mesh (one flat row).  The router
+    sees the same input either way, so on each device the two top-4 sets
+    of every token are equal, and the tokens whose sets differ card against
+    CPU are the same through the branch as through the unmeshed path: what
+    flips is a router near-tie of the bf16 hidden state (the gap between
+    the k-th and (k+1)-th router probability at each such token is
+    printed), not the branch.  The dispatch of the CPU's flat row is
+    identical on the card."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.dist.sharding import distribute_params, \
+        param_shardings, use_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), n_layers=1)
+    bundle = build_model(cfg)
+    gpu = bundle.init(0, device="cuda")
+    cpu = tf.DecoderLM(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    k = cfg.top_k
+
+    def routes(model, device, meshed):
+        """(1, 96, k) top-k ids of the flat token order, and the (96,) gap
+        between the k-th and (k+1)-th router probability of each token."""
+        seen, real = [], moe.route
+
+        def tap(*args, **kwargs):
+            seen.append(real(*args, **kwargs))
+            return seen[-1]
+
+        ids = torch.from_numpy(tokens).to(device)
+        moe.route = tap
+        try:
+            with torch.no_grad(), contextlib.ExitStack() as stack:
+                if meshed:
+                    stack.enter_context(use_mesh(make_host_mesh(device)))
+                tf.forward_hidden(model, tf.embed_tokens(model, ids))
+        finally:
+            moe.route = real
+        if len(seen) != 1:
+            raise AssertionError(f"{len(seen)} MoE routings, not one")
+        top = _whole(seen[0].probs).float().topk(k + 1, dim=-1).values
+        return (_whole(seen[0].expert_idx).cpu().reshape(1, -1, k),
+                (top[..., k - 1] - top[..., k]).reshape(-1).cpu())
+
+    t0 = time.perf_counter()
+    plain, branch = {}, {}
+    for dev, model in (("cpu", cpu), ("cuda", gpu)):
+        plain[dev], gap_dev = routes(model, dev, False)
+        if dev == "cpu":
+            gap = gap_dev
+        mesh = make_host_mesh(dev)
+        distribute_params(model, mesh, param_shardings(mesh, model))
+        branch[dev], _ = routes(model, dev, True)
+        if not bool(same_sets(plain[dev], branch[dev]).all()):
+            raise AssertionError(f"on {dev} the mesh branch routes other "
+                                 "top-k sets than the unmeshed path")
+    flips = {name: (~same_sets(r["cpu"], r["cuda"]))[0].nonzero()
+             .flatten().tolist() for name, r in (("plain", plain),
+                                                 ("branch", branch))}
+    cap = moe.capacity(96, cfg.n_experts, k)
+    a = moe.dispatch(branch["cpu"], cfg.n_experts, cap)
+    b = moe.dispatch(branch["cpu"].cuda(), cfg.n_experts, cap)
+    for name, x, y in zip(a._fields, a, b):
+        if not torch.equal(x, y.cpu()):
+            raise AssertionError(f"dispatch {name} of the CPU's bf16 flat "
+                                 "row differs on the card")
+    n_same = 96 - len(flips["branch"])
+    log(f"  qwen2-moe-a2.7b x 1 layer (bf16), the same 2 x 48 tokens: on "
+        f"each device the mesh branch's top-{k} sets equal the unmeshed "
+        f"path's (96 of 96); card against CPU {n_same} of 96 equal "
+        f"({n_same / 96:.4f}), the tokens that differ {flips['branch']} "
+        f"through the branch and {flips['plain']} unmeshed, their CPU "
+        f"router gaps (k-th - (k+1)-th probability) "
+        f"{[round(float(gap[i]), 6) for i in flips['branch']]} (median "
+        f"over all 96: {float(gap.median()):.6f}); dispatch of the CPU's "
+        f"flat row identical on the card; {time.perf_counter() - t0:.1f} s")
+    if flips["branch"] != flips["plain"]:
+        raise AssertionError("card against CPU, the mesh branch flips other "
+                             "tokens than the unmeshed path")
+    del gpu
+    torch.cuda.empty_cache()
+
+
+def parity_dryrun_cells(torch) -> None:
+    """Two dry-run cells (``launch/dryrun.py``), printed with their roofline
+    terms: ``minicpm-2b x train_4k`` on the fake 16x16 mesh (fake CUDA
+    tensors), and ``quiver-1m`` (one 4 096-row shard of the 1M x 768 index
+    built and searched on the card)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import close_mesh
+
+    try:
+        reports = [dryrun.run_cell("minicpm-2b", "train_4k", False,
+                                   DRYRUN_DIR),
+                   dryrun.run_quiver_cell(False, DRYRUN_DIR)]
+    finally:
+        close_mesh()
+    for rep in reports:
+        if "error" in rep:
+            raise AssertionError(f"dry-run cell {rep['cell']}: "
+                                 f"{rep['error']}")
+        t = rep["terms_seconds"]
+        log(f"  dry run {rep['cell']} ({rep['mode']}): flops/dev "
+            f"{rep['flops_per_device']:.3e}, bytes/dev "
+            f"{rep['bytes_per_device']:.3e}, collective bytes/dev "
+            f"{rep['collectives']['total_bytes']:.3e}; compute "
+            f"{t['compute']:.4e} s, memory {t['memory']:.4e} s, collective "
+            f"{t['collective']:.4e} s: {rep['dominant']}-bound at "
+            f"{rep['bound_seconds']:.4e} s, useful flops "
+            f"{rep['useful_flops_ratio']:.3f}, MFU at the bound "
+            f"{rep['mfu_at_bound']:.4f}")
+
+
 def parity_train(torch) -> None:
     """Training, CPU against card: ``minicpm-2b`` at full width and 2 layers
     in bf16, the same parameters (drawn on the card, copied to the CPU) and
@@ -2981,11 +3548,13 @@ def phase_main(torch) -> dict:
             "scores": scores}
 
 
-# phase 5's IVF-seeded build runs over the first 50 000 rows of the phase-4
+# phase 5's IVF-seeded build runs over the first 20 000 rows of the phase-4
 # corpus on every host, a cut of depth that pays for the moe phase and
-# phase 3's MoE parity (its linking took 154 s at 100 000 rows); the filter
-# and engine phases search this index
-IVF_N = 50_000
+# phase 3's MoE parity (its linking took 154 s at 100 000 rows; at 50 000,
+# 74.6 s) and, at 20 000, for phase 2's hd-192 and window checks and phase
+# 3's multi-chip checks (PERF.md §5); the filter and engine phases search
+# this index
+IVF_N = 20_000
 
 
 def build_ivf_index(base):

@@ -16,8 +16,12 @@ the trainer saves ``{"params": ..., "opt": ...}`` in the reference's
 layout (``convert.lm_params_to_numpy(keep_bf16=True)`` and
 ``convert.opt_state_to_numpy``).  Async save: the device-to-host copy
 happens at the step boundary, synchronously; the file writes run on a
-background thread.  The reference's mesh re-sharding on restore has no
-counterpart: the port has one controller and restores to the host.
+background thread.  A DTensor leaf is gathered whole before it is
+written, so the file holds every leaf whole and restores onto any mesh,
+whatever mesh wrote it: the elastic restore of the reference's
+``restore(..., shardings=)`` is the trainer's, which restores whole
+tensors and distributes them onto its mesh
+(``train.trainer.distribute_train_state``).
 """
 
 from __future__ import annotations
@@ -50,7 +54,10 @@ def _walk(tree: Any, prefix: tuple = ()):
 def _to_host(leaf) -> tuple[np.ndarray, str]:
     """(storable array, manifest dtype) of a leaf; bfloat16 as uint16."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = leaf.detach()
+        if hasattr(t, "full_tensor"):
+            t = t.full_tensor()
+        t = t.cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), BF16
         a = t.numpy()

@@ -380,8 +380,11 @@ def _host_copy(t: torch.Tensor, keep_bf16: bool):
     an async checkpoint write never sees the next step's in-place update):
     numpy, or (bfloat16 with ``keep_bf16``) a CPU tensor, since numpy has
     no bfloat16 of its own; otherwise bfloat16 comes out as float32
-    (exactly)."""
-    t = t.detach().to("cpu", copy=True)
+    (exactly).  A DTensor is gathered whole first."""
+    t = t.detach()
+    if hasattr(t, "full_tensor"):
+        t = t.full_tensor()
+    t = t.to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t if keep_bf16 else t.float().numpy()
     return t.numpy()

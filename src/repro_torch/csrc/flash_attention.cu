@@ -9,7 +9,16 @@
 //
 //   out[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h / (H/K)] * scale,
 //                            masked (-1e30) where j >= kv_valid_len
-//                            or (causal and j > q_offset + i)) . v[b, j, ...]
+//                            or (causal and j > q_offset + i)
+//                            or (window and j <= q_offset + i - window))
+//                            . v[b, j, ...]
+//
+// A sliding window (window > 0, the reference's sliding_window) lets row i
+// see only the keys after q_offset + i - window.  Every kernel starts its
+// key loop at the first key that a row of its block (or split) can see, so
+// key tiles wholly before the window are skipped, not masked; only the tiles
+// that a mask edge crosses are masked.  A row that sees no key at all (only
+// possible without a causal mask) is outside the kernels' contract.
 //
 // q, k, v are read through their batch, position and head strides (the head
 // axis contiguous), so the model's (B, T, heads, hd) activations and a KV
@@ -89,6 +98,16 @@
 //   through shared memory for the P.V product. Shared memory (64 (hd + 1) * 2
 //   + 64 hd + 64 * 65) * 4 bytes: 65 KB at hd = 64, 113 KB at hd = 128.
 //
+// Head width 192 (nemotron-4-340b): flash_mma_kernel<192> keeps the output's
+// 96 float32 accumulators a thread and reads Q's fragments from the Q tile
+// in shared memory at every k-step instead of holding them (48 more
+// registers would spill), with 125 KB of shared memory, one block a
+// multiprocessor; the split-KV kernel runs 32 lanes a key row, of which 24
+// hold dims (24 chunks a row is no power of two for the shuffles); the
+// simt kernel takes 164 KB of shared memory.  The window is a template
+// argument of flash_mma_kernel, so the unwindowed instance (every served
+// model's) compiles without it.
+//
 // The bf16 kernels take pointers and batch, position and head strides that
 // keep every row on a 16-byte boundary; the wrapper checks that.
 
@@ -133,7 +152,7 @@ __global__ void __launch_bounds__(kThreads)
                  long long q_sh, long long k_sb, long long k_st,
                  long long k_sh, long long v_sb, long long v_st,
                  long long v_sh, int causal, int q_offset, int kv_valid_len,
-                 float scale) {
+                 int window, float scale) {
   static_assert(HD % 16 == 0, "head width must be a multiple of 16");
   constexpr int QS = HD + 1;       // row stride of the Q and K tiles
   constexpr int SS = kKeys + 1;    // row stride of the probability tile
@@ -171,8 +190,10 @@ __global__ void __launch_bounds__(kThreads)
   // the last key any row of this block can see
   int kv_end = min(kv_valid_len, tk);
   if (causal) kv_end = min(kv_end, q_offset + min(q0 + kRows, tq));
+  // and the first (the window's start for the block's first row)
+  const int kv_begin = window ? max(0, q_offset + q0 - window + 1) : 0;
 
-  for (int j0 = 0; j0 < kv_end; j0 += kKeys) {
+  for (int j0 = kv_begin; j0 < kv_end; j0 += kKeys) {
     __syncthreads();  // the previous tile's reads are done (and Q is in)
     for (int e = tid; e < kKeys * HD; e += kThreads) {
       const int r = e / HD, d = e % HD;
@@ -209,7 +230,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int c = 0; c < kKeysPerThread; ++c) {
         const int key = j0 + tx + 16 * c;
         const bool vis = key < kv_valid_len && key < tk &&
-                         (!causal || key <= q_pos);
+                         (!causal || key <= q_pos) &&
+                         (!window || key > q_pos - window);
         s[a][c] = vis ? s[a][c] * scale : kMasked;
         mx = fmaxf(mx, s[a][c]);
       }
@@ -273,8 +295,12 @@ constexpr size_t mma_smem_bytes() {
   return (size_t)(kRows + 4 * kKeys) * (HD + kPad) * sizeof(bf16);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads, HD <= 64 ? 4 : 2)
+// WIN: the instance for a sliding window; without it the window's
+// arithmetic is compiled out, so the instances the served models take
+// (window 0) keep their registers (at hd <= 64 the bound of 128 a thread
+// holds four blocks a multiprocessor)
+template <int HD, bool WIN>
+__global__ void __launch_bounds__(kThreads, HD <= 64 ? 4 : (HD <= 128 ? 2 : 1))
     flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ out,
                      float* __restrict__ lse, int tq, int tk, int h,
@@ -282,8 +308,13 @@ __global__ void __launch_bounds__(kThreads, HD <= 64 ? 4 : 2)
                      long long q_st, long long q_sh, long long k_sb,
                      long long k_st, long long k_sh, long long v_sb,
                      long long v_st, long long v_sh, int causal, int q_offset,
-                     int kv_valid_len, float scale_log2) {
+                     int kv_valid_len, int window_arg, float scale_log2) {
   static_assert(HD % 16 == 0, "head width must be a multiple of 16");
+  const int window = WIN ? window_arg : 0;
+  // Q's mma A fragments stay in registers up to hd 128; at hd 192 they
+  // would take 48 registers a thread on top of the output's 96, so they are
+  // read from the Q tile in shared memory at every k-step instead
+  constexpr bool QREG = HD <= 128;
   constexpr int RS = HD + kPad;     // row stride (elements) of every tile
   constexpr int CH = HD / 8;        // 16-byte chunks a row
   constexpr int KSTEPS = HD / 16;   // k-steps of Q K^T
@@ -308,6 +339,10 @@ __global__ void __launch_bounds__(kThreads, HD <= 64 ? 4 : 2)
   int kv_end = min(kv_valid_len, tk);
   if (causal) kv_end = min(kv_end, q_offset + min(q0 + kRows, tq));
   const int n_tiles = (kv_end + kKeys - 1) / kKeys;
+  // the first tile with a key that a row of the block can see: the tiles
+  // wholly before the window of the block's first row are skipped
+  const int t_first =
+      window ? max(0, q_offset + q0 - window + 1) / kKeys : 0;
 
   for (int c = tid; c < kRows * CH; c += kThreads) {
     const int r = c / CH, d = (c % CH) * 8;
@@ -327,10 +362,10 @@ __global__ void __launch_bounds__(kThreads, HD <= 64 ? 4 : 2)
       cp_async16(dv + r * RS + d, in ? vb + row * v_st + d : vb, in);
     }
   };
-  load_kv(0);
+  load_kv(t_first);
   cp_async_commit();
 
-  uint32_t qf[KSTEPS][4];
+  uint32_t qf[QREG ? KSTEPS : 1][4];
   float o[DT][4];
 #pragma unroll
   for (int t = 0; t < DT; ++t)
@@ -341,16 +376,18 @@ __global__ void __launch_bounds__(kThreads, HD <= 64 ? 4 : 2)
   float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
   const int r0 = q0 + wrow + lane / 4;
 
-  for (int tile = 0; tile < n_tiles; ++tile) {
+  for (int tile = t_first; tile < n_tiles; ++tile) {
     if (tile + 1 < n_tiles) load_kv(tile + 1);
     cp_async_commit();
     cp_async_wait<1>();  // this tile (and Q) have landed
     __syncthreads();
-    if (tile == 0) {
+    if constexpr (QREG) {
+      if (tile == t_first) {
 #pragma unroll
-      for (int s = 0; s < KSTEPS; ++s)
-        ldmatrix_x4(qf[s], sq + (wrow + lane % 16) * RS + s * 16 +
-                               (lane / 16) * 8);
+        for (int s = 0; s < KSTEPS; ++s)
+          ldmatrix_x4(qf[s], sq + (wrow + lane % 16) * RS + s * 16 +
+                                 (lane / 16) * 8);
+      }
     }
     const bf16* tk_ = sk + (tile & 1) * kKeys * RS;
     const bf16* tv_ = sv + (tile & 1) * kKeys * RS;
@@ -362,20 +399,29 @@ __global__ void __launch_bounds__(kThreads, HD <= 64 ? 4 : 2)
       for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < KSTEPS; ++ks) {
+      uint32_t a[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[ks][e];
+      } else {
+        ldmatrix_x4(a, sq + (wrow + lane % 16) * RS + ks * 16 +
+                           (lane / 16) * 8);
+      }
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t b[4];
         ldmatrix_x4(b, tk_ + (np * 16 + lane % 8 + (lane / 16) * 8) * RS +
                            ks * 16 + ((lane / 8) % 2) * 8);
-        mma_bf16(s[2 * np], qf[ks], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qf[ks], b[2], b[3]);
+        mma_bf16(s[2 * np], a, b[0], b[1]);
+        mma_bf16(s[2 * np + 1], a, b[2], b[3]);
       }
     }
 
     const int j0 = tile * kKeys;
     // a tile that no mask edge crosses for any row of this warp
     const bool full = j0 + kKeys <= min(kv_valid_len, tk) &&
-                      (!causal || j0 + kKeys - 1 <= q_offset + q0 + wrow);
+                      (!causal || j0 + kKeys - 1 <= q_offset + q0 + wrow) &&
+                      (!window || j0 > q_offset + q0 + wrow + 15 - window);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int t = 0; t < NT; ++t)
@@ -386,7 +432,8 @@ __global__ void __launch_bounds__(kThreads, HD <= 64 ? 4 : 2)
           const int key = j0 + t * 8 + (lane % 4) * 2 + (e & 1);
           const int row = r0 + (e >> 1) * 8;
           const bool vis = key < kv_valid_len && key < tk &&
-                           (!causal || key <= q_offset + row);
+                           (!causal || key <= q_offset + row) &&
+                           (!window || key > q_offset + row - window);
           x = vis ? x : kMasked;
         }
         s[t][e] = x;
@@ -397,8 +444,11 @@ __global__ void __launch_bounds__(kThreads, HD <= 64 ? 4 : 2)
     for (int i = 0; i < 2; ++i) {
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      // key 0 is visible to every real row, so m is a real score from the
-      // first tile on, and a masked score's exp2(-1e30 - m) is 0
+      // once a row has seen a visible key, m is a real score and a masked
+      // score's exp2(-1e30 - m) is 0.  A row whose first tiles lie wholly
+      // outside its window (the block's later rows under a window) runs on
+      // m = -1e30 until then, and its first real score resets l and o by
+      // corr = exp2(-1e30 - m) = 0
       corr[i] = exp2f(m[i] - mx[i]);
       m[i] = mx[i];
       l[i] *= corr[i];
@@ -477,8 +527,9 @@ __global__ void __launch_bounds__(kThreads, HD <= 64 ? 4 : 2)
   }
 }
 
-// Decode, Tq = 1: one block per (split of kKeys keys, KV head, batch).
-// Partials of query head hq = kvh * group + g go to
+// Decode, Tq = 1: one block per (split of kKeys keys, KV head, batch), the
+// splits counted from the one holding key kv_begin (the window's start; 0
+// without a window).  Partials of query head hq = kvh * group + g go to
 // part_o[((b * h + hq) * n_split + split) * HD + d] and
 // part_ml[((b * h + hq) * n_split + split) * 2 + {0, 1}] = (m, l), m in
 // log2 units of the scaled score.
@@ -490,9 +541,14 @@ __global__ void __launch_bounds__(kThreads)
                        int n_split, long long q_sb, long long q_sh,
                        long long k_sb, long long k_st, long long k_sh,
                        long long v_sb, long long v_st, long long v_sh,
-                       int causal, int q_offset, int kv_end,
+                       int causal, int q_offset, int kv_begin, int kv_end,
                        float scale_log2) {
-  constexpr int TPR = HD / 8;            // threads a key row, 8 dims each
+  constexpr int CH = HD / 8;             // 16-byte chunks a key row
+  // threads a key row, 8 dims each: CH rounded up to a power of two (hd 192:
+  // 32 lanes, of which 24 hold dims), so a row's lanes reduce by shuffles
+  constexpr int TPR = CH <= 2 ? 2 : CH <= 4 ? 4 : CH <= 8 ? 8
+                                : CH <= 16 ? 16 : 32;
+  static_assert(CH <= 32, "head width above 256");
   constexpr int RP = kThreads / TPR;     // key rows a pass
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sk = reinterpret_cast<bf16*>(smem);          // kKeys x HD
@@ -505,15 +561,17 @@ __global__ void __launch_bounds__(kThreads)
   // waits for this grid to finish
   asm volatile("griddepcontrol.launch_dependents;\n" ::);
   const int split = blockIdx.x, kvh = blockIdx.y, bb = blockIdx.z;
-  const int j0 = split * kKeys;
+  const int j0 = (kv_begin / kKeys + split) * kKeys;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int hq0 = kvh * group;
   const long long part0 = ((long long)bb * h + hq0) * n_split + split;
 
-  // the visible keys of the single query row are a prefix: j < last
+  // the visible keys of the single query row are kv_begin <= j < last; of
+  // this split, its rows lo <= r < hi
   const int last = causal ? min(kv_end, q_offset + 1) : kv_end;
-  const int n_vis = max(0, min(kKeys, last - j0));
-  if (n_vis == 0) {  // a fully masked split: m = -1e30, l = 0, o = 0
+  const int lo = max(0, kv_begin - j0);
+  const int hi = max(lo, min(kKeys, last - j0));
+  if (hi == lo) {  // a fully masked split: m = -1e30, l = 0, o = 0
     for (int e = tid; e < group * HD; e += kThreads)
       part_o[(part0 + (long long)(e / HD) * n_split) * HD + e % HD] = 0.f;
     for (int g = tid; g < group; g += kThreads) {
@@ -525,17 +583,17 @@ __global__ void __launch_bounds__(kThreads)
 
   const bf16* kb = k + bb * k_sb + kvh * k_sh;
   const bf16* vb = v + bb * v_sb + kvh * v_sh;
-  for (int c = tid; c < kKeys * TPR; c += kThreads) {
-    const int r = c / TPR, d = (c % TPR) * 8;
-    const bool in = r < n_vis;  // rows past it load as zeros
+  for (int c = tid; c < kKeys * CH; c += kThreads) {
+    const int r = c / CH, d = (c % CH) * 8;
+    const bool in = lo <= r && r < hi;  // rows outside load as zeros
     cp_async16(sk + r * HD + d, in ? kb + (long long)(j0 + r) * k_st + d : kb,
                in);
     cp_async16(sv + r * HD + d, in ? vb + (long long)(j0 + r) * v_st + d : vb,
                in);
   }
   cp_async_commit();
-  for (int c = tid; c < group * TPR; c += kThreads) {
-    const int g = c / TPR, d = (c % TPR) * 8;
+  for (int c = tid; c < group * CH; c += kThreads) {
+    const int g = c / CH, d = (c % CH) * 8;
     const uint4 raw = *reinterpret_cast<const uint4*>(
         q + bb * q_sb + (hq0 + g) * q_sh + d);
     const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -549,28 +607,36 @@ __global__ void __launch_bounds__(kThreads)
   cp_async_wait<0>();
   __syncthreads();
 
+  // lane c of a row holds dims 8c .. 8c + 7, none where c >= CH
   const int c = tid % TPR, r = tid / TPR;
+  const bool has = c < CH;
   // scores: each thread dots its 8 dims of a key row with every head of
   // the group, summed over the row's TPR threads
   for (int j = r; j < kKeys; j += RP) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(sk + j * HD + c * 8);
-    const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
     float kf[8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(p2[i]);
-      kf[2 * i] = f.x;
-      kf[2 * i + 1] = f.y;
+    for (int i = 0; i < 8; ++i) kf[i] = 0.f;
+    if (has) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(sk + j * HD + c * 8);
+      const __nv_bfloat162* p2 =
+          reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(p2[i]);
+        kf[2 * i] = f.x;
+        kf[2 * i + 1] = f.y;
+      }
     }
     for (int g = 0; g < group; ++g) {
-      const float* qg = sq + g * HD + c * 8;
+      const float* qg = sq + g * HD + (has ? c * 8 : 0);
       float dot = 0.f;
 #pragma unroll
       for (int i = 0; i < 8; ++i) dot = fmaf(qg[i], kf[i], dot);
 #pragma unroll
       for (int off = TPR / 2; off > 0; off >>= 1)
         dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      if (c == 0) ss[g * kKeys + j] = j < n_vis ? dot * scale_log2 : kMasked;
+      if (c == 0)
+        ss[g * kKeys + j] = lo <= j && j < hi ? dot * scale_log2 : kMasked;
     }
   }
   __syncthreads();
@@ -583,7 +649,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    // n_vis >= 1, so mx is a real score and exp2(-1e30 - mx) = 0
+    // hi > lo, so mx is a real score and exp2(-1e30 - mx) = 0
     const float pa = exp2f(a - mx), pb = exp2f(b - mx);
     sg[lane] = pa;
     sg[lane + 32] = pb;
@@ -604,7 +670,7 @@ __global__ void __launch_bounds__(kThreads)
     float acc[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc[i] = 0.f;
-    for (int j = r; j < kKeys; j += RP) {
+    for (int j = r; has && j < kKeys; j += RP) {
       const float p = ss[g * kKeys + j];
       const uint4 raw = *reinterpret_cast<const uint4*>(sv + j * HD + c * 8);
       const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -620,7 +686,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int i = 0; i < 8; ++i)
         acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
-    if (lane < TPR) {
+    if (lane < TPR && has) {
 #pragma unroll
       for (int i = 0; i < 8; ++i)
         red[(warp * group + g) * HD + c * 8 + i] = acc[i];
@@ -680,7 +746,7 @@ struct Args {
   void* out;
   int b, tq, tk, h, kh;
   long long q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
-  int causal, q_offset, kv_valid_len;
+  int causal, q_offset, kv_valid_len, window;
   float scale;
   cudaStream_t stream;
 };
@@ -702,13 +768,14 @@ int launch_simt(const Args& a) {
       (const TQ*)a.q, (const TKV*)a.k, (const TKV*)a.v, (TQ*)a.out, a.tq,
       a.tk, a.h, a.h / a.kh, a.q_sb, a.q_st, a.q_sh, a.k_sb, a.k_st, a.k_sh,
       a.v_sb, a.v_st, a.v_sh, a.causal, a.q_offset, a.kv_valid_len,
-      a.scale);
+      a.window, a.scale);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch_mma(const Args& a, float* lse) {
-  auto kernel = tc::flash_mma_kernel<HD>;
+  auto kernel = a.window ? tc::flash_mma_kernel<HD, true>
+                         : tc::flash_mma_kernel<HD, false>;
   constexpr size_t smem = tc::mma_smem_bytes<HD>();
   if (const int err = allow_smem(kernel, smem)) return err;
   const dim3 grid(a.h, a.b, (a.tq + tc::kRows - 1) / tc::kRows);
@@ -716,7 +783,7 @@ int launch_mma(const Args& a, float* lse) {
       (const tc::bf16*)a.q, (const tc::bf16*)a.k, (const tc::bf16*)a.v,
       (tc::bf16*)a.out, lse, a.tq, a.tk, a.h, a.h / a.kh, a.q_sb, a.q_st, a.q_sh,
       a.k_sb, a.k_st, a.k_sh, a.v_sb, a.v_st, a.v_sh, a.causal, a.q_offset,
-      a.kv_valid_len, a.scale * tc::kLog2e);
+      a.kv_valid_len, a.window, a.scale * tc::kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -727,10 +794,12 @@ int launch_split(const Args& a, float* part_o, float* part_ml, int n_split) {
   const size_t smem = tc::split_smem_bytes<HD>(group);
   if (const int err = allow_smem(kernel, smem)) return err;
   const int kv_end = a.kv_valid_len < a.tk ? a.kv_valid_len : a.tk;
+  const int first = a.q_offset - a.window + 1;
+  const int kv_begin = a.window && first > 0 ? first : 0;
   kernel<<<dim3(n_split, a.kh, a.b), tc::kThreads, smem, a.stream>>>(
       (const tc::bf16*)a.q, (const tc::bf16*)a.k, (const tc::bf16*)a.v,
       part_o, part_ml, a.h, group, n_split, a.q_sb, a.q_sh, a.k_sb, a.k_st,
-      a.k_sh, a.v_sb, a.v_st, a.v_sh, a.causal, a.q_offset, kv_end,
+      a.k_sh, a.v_sb, a.v_st, a.v_sh, a.causal, a.q_offset, kv_begin, kv_end,
       a.scale * tc::kLog2e);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -760,6 +829,7 @@ int by_width(int hd, F&& f) {
     case 32: return f(std::integral_constant<int, 32>());
     case 64: return f(std::integral_constant<int, 64>());
     case 128: return f(std::integral_constant<int, 128>());
+    case 192: return f(std::integral_constant<int, 192>());
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -778,11 +848,12 @@ extern "C" int quiver_flash_attention(
     int b, int tq, int tk, int h, int kh, int hd, long long q_sb,
     long long q_st, long long q_sh, long long k_sb, long long k_st,
     long long k_sh, long long v_sb, long long v_st, long long v_sh,
-    int causal, int q_offset, int kv_valid_len, float scale, void* stream) {
+    int causal, int q_offset, int kv_valid_len, int window, float scale,
+    void* stream) {
   if (b == 0 || tq == 0 || h == 0) return (int)cudaGetLastError();
   const Args a{q,    k,    v,    out,  b,    tq,     tk,       h,
                kh,   q_sb, q_st, q_sh, k_sb, k_st,   k_sh,     v_sb,
-               v_st, v_sh, causal, q_offset, kv_valid_len, scale,
+               v_st, v_sh, causal, q_offset, kv_valid_len, window, scale,
                (cudaStream_t)stream};
   return by_width(hd, [&](auto w) {
     constexpr int HD = decltype(w)::value;
@@ -802,11 +873,11 @@ extern "C" int quiver_flash_attention_mma(
     int tk, int h, int kh, int hd, long long q_sb, long long q_st,
     long long q_sh, long long k_sb, long long k_st, long long k_sh,
     long long v_sb, long long v_st, long long v_sh, int causal, int q_offset,
-    int kv_valid_len, float scale, void* stream) {
+    int kv_valid_len, int window, float scale, void* stream) {
   if (b == 0 || tq == 0 || h == 0) return (int)cudaGetLastError();
   const Args a{q,    k,    v,    out,  b,    tq,     tk,       h,
                kh,   q_sb, q_st, q_sh, k_sb, k_st,   k_sh,     v_sb,
-               v_st, v_sh, causal, q_offset, kv_valid_len, scale,
+               v_st, v_sh, causal, q_offset, kv_valid_len, window, scale,
                (cudaStream_t)stream};
   return by_width(hd, [&](auto w) {
     return launch_mma<decltype(w)::value>(a, (float*)lse);
@@ -815,17 +886,19 @@ extern "C" int quiver_flash_attention_mma(
 
 // bfloat16 q (tq = 1), k, v: the split-KV decode.  part_o (b, h, n_split,
 // hd) and part_ml (b, h, n_split, 2) are float32 scratch; n_split =
-// ceil(min(kv_valid_len, tk) / 64).
+// ceil(min(kv_valid_len, tk) / 64) - kv_begin / 64, kv_begin = max(0,
+// q_offset - window + 1) under a window and 0 without.
 extern "C" int quiver_flash_decode_split(
     const void* q, const void* k, const void* v, void* out, void* part_o,
     void* part_ml, int n_split, int b, int tk, int h, int kh, int hd,
     long long q_sb, long long q_sh, long long k_sb, long long k_st,
     long long k_sh, long long v_sb, long long v_st, long long v_sh,
-    int causal, int q_offset, int kv_valid_len, float scale, void* stream) {
+    int causal, int q_offset, int kv_valid_len, int window, float scale,
+    void* stream) {
   if (b == 0 || h == 0) return (int)cudaGetLastError();
   const Args a{q,    k,    v,    out,  b,    1,      tk,       h,
                kh,   q_sb, 0,    q_sh, k_sb, k_st,   k_sh,     v_sb,
-               v_st, v_sh, causal, q_offset, kv_valid_len, scale,
+               v_st, v_sh, causal, q_offset, kv_valid_len, window, scale,
                (cudaStream_t)stream};
   return by_width(hd, [&](auto w) {
     return launch_split<decltype(w)::value>(a, (float*)part_o,

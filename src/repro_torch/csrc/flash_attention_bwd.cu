@@ -13,7 +13,8 @@
 // layer's function
 //
 //   S = q k^T * scale, masked (-1e30) where j >= kv_valid_len or
-//       (causal and j > q_offset + i);  P = softmax_j(S);  O = P v
+//       (causal and j > q_offset + i) or
+//       (window and j <= q_offset + i - window);  P = softmax_j(S);  O = P v
 //
 // for q (B, Tq, H, hd), k and v (B, Tk, K, hd), the KV head of query head h
 // being h / (H/K), as
@@ -92,6 +93,15 @@
 //   1) + 64 * 65) * 4 bytes (dQ) and (4 * 64 (hd + 1) + 2 * 64 * 65 + 128)
 //   * 4 bytes (dK/dV).
 //
+// Under a sliding window (window > 0) each kernel walks only the tiles that
+// a row of its block can see: dQ starts at the window of its first row, and
+// dK/dV stops at the last query tile whose window reaches its keys.
+//
+// At hd 192 each dK/dV block (both routes) and each tensor-core dQ block
+// accumulates half of the head's columns (PARTS = 2, a grid twice as long,
+// S and dP computed by both halves): the full width would hold 192 float32
+// accumulators a thread in dK/dV, over the 255-register limit.
+//
 // Both routes read tiles in 16-byte vectors through the caller's batch,
 // position and head strides, so the wrapper checks that every row starts on
 // a 16-byte boundary.
@@ -112,6 +122,17 @@ constexpr int kPer = kTile / (kThreads / 16);  // tile rows a thread
 constexpr int kCols = kTile / 16;              // tile columns a thread
 constexpr int SS = kTile + 1;                  // row stride of a P/dS tile
 constexpr float kMasked = -1e30f;
+
+}  // namespace bwd
+
+// the column halves a gradient block accumulates at a head width: 2 at hd
+// 192 (both routes' dK/dV, the tensor-core dQ), else 1
+template <int HD>
+__host__ __device__ constexpr int col_parts() {
+  return HD > 128 ? 2 : 1;
+}
+
+namespace bwd {
 
 // rows [row0, row0 + n) of a (rows, HD) operand at row stride `stride`
 // elements -> dst (kTile x (HD + 1)); rows past n are zero
@@ -169,7 +190,7 @@ __global__ void __launch_bounds__(kThreads)
                   long long q_st, long long q_sh, long long k_sb,
                   long long k_st, long long k_sh, long long v_sb,
                   long long v_st, long long v_sh, int causal, int q_offset,
-                  int kv_valid_len, float scale) {
+                  int kv_valid_len, int window, float scale) {
   constexpr int QS = HD + 1;
   constexpr int DC = HD / 16;
   extern __shared__ float sm[];
@@ -210,6 +231,8 @@ __global__ void __launch_bounds__(kThreads)
   // the last key any row of this block can see
   int kv_end = min(kv_valid_len, tk);
   if (causal) kv_end = min(kv_end, q_offset + q0 + n_q);
+  // and the first (the window's start for the block's first row)
+  const int kv_begin = window ? max(0, q_offset + q0 - window + 1) : 0;
 
   // pass 1: each row's log-sum-exp
   float m[kPer], l[kPer];
@@ -218,7 +241,7 @@ __global__ void __launch_bounds__(kThreads)
     m[a] = kMasked;
     l[a] = 0.f;
   }
-  for (int j0 = 0; j0 < kv_end; j0 += kTile) {
+  for (int j0 = kv_begin; j0 < kv_end; j0 += kTile) {
     __syncthreads();  // the previous tile's reads (or D's) are done
     load_tile<HD>(sk, kb, k_st, j0, min(kTile, kv_end - j0));
     __syncthreads();
@@ -246,7 +269,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
         const int key = j0 + tx + 16 * c;
-        const bool vis = key < kv_end && (!causal || key <= q_pos);
+        const bool vis = key < kv_end && (!causal || key <= q_pos) &&
+                         (!window || key > q_pos - window);
         s[a][c] = vis ? s[a][c] * scale : kMasked;
         mx = fmaxf(mx, s[a][c]);
       }
@@ -268,7 +292,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int a = 0; a < kPer; ++a)
 #pragma unroll
     for (int c = 0; c < DC; ++c) acc[a][c] = 0.f;
-  for (int j0 = 0; j0 < kv_end; j0 += kTile) {
+  for (int j0 = kv_begin; j0 < kv_end; j0 += kTile) {
     __syncthreads();
     const int n_k = min(kTile, kv_end - j0);
     load_tile<HD>(sk, kb, k_st, j0, n_k);
@@ -305,7 +329,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
         const int key = j0 + tx + 16 * c;
-        const bool vis = key < kv_end && (!causal || key <= q_pos);
+        const bool vis = key < kv_end && (!causal || key <= q_pos) &&
+                         (!window || key > q_pos - window);
         const float p = vis ? expf(s[a][c] * scale - lse[a]) : 0.f;
         ss[row * SS + tx + 16 * c] = p * (dp[a][c] - dd[a]);
       }
@@ -353,9 +378,10 @@ __global__ void __launch_bounds__(kThreads)
                     long long q_sh, long long k_sb, long long k_st,
                     long long k_sh, long long v_sb, long long v_st,
                     long long v_sh, int causal, int q_offset,
-                    int kv_valid_len, float scale) {
+                    int kv_valid_len, int window, float scale) {
   constexpr int QS = HD + 1;
-  constexpr int DC = HD / 16;
+  constexpr int PARTS = col_parts<HD>();
+  constexpr int DC = HD / 16 / PARTS;  // columns a thread, of its part
   extern __shared__ float sm[];
   float* sk = sm;              // kTile x QS
   float* sv = sk + kTile * QS;
@@ -366,13 +392,18 @@ __global__ void __launch_bounds__(kThreads)
   float* slse = sds + kTile * SS;
   float* sdd = slse + kTile;
 
-  const int j0 = blockIdx.x * kTile;
+  const int j0 = blockIdx.x / PARTS * kTile;
+  // this block's columns: col0 + tx + 16 c
+  const int col0 = blockIdx.x % PARTS * (HD / PARTS);
   const int kvh = blockIdx.y;
   const int bb = blockIdx.z;
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
   const int kv_end = min(kv_valid_len, tk);
   const long long o_st = (long long)h * HD;
+  // the query rows whose window reaches a key of the tile: i < i_end
+  const int i_end =
+      window ? min(tq, max(0, j0 + kTile - 1 + window - q_offset)) : tq;
 
   float acc_dk[kPer][DC], acc_dv[kPer][DC];
 #pragma unroll
@@ -391,7 +422,7 @@ __global__ void __launch_bounds__(kThreads)
       const long long o_base = ((long long)bb * tq * h + hh) * HD;
       const float* lse_h = lse + ((long long)bb * h + hh) * tq;
       const float* dd_h = dd + ((long long)bb * h + hh) * tq;
-      for (int i0 = i_first; i0 < tq; i0 += kTile) {
+      for (int i0 = i_first; i0 < i_end; i0 += kTile) {
         const int n_q = min(kTile, tq - i0);
         __syncthreads();  // the previous tile's reads are done
         load_tile<HD>(sq, q + bb * q_sb + hh * q_sh, q_st, i0, n_q);
@@ -433,7 +464,8 @@ __global__ void __launch_bounds__(kThreads)
           for (int c = 0; c < kCols; ++c) {
             const int qr = tx + 16 * c;
             const bool vis = j0 + key < kv_end && qr < n_q &&
-                             (!causal || j0 + key <= q_offset + i0 + qr);
+                             (!causal || j0 + key <= q_offset + i0 + qr) &&
+                             (!window || j0 + key > q_offset + i0 + qr - window);
             const float p = vis ? expf(st[a][c] * scale - slse[qr]) : 0.f;
             sp[key * SS + qr] = p;
             sds[key * SS + qr] = p * (dpt[a][c] - sdd[qr]);
@@ -445,8 +477,8 @@ __global__ void __launch_bounds__(kThreads)
           float gg[DC], qq[DC];
 #pragma unroll
           for (int c = 0; c < DC; ++c) {
-            gg[c] = sdo[i * QS + tx + 16 * c];
-            qq[c] = sq[i * QS + tx + 16 * c];
+            gg[c] = sdo[i * QS + col0 + tx + 16 * c];
+            qq[c] = sq[i * QS + col0 + tx + 16 * c];
           }
 #pragma unroll
           for (int a = 0; a < kPer; ++a) {
@@ -470,8 +502,8 @@ __global__ void __launch_bounds__(kThreads)
     const long long at = (((long long)bb * tk + key) * kh + kvh) * HD;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
-      dk[at + tx + 16 * c] = acc_dk[a][c] * scale;
-      dv[at + tx + 16 * c] = acc_dv[a][c];
+      dk[at + col0 + tx + 16 * c] = acc_dk[a][c] * scale;
+      dv[at + col0 + tx + 16 * c] = acc_dv[a][c];
     }
   }
 }
@@ -504,13 +536,15 @@ __global__ void __launch_bounds__(kBwdThreads)
                       long long q_sh, long long k_sb, long long k_st,
                       long long k_sh, long long v_sb, long long v_st,
                       long long v_sh, int causal, int q_offset,
-                      int kv_valid_len, float scale_log2, float scale) {
+                      int kv_valid_len, int window, float scale_log2,
+                      float scale) {
   static_assert(HD % 16 == 0, "head width must be a multiple of 16");
+  constexpr int PARTS = col_parts<HD>();
   constexpr int RS = HD + kPad;     // row stride (elements) of every tile
   constexpr int CH = HD / 8;        // 16-byte chunks a row
   constexpr int KSTEPS = HD / 16;   // k-steps of S and dP
   constexpr int NT = kBwdTile / 8;  // key n-tiles of S and dP a warp
-  constexpr int DT = HD / 8;        // n-tiles of dQ a warp
+  constexpr int DT = HD / 8 / PARTS;  // n-tiles of dQ a warp, of its part
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sq = reinterpret_cast<bf16*>(smem);  // kBwdTile x RS, then dQ
   bf16* sdo = sq + kBwdTile * RS;            // kBwdTile x RS
@@ -521,7 +555,9 @@ __global__ void __launch_bounds__(kBwdThreads)
   // grid (heads, batch, query tiles), the tiles with the most keys first
   const int hh = blockIdx.x;
   const int bb = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBwdTile;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) / PARTS * kBwdTile;
+  const int part = blockIdx.z % PARTS;
+  const int col0 = part * (HD / PARTS);  // this block's first dQ column
   const bf16* qb = q + bb * q_sb + hh * q_sh;
   const bf16* kb = k + bb * k_sb + (hh / group) * k_sh;
   const bf16* vb = v + bb * v_sb + (hh / group) * v_sh;
@@ -536,6 +572,9 @@ __global__ void __launch_bounds__(kBwdThreads)
   int kv_end = kv_valid;
   if (causal) kv_end = min(kv_end, q_offset + min(q0 + kBwdTile, tq));
   const int n_tiles = (kv_end + kBwdTile - 1) / kBwdTile;
+  // the first tile that a row of the block sees (the window's start)
+  const int t_first =
+      window ? max(0, q_offset + q0 - window + 1) / kBwdTile : 0;
 
   for (int c = tid; c < kBwdTile * CH; c += kBwdThreads) {
     const int r = c / CH, d = (c % CH) * 8;
@@ -557,15 +596,20 @@ __global__ void __launch_bounds__(kBwdThreads)
       cp_async16(dv_ + r * RS + d, in ? vb + row * v_st + d : vb, in);
     }
   };
-  load_kv(0);
+  load_kv(t_first);
   cp_async_commit();
 
-  // D = rowsum(dO o O), read from device memory while the copies land; CH
-  // neighbouring lanes share a row
-  for (int c = tid; c < kBwdTile * CH; c += kBwdThreads) {
-    const int r = c / CH, d = (c % CH) * 8;
-    float part = 0.f;
-    if (q0 + r < tq) {
+  // D = rowsum(dO o O), read from device memory while the copies land; TPR
+  // neighbouring lanes share a row (CH rounded up to a power of two, so the
+  // lanes of a row reduce by shuffles: 32 at hd 192, of which 24 hold data)
+  constexpr int TPR = CH <= 2 ? 2 : CH <= 4 ? 4 : CH <= 8 ? 8
+                      : CH <= 16 ? 16 : 32;
+  static_assert(CH <= 32 && kBwdTile * TPR % kBwdThreads == 0,
+                "head width above 256");
+  for (int c = tid; c < kBwdTile * TPR; c += kBwdThreads) {
+    const int r = c / TPR, d = (c % TPR) * 8;
+    float sum = 0.f;
+    if (q0 + r < tq && d < HD) {
       const long long at = o_base + (long long)(q0 + r) * o_st + d;
       const uint4 ro = *reinterpret_cast<const uint4*>(o + at);
       const uint4 rd = *reinterpret_cast<const uint4*>(dout + at);
@@ -575,16 +619,16 @@ __global__ void __launch_bounds__(kBwdThreads)
       for (int i = 0; i < 4; ++i) {
         const float2 fo = __bfloat1622float2(po[i]);
         const float2 fd = __bfloat1622float2(pd[i]);
-        part = fmaf(fd.x, fo.x, part);
-        part = fmaf(fd.y, fo.y, part);
+        sum = fmaf(fd.x, fo.x, sum);
+        sum = fmaf(fd.y, fo.y, sum);
       }
     }
 #pragma unroll
-    for (int off = CH / 2; off > 0; off >>= 1)
-      part += __shfl_xor_sync(0xffffffffu, part, off);
-    if (c % CH == 0) {
-      sdd[r] = part;
-      if (q0 + r < tq) dd_out[row_base + q0 + r] = part;
+    for (int off = TPR / 2; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (c % TPR == 0) {
+      sdd[r] = sum;
+      if (q0 + r < tq && part == 0) dd_out[row_base + q0 + r] = sum;
     }
   }
   __syncthreads();
@@ -603,7 +647,7 @@ __global__ void __launch_bounds__(kBwdThreads)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
 
-  for (int tile = 0; tile < n_tiles; ++tile) {
+  for (int tile = t_first; tile < n_tiles; ++tile) {
     if (tile + 1 < n_tiles) load_kv(tile + 1);
     cp_async_commit();
     cp_async_wait<1>();  // this tile (and Q, dO) have landed
@@ -638,7 +682,8 @@ __global__ void __launch_bounds__(kBwdThreads)
     const int j0 = tile * kBwdTile;
     // a tile that no mask edge crosses for any row of this warp
     const bool full = j0 + kBwdTile <= kv_valid &&
-                      (!causal || j0 + kBwdTile - 1 <= q_offset + q0 + wrow);
+                      (!causal || j0 + kBwdTile - 1 <= q_offset + q0 + wrow) &&
+                      (!window || j0 > q_offset + q0 + wrow + 15 - window);
 #pragma unroll
     for (int t = 0; t < NT; ++t)
 #pragma unroll
@@ -647,8 +692,9 @@ __global__ void __launch_bounds__(kBwdThreads)
         if (!full) {
           const int key = j0 + t * 8 + (lane % 4) * 2 + (e & 1);
           const int row = r0 + (e >> 1) * 8;
-          const bool vis =
-              key < kv_valid && (!causal || key <= q_offset + row);
+          const bool vis = key < kv_valid &&
+                           (!causal || key <= q_offset + row) &&
+                           (!window || key > q_offset + row - window);
           p = vis ? p : 0.f;
         }
         s[t][e] = p * (dp[t][e] - dd[e >> 1]);
@@ -663,7 +709,7 @@ __global__ void __launch_bounds__(kBwdThreads)
 #pragma unroll
       for (int dn = 0; dn < DT / 2; ++dn) {
         uint32_t b[4];
-        ldmatrix_x4_trans(b, bt_addr(tk_, RS, kk * 16, dn * 16, lane));
+        ldmatrix_x4_trans(b, bt_addr(tk_, RS, kk * 16, col0 + dn * 16, lane));
         mma_bf16(acc[2 * dn], a, b[0], b[1]);
         mma_bf16(acc[2 * dn + 1], a, b[2], b[3]);
       }
@@ -676,15 +722,16 @@ __global__ void __launch_bounds__(kBwdThreads)
   bf16* so = sq + wrow * RS;
 #pragma unroll
   for (int t = 0; t < DT; ++t) {
-    const int d = t * 8 + (lane % 4) * 2;
+    const int d = col0 + t * 8 + (lane % 4) * 2;
     *reinterpret_cast<uint32_t*>(so + (lane / 4) * RS + d) =
         pack_bf16(acc[t][0] * scale, acc[t][1] * scale);
     *reinterpret_cast<uint32_t*>(so + (lane / 4 + 8) * RS + d) =
         pack_bf16(acc[t][2] * scale, acc[t][3] * scale);
   }
   __syncwarp();
-  for (int c = lane; c < 16 * CH; c += 32) {
-    const int r = c / CH, d = (c % CH) * 8;
+  constexpr int CHP = CH / PARTS;  // 16-byte chunks of a row's part
+  for (int c = lane; c < 16 * CHP; c += 32) {
+    const int r = c / CHP, d = col0 + (c % CHP) * 8;
     const int row = q0 + wrow + r;
     if (row < tq)
       *reinterpret_cast<uint4*>(dq + o_base + (long long)row * o_st + d) =
@@ -707,13 +754,15 @@ __global__ void __launch_bounds__(kBwdThreads)
                         long long q_sh, long long k_sb, long long k_st,
                         long long k_sh, long long v_sb, long long v_st,
                         long long v_sh, int causal, int q_offset,
-                        int kv_valid_len, float scale_log2, float scale) {
+                        int kv_valid_len, int window, float scale_log2,
+                        float scale) {
   static_assert(HD % 16 == 0, "head width must be a multiple of 16");
+  constexpr int PARTS = col_parts<HD>();
   constexpr int RS = HD + kPad;
   constexpr int CH = HD / 8;
   constexpr int KSTEPS = HD / 16;   // k-steps of S^T and dP^T
   constexpr int NQ = kQChunk / 8;   // query n-tiles of one S^T step
-  constexpr int DT = HD / 8;        // n-tiles of dK and dV a warp
+  constexpr int DT = HD / 8 / PARTS;  // n-tiles of dK and dV a warp
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sk = reinterpret_cast<bf16*>(smem);  // kBwdTile x RS, then dK
   bf16* sv = sk + kBwdTile * RS;             // kBwdTile x RS, then dV
@@ -726,7 +775,8 @@ __global__ void __launch_bounds__(kBwdThreads)
   // tiles are seen by the most query tiles, and start first
   const int kvh = blockIdx.x;
   const int bb = blockIdx.y;
-  const int j0 = blockIdx.z * kBwdTile;
+  const int j0 = blockIdx.z / PARTS * kBwdTile;
+  const int col0 = blockIdx.z % PARTS * (HD / PARTS);  // first dK/dV column
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int wkey = warp * 16;  // this warp's first key in the tile
   const int kv_end = min(kv_valid_len, tk);
@@ -736,7 +786,10 @@ __global__ void __launch_bounds__(kBwdThreads)
 
   // the query tiles that can see the tile (causal: from the one holding
   // the first row at or after key j0), for each head of the group
-  const int n_q_tiles = (tq + kBwdTile - 1) / kBwdTile;
+  // (window: up to the last row whose window reaches the tile's last key)
+  const int i_end =
+      window ? min(tq, max(0, j0 + kBwdTile - 1 + window - q_offset)) : tq;
+  const int n_q_tiles = (i_end + kBwdTile - 1) / kBwdTile;
   const int i_first = causal ? max(0, j0 - q_offset) / kBwdTile : 0;
   const int n_qt = j0 < kv_end ? max(0, n_q_tiles - i_first) : 0;
   const int n_items = group * n_qt;
@@ -795,8 +848,10 @@ __global__ void __launch_bounds__(kBwdThreads)
     const float* tl = slse + st * kBwdTile;
     const float* td = sdd + st * kBwdTile;
     // no mask edge crosses this warp's 16 keys x the tile's rows
-    const bool full = j0 + wkey + 16 <= kv_end && i0 + kBwdTile <= tq &&
-                      (!causal || j0 + wkey + 15 <= q_offset + i0);
+    const bool full =
+        j0 + wkey + 16 <= kv_end && i0 + kBwdTile <= tq &&
+        (!causal || j0 + wkey + 15 <= q_offset + i0) &&
+        (!window || j0 + wkey > q_offset + i0 + kBwdTile - 1 - window);
 
     for (int c0 = 0; c0 < kBwdTile; c0 += kQChunk) {
       // S^T = K Q^T and dP^T = V dO^T: 16 keys x kQChunk rows a warp
@@ -833,7 +888,8 @@ __global__ void __launch_bounds__(kBwdThreads)
             const int key = k_lo + (e >> 1) * 8;
             const int row = i0 + qr;
             const bool vis = key < kv_end && row < tq &&
-                             (!causal || key <= q_offset + row);
+                             (!causal || key <= q_offset + row) &&
+                             (!window || key > q_offset + row - window);
             p = vis ? p : 0.f;
           }
           dp[t][e] = p * (dp[t][e] - td[qr]);
@@ -849,10 +905,12 @@ __global__ void __launch_bounds__(kBwdThreads)
 #pragma unroll
         for (int dn = 0; dn < DT / 2; ++dn) {
           uint32_t b[4];
-          ldmatrix_x4_trans(b, bt_addr(tdo, RS, c0 + kk * 16, dn * 16, lane));
+          ldmatrix_x4_trans(
+              b, bt_addr(tdo, RS, c0 + kk * 16, col0 + dn * 16, lane));
           mma_bf16(adv[2 * dn], ap, b[0], b[1]);
           mma_bf16(adv[2 * dn + 1], ap, b[2], b[3]);
-          ldmatrix_x4_trans(b, bt_addr(tq_, RS, c0 + kk * 16, dn * 16, lane));
+          ldmatrix_x4_trans(
+              b, bt_addr(tq_, RS, c0 + kk * 16, col0 + dn * 16, lane));
           mma_bf16(adk[2 * dn], as, b[0], b[1]);
           mma_bf16(adk[2 * dn + 1], as, b[2], b[3]);
         }
@@ -870,7 +928,7 @@ __global__ void __launch_bounds__(kBwdThreads)
   bf16* sov = sv + wkey * RS;
 #pragma unroll
   for (int t = 0; t < DT; ++t) {
-    const int d = t * 8 + (lane % 4) * 2;
+    const int d = col0 + t * 8 + (lane % 4) * 2;
     *reinterpret_cast<uint32_t*>(sok + (lane / 4) * RS + d) =
         pack_bf16(adk[t][0] * scale, adk[t][1] * scale);
     *reinterpret_cast<uint32_t*>(sok + (lane / 4 + 8) * RS + d) =
@@ -881,8 +939,9 @@ __global__ void __launch_bounds__(kBwdThreads)
         pack_bf16(adv[t][2], adv[t][3]);
   }
   __syncwarp();
-  for (int c = lane; c < 16 * CH; c += 32) {
-    const int r = c / CH, d = (c % CH) * 8;
+  constexpr int CHP = CH / PARTS;  // 16-byte chunks of a row's part
+  for (int c = lane; c < 16 * CHP; c += 32) {
+    const int r = c / CHP, d = col0 + (c % CHP) * 8;
     const int key = j0 + wkey + r;
     if (key < tk) {
       const long long at = (((long long)bb * tk + key) * kh + kvh) * HD + d;
@@ -911,7 +970,7 @@ struct BwdArgs {
   void *dq, *dk, *dv, *lse, *dd;
   int b, tq, tk, h, kh;
   long long q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
-  int causal, q_offset, kv_valid_len;
+  int causal, q_offset, kv_valid_len, window;
   float scale;
   cudaStream_t stream;
 };
@@ -931,16 +990,17 @@ int launch_fma(const BwdArgs& a) {
       (const float*)a.out, (const float*)a.dout, (float*)a.dq,
       (float*)a.lse, (float*)a.dd, a.tq, a.tk, a.h, group, a.q_sb, a.q_st,
       a.q_sh, a.k_sb, a.k_st, a.k_sh, a.v_sb, a.v_st, a.v_sh, a.causal,
-      a.q_offset, a.kv_valid_len, a.scale);
+      a.q_offset, a.kv_valid_len, a.window, a.scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid_b((a.tk + bwd::kTile - 1) / bwd::kTile, a.kh, a.b);
+  const dim3 grid_b((a.tk + bwd::kTile - 1) / bwd::kTile * col_parts<HD>(),
+                    a.kh, a.b);
   kb<<<grid_b, bwd::kThreads, smem_b, a.stream>>>(
       (const float*)a.q, (const float*)a.k, (const float*)a.v,
       (const float*)a.dout, (const float*)a.lse, (const float*)a.dd,
       (float*)a.dk, (float*)a.dv, a.tq, a.tk, a.h, a.kh, group, a.q_sb,
       a.q_st, a.q_sh, a.k_sb, a.k_st, a.k_sh, a.v_sb, a.v_st, a.v_sh,
-      a.causal, a.q_offset, a.kv_valid_len, a.scale);
+      a.causal, a.q_offset, a.kv_valid_len, a.window, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -954,22 +1014,25 @@ int launch_mma(const BwdArgs& a) {
   if (const int err = allow_smem(kb, smem)) return err;
   const int group = a.h / a.kh;
   const float scale_log2 = a.scale * tc::kLog2e;
-  const dim3 grid_a(a.h, a.b, (a.tq + tc::kBwdTile - 1) / tc::kBwdTile);
+  constexpr int parts = col_parts<HD>();
+  const dim3 grid_a(a.h, a.b,
+                    (a.tq + tc::kBwdTile - 1) / tc::kBwdTile * parts);
   ka<<<grid_a, tc::kBwdThreads, smem, a.stream>>>(
       (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
       (const bf16*)a.out, (const bf16*)a.dout, (const float*)a.lse,
       (bf16*)a.dq, (float*)a.dd, a.tq, a.tk, a.h, group, a.q_sb, a.q_st,
       a.q_sh, a.k_sb, a.k_st, a.k_sh, a.v_sb, a.v_st, a.v_sh, a.causal,
-      a.q_offset, a.kv_valid_len, scale_log2, a.scale);
+      a.q_offset, a.kv_valid_len, a.window, scale_log2, a.scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid_b(a.kh, a.b, (a.tk + tc::kBwdTile - 1) / tc::kBwdTile);
+  const dim3 grid_b(a.kh, a.b,
+                    (a.tk + tc::kBwdTile - 1) / tc::kBwdTile * parts);
   kb<<<grid_b, tc::kBwdThreads, smem, a.stream>>>(
       (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
       (const bf16*)a.dout, (const float*)a.lse, (const float*)a.dd,
       (bf16*)a.dk, (bf16*)a.dv, a.tq, a.tk, a.h, a.kh, group, a.q_sb,
       a.q_st, a.q_sh, a.k_sb, a.k_st, a.k_sh, a.v_sb, a.v_st, a.v_sh,
-      a.causal, a.q_offset, a.kv_valid_len, scale_log2, a.scale);
+      a.causal, a.q_offset, a.kv_valid_len, a.window, scale_log2, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -980,6 +1043,7 @@ int by_width(int hd, F&& f) {
     case 32: return f(std::integral_constant<int, 32>());
     case 64: return f(std::integral_constant<int, 64>());
     case 128: return f(std::integral_constant<int, 128>());
+    case 192: return f(std::integral_constant<int, 192>());
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1001,12 +1065,13 @@ extern "C" int quiver_flash_attention_bwd_mma(
     void* dd, int b, int tq, int tk, int h, int kh, int hd, long long q_sb,
     long long q_st, long long q_sh, long long k_sb, long long k_st,
     long long k_sh, long long v_sb, long long v_st, long long v_sh,
-    int causal, int q_offset, int kv_valid_len, float scale, void* stream) {
+    int causal, int q_offset, int kv_valid_len, int window, float scale,
+    void* stream) {
   if (b == 0 || tq == 0 || h == 0 || tk == 0) return (int)cudaGetLastError();
   const BwdArgs a{q,    k,    v,    out,  dout, dq,     dk,       dv,
                   const_cast<void*>(lse), dd, b, tq, tk, h, kh, q_sb,
                   q_st, q_sh, k_sb, k_st, k_sh, v_sb,   v_st,     v_sh,
-                  causal, q_offset, kv_valid_len, scale,
+                  causal, q_offset, kv_valid_len, window, scale,
                   (cudaStream_t)stream};
   return by_width(hd, [&](auto w) {
     return launch_mma<decltype(w)::value>(a);
@@ -1020,12 +1085,13 @@ extern "C" int quiver_flash_attention_bwd_fma(
     int b, int tq, int tk, int h, int kh, int hd, long long q_sb,
     long long q_st, long long q_sh, long long k_sb, long long k_st,
     long long k_sh, long long v_sb, long long v_st, long long v_sh,
-    int causal, int q_offset, int kv_valid_len, float scale, void* stream) {
+    int causal, int q_offset, int kv_valid_len, int window, float scale,
+    void* stream) {
   if (b == 0 || tq == 0 || h == 0 || tk == 0) return (int)cudaGetLastError();
   const BwdArgs a{q,    k,    v,    out,  dout, dq,     dk,       dv,
                   lse,  dd,   b,    tq,   tk,   h,      kh,       q_sb,
                   q_st, q_sh, k_sb, k_st, k_sh, v_sb,   v_st,     v_sh,
-                  causal, q_offset, kv_valid_len, scale,
+                  causal, q_offset, kv_valid_len, window, scale,
                   (cudaStream_t)stream};
   return by_width(hd, [&](auto w) {
     return launch_fma<decltype(w)::value>(a);

@@ -4,9 +4,12 @@ Each ``csrc/<name>.cu`` has a plain C interface (pointers, ints and the
 stream as ``void*``) and is compiled on first use, for Hopper only::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so \
+         csrc/<name>.cu
 
-into ``build/kernels/`` at the repository root (listed in ``.gitignore``).
+into ``build/kernels/`` at the repository root (listed in ``.gitignore``),
+with ptxas's report of each kernel's registers and spills beside it
+(``<name>-<hash>.log``, read by :func:`ptxas_report`).
 The sources share device code through ``csrc/*.cuh`` headers.  The file
 name carries a hash of the source and of every header, so an edited source
 or header is rebuilt and a stale library is never loaded.  Nothing here
@@ -24,6 +27,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 import time
@@ -33,7 +37,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # kernel entry point -> launches since the last reset_launches()
@@ -95,6 +99,7 @@ def build(names: list[str] | None = None) -> dict[str, float]:
         if proc.returncode != 0:
             failed.append(f"{name}.cu:\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
@@ -111,6 +116,37 @@ def load(name: str) -> ctypes.CDLL:
                 build([name])
             lib = _libs[name] = ctypes.CDLL(str(out))
         return lib
+
+
+_FUNC = re.compile(r"Function properties for (\S+)")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Compiling entry function '(\S+)'|Used (\d+) registers")
+
+
+def ptxas_report(name: str) -> dict[str, dict]:
+    """ptxas's report for ``csrc/<name>.cu`` as built: {mangled kernel name:
+    {"registers": n, "spill_stores": bytes, "spill_loads": bytes}}.  Empty
+    where the library was built without its log."""
+    path = _target(name).with_suffix(".log")
+    if not path.exists():
+        return {}
+    text = path.read_text()
+    out: dict[str, dict] = {}
+    current = None
+    for line in text.splitlines():
+        m = _REGS.search(line)
+        if m and m.group(1):
+            current = out.setdefault(m.group(1), {})
+        elif m and current is not None:
+            current["registers"] = int(m.group(2))
+        f = _FUNC.search(line)
+        if f:
+            current = out.setdefault(f.group(1), {})
+        s = _SPILL.search(line)
+        if s and current is not None:
+            current["spill_stores"] = int(s.group(1))
+            current["spill_loads"] = int(s.group(2))
+    return out
 
 
 def check(status: int, what: str) -> None:

@@ -34,8 +34,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.sharding import shard
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models.transformer import gathered
 from repro_torch.models.layers import Embedding, Linear, Norm, embed, \
     linear, rmsnorm, sinusoidal_positions
 
@@ -165,15 +167,18 @@ def encode(model: EncDecLM, frames: torch.Tensor) -> torch.Tensor:
     _, s, d = frames.shape
     x = linear(model.frontend_adapter, frames)
     x = x + sinusoidal_positions(s, d, device=x.device).to(x.dtype)
+    x = shard(x, "dp", "tp", None)
 
     def body(layer: EncLayer, h: torch.Tensor) -> torch.Tensor:
         a, _ = attn_mod.attention_forward(
-            layer.attn, rmsnorm(layer.ln1, h, cfg.norm_eps),
+            layer.attn, gathered(rmsnorm(layer.ln1, h, cfg.norm_eps)),
             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
             head_dim=cfg.head_dim_, causal=False, kv_chunk=cfg.kv_chunk)
-        h = h + a
-        return h + ffn_mod.ffn(layer.mlp, rmsnorm(layer.ln2, h, cfg.norm_eps),
-                               activation=cfg.activation)
+        h = h + gathered(a)
+        h = h + gathered(ffn_mod.ffn(
+            layer.mlp, gathered(rmsnorm(layer.ln2, h, cfg.norm_eps)),
+            activation=cfg.activation))
+        return shard(h, "dp", "tp", None)
 
     x = _layers(body, x, model.enc_layers, cfg)
     return rmsnorm(model.enc_norm, x, cfg.norm_eps)
@@ -188,20 +193,22 @@ def _dec_layer_apply(layer: DecLayer, h: torch.Tensor, cfg: ArchConfig, *,
     place when given), cross-attention over ``cross_kv`` (projected from
     ``enc_out`` when None), the FFN."""
     a, _ = attn_mod.attention_forward(
-        layer.attn, rmsnorm(layer.ln1, h, cfg.norm_eps),
+        layer.attn, gathered(rmsnorm(layer.ln1, h, cfg.norm_eps)),
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.head_dim_, causal=True, kv_chunk=cfg.kv_chunk,
         cache=self_cache, cache_pos=cache_pos)
-    h = h + a
+    h = h + gathered(a)
     if cross_kv is None:
         cross_kv = attn_mod.cross_attention_kv(
-            layer.xattn, enc_out, n_kv_heads=cfg.n_kv_heads,
+            layer.xattn, gathered(enc_out), n_kv_heads=cfg.n_kv_heads,
             head_dim=cfg.head_dim_)
-    h = h + attn_mod.cross_attention_forward(
-        layer.xattn, rmsnorm(layer.ln_x, h, cfg.norm_eps), cross_kv,
-        n_heads=cfg.n_heads, head_dim=cfg.head_dim_, kv_chunk=cfg.kv_chunk)
-    return h + ffn_mod.ffn(layer.mlp, rmsnorm(layer.ln2, h, cfg.norm_eps),
-                           activation=cfg.activation)
+    h = h + gathered(attn_mod.cross_attention_forward(
+        layer.xattn, gathered(rmsnorm(layer.ln_x, h, cfg.norm_eps)), cross_kv,
+        n_heads=cfg.n_heads, head_dim=cfg.head_dim_, kv_chunk=cfg.kv_chunk))
+    h = h + gathered(ffn_mod.ffn(
+        layer.mlp, gathered(rmsnorm(layer.ln2, h, cfg.norm_eps)),
+        activation=cfg.activation))
+    return shard(h, "dp", "tp", None)
 
 
 def decode_train(model: EncDecLM, tokens: torch.Tensor,
@@ -212,6 +219,7 @@ def decode_train(model: EncDecLM, tokens: torch.Tensor,
     s = tokens.shape[1]
     x = embed(model.embed, tokens)
     x = x + sinusoidal_positions(s, cfg.d_model, device=x.device).to(x.dtype)
+    x = shard(x, "dp", "tp", None)
     x = _layers(lambda layer, h: _dec_layer_apply(layer, h, cfg,
                                                   enc_out=enc_out),
                 x, model.dec_layers, cfg)
@@ -222,7 +230,7 @@ def make_cross_kv(model: EncDecLM, enc_out: torch.Tensor) -> attn_mod.KVCache:
     """Every decoder layer's cross K/V of ``enc_out``, stacked: (L, B,
     S_enc, K, hd) each."""
     cfg = model.cfg
-    kvs = [attn_mod.cross_attention_kv(layer.xattn, enc_out,
+    kvs = [attn_mod.cross_attention_kv(layer.xattn, gathered(enc_out),
                                        n_kv_heads=cfg.n_kv_heads,
                                        head_dim=cfg.head_dim_)
            for layer in model.dec_layers]

@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.dist.sharding import shard
 from repro_torch.models.layers import ACTIVATIONS, Linear, linear, silu
 
 
@@ -34,4 +35,5 @@ def ffn(p: FFN, x: torch.Tensor, *, activation: str = "swiglu") -> torch.Tensor:
         h = silu(linear(p.w1, x)) * linear(p.w3, x)
     else:
         h = ACTIVATIONS[activation](linear(p.w1, x))
+    h = shard(h, "dp", None, "tp")
     return linear(p.w2, h)

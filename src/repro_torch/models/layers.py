@@ -52,7 +52,11 @@ def rmsnorm(p: Norm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 def embed(p: Embedding, tokens: torch.Tensor) -> torch.Tensor:
-    return p.w[tokens]
+    """The rows of ``p.w`` at ``tokens`` (``F.embedding``: a gather whose
+    backward DTensor shards in every torch release this repository runs,
+    where ``p.w[tokens]``'s ``index_put`` backward is refused by torch
+    2.11's DTensor on a batch-sharded index)."""
+    return torch.nn.functional.embedding(tokens, p.w)
 
 
 # -- rotary -----------------------------------------------------------------

@@ -25,6 +25,7 @@ import math
 import torch
 from torch import nn
 
+from repro_torch.dist.sharding import shard
 from repro_torch.models.layers import Linear, linear, silu
 
 
@@ -142,6 +143,7 @@ def mamba(p: Mamba, x: torch.Tensor, conv_state: torch.Tensor | None = None,
     d_state = p.a_log.shape[-1]
     dt_rank = p.x_proj.w.shape[-1] - 2 * d_state
     xin, z = linear(p.in_proj, x).chunk(2, dim=-1)
+    xin = shard(xin, "dp", None, "tp")
     xin, new_conv = causal_conv(xin, p.conv_w, conv_state)
     xin = silu(xin)
     dt_in, b_mat, c_mat = linear(p.x_proj, xin).split(
@@ -151,7 +153,7 @@ def mamba(p: Mamba, x: torch.Tensor, conv_state: torch.Tensor | None = None,
     a = -torch.exp(p.a_log)
     y, last = ssm_scan(xin.float(), dt, a, b_mat.float(), c_mat.float(),
                        p.d_skip, h0=ssm_state)
-    y = y.to(x.dtype) * silu(z)
+    y = shard(y.to(x.dtype) * silu(z), "dp", None, "tp")
     return linear(p.out_proj, y), (new_conv, last)
 
 

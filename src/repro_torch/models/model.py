@@ -40,6 +40,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import shard
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf
 
@@ -64,7 +65,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     mask = (labels >= 0).float()
     safe = labels.clamp_min(0)
     logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    # under a mesh the vocabulary is on tp: the gathered logit is partial
+    # over it, and is reduced here, before the trailing axis goes
+    ll = shard(torch.gather(logits, -1, safe[..., None]), "dp", None,
+               None)[..., 0]
     n = mask.sum()
     return ((logz - ll) * mask).sum() / n.clamp_min(1.0), n
 

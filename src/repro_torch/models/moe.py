@@ -1,10 +1,9 @@
 """Mixture-of-Experts with capacity-based sort/gather dispatch.
 
-Counterpart of ``repro/models/moe.py``'s single-device path (its
-``shard_map`` path waits for a mesh of many chips).  The reference vmaps
-one row's dispatch over the batch, so sort, rank, capacity drop and combine
-are row-local, with a capacity computed from the row's length ``T`` alone
-(:func:`capacity`).  Here every row is dispatched at once on batched
+Counterpart of ``repro/models/moe.py``, both paths.  Outside a mesh the
+reference vmaps one row's dispatch over the batch, so sort, rank, capacity
+drop and combine are row-local, with a capacity computed from the row's
+length ``T`` alone (:func:`capacity`).  Here every row is dispatched at once on batched
 tensors, with the same row-local ranks and caps; the expert products then
 run as one ``bmm`` per weight over ``(E, B cap, d)``.  Nothing here is a
 hand-written kernel: the reference's routing, sorts and gathers are jnp and
@@ -27,6 +26,21 @@ Semantics kept exactly (the tests hold them to the reference):
   pair, dropped ones included, and ``dropped_fraction = 1 - mean(keep)``,
   each averaged over rows.
 
+Under a mesh (``dist.sharding.use_mesh``) the layer is the reference's
+``shard_map`` branch as a ``local_map`` (:func:`_moe_mesh`): dispatch stays
+local to the dp token shard, as ONE flat row over the local tokens with a
+capacity of ``capacity((B / dp) T)`` (which differs from the per-row
+path's, as in the reference); the expert weights are all-gathered over dp
+explicitly (``w1``/``w3`` on axis 1, ``w2`` on axis 2, the shared experts
+likewise) unless ``serving`` (the serving layout replicates them over dp),
+and the only activation collective is one all-reduce of y over tp, whose
+shards of d_ff make y partial; aux is averaged over tp and dp.  A batch
+that dp does not divide drops dp (the weights are then taken whole).  The
+router is taken whole: the reference's in_specs give it its leaf's (dp, tp)
+spec (its leaf is named ``w``) and use the shard as if whole, which fails
+wherever d divides dp (``dot_general`` of d against d / dp on a 2x2 host
+mesh; ROADMAP queue 3).
+
 Parameters keep the reference's layout: ``router.w`` (d, E) in float32,
 ``w1``/``w3`` (E, d, f) and ``w2`` (E, f, d) in the model's dtype, and an
 optional ``shared`` SwiGLU of width ``n_shared * f``.
@@ -35,11 +49,14 @@ optional ``shared`` SwiGLU of width ``n_shared * f``.
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import torch
 from torch import nn
 
+from repro_torch.dist.sharding import _axis_size, active_ctx, is_dtensor, \
+    placements
 from repro_torch.models.layers import Linear, silu
 
 
@@ -213,12 +230,122 @@ def aux_losses(routing: Routing, disp: Dispatch) -> dict:
 
 
 def moe(p: MoE, x: torch.Tensor, *, top_k: int,
-        capacity_factor: float = 1.25,
-        norm_topk: bool = True) -> tuple[torch.Tensor, dict]:
-    """The MoE layer over ``x`` (B, T, d): (y, aux), y in ``x``'s dtype."""
+        capacity_factor: float = 1.25, norm_topk: bool = True,
+        serving: bool = False) -> tuple[torch.Tensor, dict]:
+    """The MoE layer over ``x`` (B, T, d): (y, aux), y in ``x``'s dtype.
+    Under a mesh with DTensor activations, the reference's ``shard_map``
+    branch (:func:`_moe_mesh`); ``serving`` skips its FSDP gathers."""
+    ctx = active_ctx()
+    if ctx is not None and is_dtensor(x):
+        return _moe_mesh(ctx, p, x, top_k=top_k,
+                         capacity_factor=capacity_factor,
+                         norm_topk=norm_topk, serving=serving)
     t = x.shape[1]
     n_experts = p.w1.shape[0]
     routing = route(p, x, top_k=top_k, norm_topk=norm_topk)
     disp = dispatch(routing.expert_idx, n_experts,
                     capacity(t, n_experts, top_k, capacity_factor))
     return experts(p, x, routing, disp), aux_losses(routing, disp)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over a group whose ranks each hold a partial result (y over the
+    tp shards of d_ff); the gradient of the replicated sum reaches every
+    partial unchanged (the reference's psum under shard_map)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        from torch.distributed import _functional_collectives as funcol
+
+        return funcol.wait_tensor(funcol.all_reduce(x, "sum", group))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _all_gather(x: torch.Tensor, dim: int, mesh, axes: tuple):
+    """``x`` all-gathered along ``dim`` over the mesh dimensions ``axes``
+    (major first), with the reduce-scatter of its gradient: the innermost
+    axis gathers first, so the blocks land in the order a tuple entry
+    ``(major, minor)`` lays them out."""
+    from repro_torch.dist.compat import all_gather_autograd
+
+    for a in reversed(axes):
+        x = all_gather_autograd(x, dim, mesh.get_group(a))
+    return x
+
+
+def _group_mean(x: torch.Tensor, mesh, axes: tuple) -> torch.Tensor:
+    """The mean of ``x`` over the mesh dimensions ``axes`` (gloo has no
+    average: a sum, then a division)."""
+    for a in axes:
+        x = _AllReduceSum.apply(x, mesh.get_group(a)) / _axis_size(mesh, (a,))
+    return x
+
+
+def _moe_mesh(ctx, p: MoE, x, *, top_k: int, capacity_factor: float,
+              norm_topk: bool, serving: bool) -> tuple:
+    """The reference's ``shard_map`` branch (``repro/models/moe.py:185-248``)
+    as a ``local_map`` over the layer's DTensors."""
+    from repro_torch.dist.compat import local_map
+    from repro_torch.dist.sharding import _spec_for, param_pspecs_of
+
+    mesh, lmap = ctx
+    b, t, d = x.shape
+    e = p.w1.shape[0]
+    dp_axes = tuple(lmap.get("dp", ()))
+    tp_axes = tuple(lmap.get("tp", ()))
+    dp = _axis_size(mesh, dp_axes)
+    if b % dp != 0:
+        dp_axes, dp = (), 1
+    cap = capacity((b // dp) * t, e, top_k, capacity_factor)
+    gather = bool(dp_axes) and not serving
+    # the weights' layouts as local_fn takes them: un-dp-sharded when the
+    # gathers are skipped (serving, or a batch dp does not divide)
+    lmap_eff = {"dp": dp_axes if gather else (), "tp": tp_axes}
+    leaves = p.leaves()
+    names = ["router", "w1", "w3", "w2"] + (
+        ["w1", "w3", "w2"] if hasattr(p, "shared") else [])
+    w_pl = [placements(mesh, param_pspecs_of(mesh, lmap_eff, name,
+                                             tuple(w.shape)))
+            for name, w in zip(names, leaves)]
+    x_pl = placements(mesh, _spec_for(mesh, {"dp": dp_axes}, (b, t, d),
+                                      ("dp", None, None)))
+    from torch.distributed.tensor import Replicate
+
+    scalar_pl = tuple(Replicate() for _ in mesh.mesh_dim_names)
+
+    def local_fn(x_l, router, w1, w3, w2, *shared):
+        if gather:
+            w1 = _all_gather(w1, 1, mesh, dp_axes)
+            w3 = _all_gather(w3, 1, mesh, dp_axes)
+            w2 = _all_gather(w2, 2, mesh, dp_axes)
+        full = SimpleNamespace(router=SimpleNamespace(w=router), w1=w1,
+                               w3=w3, w2=w2)
+        if shared:
+            s1, s3, s2 = shared
+            if gather:
+                s1 = _all_gather(s1, 0, mesh, dp_axes)
+                s3 = _all_gather(s3, 0, mesh, dp_axes)
+                s2 = _all_gather(s2, 1, mesh, dp_axes)
+            full.shared = SimpleNamespace(w1=s1, w3=s3, w2=s2)
+        flat = x_l.reshape(1, -1, x_l.shape[-1])
+        routing = route(full, flat, top_k=top_k, norm_topk=norm_topk)
+        disp = dispatch(routing.expert_idx, e, cap)
+        y = experts(full, flat, routing, disp)
+        aux = aux_losses(routing, disp)
+        if tp_axes:
+            # the expert outputs are partial over the d_ff shard
+            for a in tp_axes:
+                y = _AllReduceSum.apply(y, mesh.get_group(a))
+            aux = {k: _group_mean(v, mesh, tp_axes) for k, v in aux.items()}
+        if dp_axes:
+            aux = {k: _group_mean(v, mesh, dp_axes) for k, v in aux.items()}
+        return (y.reshape(x_l.shape), aux["load_balance_loss"],
+                aux["dropped_fraction"])
+
+    y, lb, dropped = local_map(
+        local_fn, mesh=mesh, in_placements=(x_pl, *w_pl),
+        out_placements=(x_pl, scalar_pl, scalar_pl))(x, *leaves)
+    return y, {"load_balance_loss": lb, "dropped_fraction": dropped}

@@ -40,6 +40,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.sharding import shard
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import mamba as mamba_mod
@@ -265,22 +266,43 @@ def _mix(blk: Block, h: torch.Tensor, cfg: ArchConfig, cache,
     )
 
 
+def gathered(h: torch.Tensor) -> torch.Tensor:
+    """An activation (B, T, d) entering or leaving a block's matrices, with
+    its sequence whole under a mesh (a no-op outside one): batch on dp
+    only.  With the residual's sequence on tp (``seq_sharded_residual``)
+    this is the all-gather of Megatron's sequence parallelism going in,
+    and the reduction of the block's partial output coming out, whose
+    backward hands the matrices a gradient with its sequence whole:
+    DTensor cannot flatten (B, T) for a matmul with both dims sharded."""
+    return shard(h, "dp", None, None)
+
+
+def _residual_shard(x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The residual stream's layout under a mesh (a no-op outside one):
+    batch on dp and the sequence on tp (``cfg.seq_sharded_residual``), or
+    batch on dp with d_model replicated (the recurrent mixers)."""
+    if cfg.seq_sharded_residual:
+        return shard(x, "dp", "tp", None)
+    return shard(x, "dp", None, None)
+
+
 def _apply_block(blk: Block, x: torch.Tensor, cfg: ArchConfig, *,
                  cache=None, cache_pos: int | None = None) -> tuple:
     """One residual block; returns (x, the MoE's aux dict or None for a
     dense FFN or an xLSTM cell, the mixer's serving state (see
     :func:`_mix`))."""
-    h = rmsnorm(blk.ln1, x, cfg.norm_eps)
+    h = gathered(rmsnorm(blk.ln1, x, cfg.norm_eps))
     out, state = _mix(blk, h, cfg, cache, cache_pos)
-    x = x + out
+    x = _residual_shard(x + gathered(out), cfg)
     if not hasattr(blk, "ln2"):
         return x, None, state
-    h2 = rmsnorm(blk.ln2, x, cfg.norm_eps)
+    h2 = gathered(rmsnorm(blk.ln2, x, cfg.norm_eps))
     if hasattr(blk, "moe"):
-        y, aux = moe_mod.moe(blk.moe, h2, top_k=cfg.top_k)
-        return x + y, aux, state
-    return x + ffn_mod.ffn(blk.mlp, h2, activation=cfg.activation), None, \
-        state
+        y, aux = moe_mod.moe(blk.moe, h2, top_k=cfg.top_k,
+                             serving=cache is not None)
+        return _residual_shard(x + gathered(y), cfg), aux, state
+    x = x + gathered(ffn_mod.ffn(blk.mlp, h2, activation=cfg.activation))
+    return _residual_shard(x, cfg), None, state
 
 
 def embed_tokens(model: DecoderLM, tokens: torch.Tensor) -> torch.Tensor:
@@ -298,6 +320,7 @@ def forward_hidden(model: DecoderLM,
     remat = cfg.remat and torch.is_grad_enabled()
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = {"load_balance_loss": zero, "dropped_fraction": zero}
+    x = _residual_shard(x, cfg)
     for blk in model.blocks:
         if remat:
             x, layer_aux, _ = checkpoint(_apply_block, blk, x, cfg,
@@ -313,7 +336,8 @@ def logits_from_hidden(model: DecoderLM, x: torch.Tensor) -> torch.Tensor:
     """float32 logits; padded vocabulary slots are -1e30 (out of place, as
     the reference's ``jnp.where``)."""
     cfg = model.cfg
-    logits = linear(model.lm_head, x).float()
+    logits = shard(linear(model.lm_head, gathered(x)).float(), "dp", None,
+                   "tp")
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab,
                            device=logits.device) >= cfg.vocab_size

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.dist.sharding import shard
 from repro_torch.models.layers import Linear, linear, silu
 
 NEG = -1e30
@@ -247,6 +248,7 @@ def mlstm_block(p: MLSTM, x: torch.Tensor, *, n_heads: int, chunk: int = 64,
     inner_h = inner.reshape(b, t, n_heads, d_inner // n_heads)
     q, k, v = (torch.einsum("bthd,hde->bhte", inner_h, w)
                for w in (p.wq, p.wk, p.wv))
+    v = shard(v, "dp", None, None, "tp")
     if_gates = linear(p.w_if, inner).float()
     i_gate = if_gates[..., :n_heads].transpose(1, 2)             # (B,H,T)
     f_gate = if_gates[..., n_heads:].transpose(1, 2)
@@ -256,8 +258,9 @@ def mlstm_block(p: MLSTM, x: torch.Tensor, *, n_heads: int, chunk: int = 64,
         h, new_state = mlstm_chunkwise(q, k, v, i_gate, f_gate,
                                        chunk=min(chunk, max(t, 1)),
                                        state=state)
+    h = shard(h, "dp", None, None, "tp")
     h = _headwise_rmsnorm(h.transpose(1, 2))                    # (B,T,H,hd)
-    h = h.reshape(b, t, d_inner) * p.norm_scale
+    h = shard(h.reshape(b, t, d_inner) * p.norm_scale, "dp", None, "tp")
     return linear(p.down, h.to(x.dtype) * silu(gate)), new_state
 
 
@@ -277,6 +280,7 @@ def slstm_block(p: SLSTM, x: torch.Tensor, *, n_heads: int,
     b, t, d = x.shape
     hd = d // n_heads
     wx = linear(p.w_in, x).float().reshape(b, t, 4, n_heads, hd)
+    wx = shard(wx, "dp", None, None, None, "tp")
     r = p.r_kernel.float()                                       # (4,H,hd,hd)
     if state is None:
         state = init_slstm_state(b, d, n_heads=n_heads, device=x.device)

@@ -38,11 +38,12 @@ def init_opt_state(params: dict, cfg: AdamWConfig) -> dict:
     """Zero moments in ``cfg.state_dtype`` beside each parameter, and a
     zero int32 count on the parameters' device."""
     device = next(iter(params.values())).device
+    # each moment laid out as its parameter (a DTensor's shards)
     return {
-        "mu": {n: torch.zeros(p.shape, dtype=cfg.state_dtype,
-                              device=p.device) for n, p in params.items()},
-        "nu": {n: torch.zeros(p.shape, dtype=cfg.state_dtype,
-                              device=p.device) for n, p in params.items()},
+        "mu": {n: torch.zeros_like(p, dtype=cfg.state_dtype)
+               for n, p in params.items()},
+        "nu": {n: torch.zeros_like(p, dtype=cfg.state_dtype)
+               for n, p in params.items()},
         "count": torch.zeros((), dtype=torch.int32, device=device),
     }
 

@@ -90,7 +90,8 @@ def _micro(batch: dict, n: int, i: int, device) -> dict:
     for k, x in batch.items():
         x = torch.as_tensor(x)
         per = x.shape[0] // n
-        out[k] = x[i * per:(i + 1) * per].to(device)
+        # one microbatch is the whole batch (a DTensor batch stays laid out)
+        out[k] = (x if n == 1 else x[i * per:(i + 1) * per]).to(device)
     return out
 
 
@@ -115,8 +116,8 @@ def make_train_step(bundle, tc: TrainConfig) -> Callable:
                 loss.backward()
             with record_function(SCOPES[1]):
                 if grads is None:
-                    grads = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                            device=p.device)
+                    # laid out as its parameter (a DTensor's shards)
+                    grads = {n: torch.zeros_like(p, dtype=torch.float32)
                              for n, p in params.items()}
                 for n, p in params.items():
                     grads[n].add_(p.grad.float())

@@ -18,8 +18,13 @@ Counterpart of ``repro/train/trainer.py``:
 
 The step runs eagerly (``train/train_step.py``): nothing is compiled and
 nothing is donated; a step's time is taken on the host clock after the
-device finishes it.  The reference's elastic re-sharding on restore has
-no counterpart: one controller, one device.
+device finishes it.
+
+  * **elastic resume** — given a ``mesh`` (``launch/mesh.py``), the
+    parameters and the AdamW moments are distributed onto it in the
+    training layout (``dist.sharding.param_shardings``) after the
+    restore, and every step runs under ``use_mesh``; the checkpoint holds
+    each leaf whole, so it restores onto any mesh, whatever mesh wrote it.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ import torch
 from repro_torch import convert
 from repro_torch.ckpt import checkpoint
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import distribute_params, param_shardings, \
+    placements, use_mesh
 from repro_torch.train.train_step import TrainConfig, init_train_state, \
     make_train_step
 
@@ -52,10 +59,28 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+@torch.no_grad()
+def distribute_train_state(model, opt_state: dict, mesh) -> tuple:
+    """``model``'s parameters and ``opt_state``'s moments distributed onto
+    ``mesh`` in the training layout (each moment as its parameter), from
+    whole tensors on every rank; the count stays a plain tensor."""
+    from torch.distributed.tensor import distribute_tensor
+
+    specs = param_shardings(mesh, model)
+    distribute_params(model, mesh, specs)
+    for key in ("mu", "nu", "ef"):
+        if key in opt_state:
+            opt_state[key] = {
+                n: distribute_tensor(t, mesh, placements(mesh, specs[n]),
+                                     src_data_rank=None)
+                for n, t in opt_state[key].items()}
+    return model, opt_state
+
+
 class Trainer:
     def __init__(self, bundle, train_cfg: TrainConfig,
                  trainer_cfg: TrainerConfig, pipeline, *, seed=0,
-                 device=None):
+                 device=None, mesh=None):
         self.bundle = bundle
         self.tc = train_cfg
         self.cfg = trainer_cfg
@@ -63,6 +88,7 @@ class Trainer:
         self.step_fn = make_train_step(bundle, train_cfg)
         self.seed = seed
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.metrics_log: list[dict] = []
         self.straggler_events: list[dict] = []
         self._preempted = False
@@ -91,6 +117,9 @@ class Trainer:
                 convert.load_lm_params(model, restored["params"])
                 opt_state = convert.opt_state_from_numpy(restored["opt"],
                                                          model)
+        if self.mesh is not None:
+            model, opt_state = distribute_train_state(model, opt_state,
+                                                      self.mesh)
         return model, opt_state, start
 
     def _save(self, model, opt_state, step, *, sync=False):
@@ -110,6 +139,12 @@ class Trainer:
     # -- main loop --------------------------------------------------------
 
     def run(self) -> dict:
+        if self.mesh is None:
+            return self._run()
+        with use_mesh(self.mesh):
+            return self._run()
+
+    def _run(self) -> dict:
         self._install_signal_handler()
         model, opt_state, start = self.init_or_restore()
         ewma = None

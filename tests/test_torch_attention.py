@@ -129,9 +129,56 @@ def test_bad_arguments_raise(kw):
 
 
 def test_unported_variants_raise():
+    """Every variant of the reference's mask is ported: the sliding window
+    runs, and only a negative window is refused."""
     q = torch.zeros((1, 4, 2, 16))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        attn.flash_attention(q, q, q, sliding_window=8)
+    assert attn.flash_attention(q, q, q, sliding_window=8).shape == q.shape
+    with pytest.raises(ValueError, match="sliding_window"):
+        attn.flash_attention(q, q, q, sliding_window=-1)
+
+
+# (b, tq, tk, h, kh, causal, q_offset, kv_valid_len, kv_chunk, window):
+# windows shorter than a chunk, across chunks, longer than the keys; a
+# prefill and decodes over a longer cache; a window without a causal mask
+WINDOW_CASES = {
+    "train_w1": (2, 40, 40, 4, 2, True, 0, None, 16, 1),
+    "train_w7": (2, 40, 40, 4, 2, True, 0, None, 16, 7),
+    "train_w17_mha": (1, 50, 50, 4, 4, True, 0, None, 16, 17),
+    "train_w_longer": (1, 30, 30, 4, 2, True, 0, None, 16, 64),
+    "bidirectional_w9": (2, 40, 40, 4, 2, False, 0, None, 16, 9),
+    "prefill_longer_cache_w12": (2, 40, 64, 4, 2, True, 0, 40, 16, 12),
+    "prefill_offset_w20": (1, 24, 96, 4, 2, True, 50, 74, 16, 20),
+    "decode_w16": (2, 1, 64, 4, 2, True, 45, 46, 16, 16),
+    "decode_w1": (2, 1, 64, 4, 2, True, 45, 46, 16, 1),
+    "short_query_block_w5": (1, 4, 64, 4, 2, True, 20, 24, 1024, 5),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WINDOW_CASES))
+def test_windowed_matches_model_layer(case):
+    """The windowed plain route against the reference's
+    ``flash_attention(sliding_window=w)`` (both of its formulations:
+    Tq <= 8 one-pass, the chunked scan above), within 1e-5; the split-KV
+    decode's float32 mirror against it too."""
+    b, tq, tk, h, kh, causal, q_offset, valid, chunk, w = WINDOW_CASES[case]
+    rng = np.random.default_rng(len(case) + w)
+    q, k, v = _qkv(rng, b, tq, tk, h, kh, 16)
+    want = jattn.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        q_offset=q_offset, kv_valid_len=valid, sliding_window=w,
+        kv_chunk=chunk)
+    tq_, tk_, tv_ = (torch.from_numpy(x) for x in (q, k, v))
+    got = attn.flash_attention(tq_, tk_, tv_, causal=causal,
+                               q_offset=q_offset, kv_valid_len=valid,
+                               sliding_window=w, kv_chunk=chunk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    if tq == 1:
+        mirror = kflash.flash_decode_split_plain(
+            tq_, tk_, tv_, causal=causal, q_offset=q_offset,
+            kv_valid_len=valid, sliding_window=w, split_keys=8)
+        np.testing.assert_allclose(mirror.numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5)
 
 
 @pytest.fixture(scope="module")
@@ -193,3 +240,30 @@ def test_attention_forward_prefill_then_decode(layer):
                                    np.asarray(theirs, dtype=np.float32),
                                    atol=2e-2)
         assert not mine[:, 23:].any()
+
+
+@pytest.mark.parametrize("window", [1, 6, 30])
+def test_attention_forward_windowed(layer, window):
+    """The layer in train mode and prefill-then-decode under a sliding
+    window, against the reference's ``attention_forward``."""
+    jp, port, kw = layer
+    rng = np.random.default_rng(window)
+    x = rng.standard_normal((2, 24, 64)).astype(np.float32)
+    want, _ = jattn.attention_forward(jp, jnp.asarray(x),
+                                      sliding_window=window, **kw)
+    got, _ = attn.attention_forward(port, torch.from_numpy(x),
+                                    sliding_window=window, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    jcache = jattn.make_kv_cache(2, 32, 2, 16)
+    cache = attn.KVCache(torch.zeros((2, 32, 2, 16), dtype=torch.bfloat16),
+                         torch.zeros((2, 32, 2, 16), dtype=torch.bfloat16))
+    for pos, t in ((0, 20), (20, 1), (21, 1)):
+        want, jcache = jattn.attention_forward(
+            jp, jnp.asarray(x[:, pos:pos + t]), cache=jcache, cache_pos=pos,
+            sliding_window=window, **kw)
+        got, _ = attn.attention_forward(
+            port, torch.from_numpy(x[:, pos:pos + t]), cache=cache,
+            cache_pos=pos, sliding_window=window, **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5)

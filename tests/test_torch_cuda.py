@@ -1397,3 +1397,116 @@ def test_card_training_step_matches_cpu(cuda):
             assert _cosine(g_params[n].detach().cpu().float()
                            - before[n].float(),
                            p.detach().float() - before[n].float()) >= 0.9, n
+
+
+# (b, tq, tk, h, kv heads, hd, causal, q_offset, kv_valid_len, window): head
+# width 192 (nemotron-4-340b's 96 heads over 8) and sliding windows of 128
+# and 1 024 keys, shorter than a tile, across tiles and longer than the
+# keys, in every forward kernel (Tq = 1: the split-KV decode, whose window
+# starts mid-split or on a split boundary)
+WINDOW_FLASH_CASES = {
+    "hd192_prefill": (2, 130, 200, 12, 2, 192, True, 0, 130, 0),
+    "hd192_bidirectional": (1, 70, 70, 4, 4, 192, False, 0, 70, 0),
+    "hd192_decode": (4, 1, 384, 96, 8, 192, True, 351, 352, 0),
+    "hd192_nemotron_prefill": (1, 320, 384, 96, 8, 192, True, 0, 320, 0),
+    "window128_prefill": (2, 320, 384, 8, 2, 64, True, 0, 320, 128),
+    "window1024_prefill": (1, 1500, 1536, 4, 4, 64, True, 0, 1500, 1024),
+    "window5_offset": (2, 70, 256, 4, 2, 32, True, 100, 170, 5),
+    "window_longer_than_keys": (2, 100, 100, 4, 2, 16, True, 0, 100, 4096),
+    "window_bidirectional": (1, 130, 130, 4, 2, 64, False, 0, 130, 40),
+    "window128_decode": (4, 1, 1536, 8, 2, 64, True, 1200, 1201, 128),
+    "window_decode_on_split": (2, 1, 512, 8, 8, 64, True, 319, 320, 192),
+    "window1024_decode": (2, 1, 4096, 8, 2, 128, True, 4095, 4096, 1024),
+    "window_hd192_prefill": (1, 200, 256, 8, 2, 192, True, 0, 200, 128),
+    "window_hd192_decode": (2, 1, 512, 96, 8, 192, True, 400, 401, 128),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(WINDOW_FLASH_CASES))
+def test_flash_attention_window_and_hd192_match_plain(cuda, case, dtype):
+    """Each forward kernel at head width 192 and under a sliding window
+    against the plain version (float32 within 2e-3, bf16 within 2e-2), one
+    launch of the kernel the dtype and Tq select; a split-KV call also
+    against its float32 mirror."""
+    b, tq, tk, h, kvh, hd, causal, q_offset, valid, w = \
+        WINDOW_FLASH_CASES[case]
+    g = torch.Generator().manual_seed(tk + w)
+    q = torch.randn((b, tq, h, hd), generator=g).to(cuda, dtype)
+    k = torch.randn((b, tk, kvh, hd), generator=g).to(cuda, dtype)
+    v = torch.randn((b, tk, kvh, hd), generator=g).to(cuda, dtype)
+    kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=valid,
+              sliding_window=w)
+    build.reset_launches()
+    got = kf.flash_attention(q, k, v, **kw)
+    variant = "fma" if dtype == torch.float32 else (
+        "split_kv" if tq == 1 else "mma")
+    assert {key: build.LAUNCHES[name] for key, name in kf.VARIANTS.items()} \
+        == {key: int(key == variant) for key in kf.VARIANTS}
+    want = kf.flash_attention_plain(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = dict(rtol=2e-3, atol=2e-3) if dtype == torch.float32 \
+        else dict(rtol=0, atol=2e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    if variant == "split_kv":
+        mirror = kf.flash_decode_split_plain(q, k, v, **kw)
+        torch.testing.assert_close(got.float(), mirror.float(), rtol=0,
+                                   atol=2e-2)
+
+
+# (b, tq, tk, h, kv heads, hd, causal, q_offset, kv_valid_len, window)
+WINDOW_BWD_CASES = {
+    "hd192_train": (1, 130, 130, 12, 2, 192, True, 0, 130, 0),
+    "hd192_offset": (1, 37, 100, 4, 2, 192, True, 20, 57, 0),
+    "hd192_bidirectional": (1, 70, 70, 4, 4, 192, False, 0, 70, 0),
+    "window128_train": (2, 256, 256, 8, 2, 64, True, 0, 256, 128),
+    "window9_ragged": (2, 70, 70, 4, 2, 32, True, 0, 70, 9),
+    "window_offset": (2, 65, 130, 4, 2, 64, True, 50, 115, 30),
+    "window_bidirectional": (1, 100, 100, 4, 2, 16, False, 0, 100, 40),
+    "window_hd192": (1, 200, 200, 8, 2, 192, True, 0, 200, 100),
+    "window_hd128_gqa": (1, 160, 160, 16, 4, 128, True, 0, 160, 70),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(WINDOW_BWD_CASES))
+def test_flash_bwd_window_and_hd192_match_plain(cuda, case, dtype):
+    """Both backward routes at head width 192 and under a sliding window,
+    as ``test_flash_bwd_matches_plain``: one launch of the route's kernels,
+    a second call equal bit for bit, float32 within 1e-4 of the largest
+    gradient, bf16 within 2^-7 of it and to its mirror; dK and dV of the
+    keys past the last visible one exactly zero."""
+    b, tq, tk, h, kvh, hd, causal, q_offset, valid, w = \
+        WINDOW_BWD_CASES[case]
+    g = torch.Generator().manual_seed(tk + h + w)
+    q, do = (torch.randn((b, tq, h, hd), generator=g).to(cuda, dtype)
+             for _ in range(2))
+    k, v = (torch.randn((b, tk, kvh, hd), generator=g).to(cuda, dtype)
+            for _ in range(2))
+    kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=valid,
+              sliding_window=w)
+    route = "mma" if dtype == torch.bfloat16 else "fma"
+    if route == "mma":
+        out, lse = kf.flash_attention_lse(q, k, v, **kw)
+    else:
+        out, lse = kf.flash_attention(q, k, v, **kw), None
+    build.reset_launches()
+    got = kf.flash_attention_backward(q, k, v, out, do, lse=lse, **kw)
+    assert {key: build.LAUNCHES[name]
+            for key, name in kf.BWD_VARIANTS.items()} \
+        == {key: int(key == route) for key in kf.BWD_VARIANTS}
+    again = kf.flash_attention_backward(q, k, v, out, do, **kw)
+    want = kf.flash_attention_backward_plain(q, k, v, out, do, **kw)
+    mirror = (kf.flash_attention_backward_mma_plain(q, k, v, out, do, **kw)
+              if route == "mma" else want)
+    rel = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    for a, b_, wt, m, t in zip(got, again, want, mirror, (q, k, v)):
+        assert a.dtype == t.dtype and a.shape == t.shape
+        assert torch.equal(a, b_)
+        tol = rel * max(float(wt.float().abs().max()), 1e-6)
+        torch.testing.assert_close(a.float(), wt.float(), rtol=0, atol=tol)
+        if route == "mma":
+            _close_to_mirror(a, m)
+    last = min(valid, q_offset + tq) if causal else valid
+    for a in got[1:]:
+        assert not bool((a[:, last:] != 0).any())

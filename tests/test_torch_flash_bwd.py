@@ -227,3 +227,40 @@ def test_cpu_backward_takes_the_plain_version_of_its_route(dtype):
     for g, w in zip(kflash.flash_attention_backward(q, k, v, out, do, **kw),
                     plain(q, k, v, out, do, **kw)):
         assert torch.equal(g, w)
+
+
+# (b, tq, tk, h, kh, hd, causal, q_offset, kv_valid_len, window)
+WINDOW_CASES = [
+    (2, 70, 70, 4, 2, 16, True, 0, None, 9),
+    (1, 37, 100, 4, 2, 32, True, 20, 57, 30),
+    (1, 45, 45, 4, 2, 16, False, 0, None, 12),
+    (2, 3, 90, 4, 2, 32, True, 60, 63, 5),   # the layer's Tq <= 8 path
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", WINDOW_CASES)
+def test_windowed_matches_vjp_of_model_layer(case, dtype):
+    """Both backward routes' arithmetic under a sliding window against
+    ``jax.vjp`` of the model layer's ``flash_attention(sliding_window=w)``:
+    the float32 plain backward and, in bf16, the tensor-core mirror."""
+    causal, q_offset, valid, w = case[6:]
+    (jq, jk, jv, jdo), (q, k, v, do) = _inputs(case, dtype, seed=w)
+
+    def f(q_, k_, v_):
+        return jattn.flash_attention(q_, k_, v_, causal=causal,
+                                     q_offset=q_offset, kv_valid_len=valid,
+                                     sliding_window=w, kv_chunk=32)
+
+    _, vjp = jax.vjp(f, jq, jk, jv)
+    want = vjp(jdo)
+    kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=valid,
+              sliding_window=w)
+    out = kflash.flash_attention_plain(q, k, v, **kw)
+    plain = (kflash.flash_attention_backward_mma_plain
+             if dtype == torch.bfloat16
+             else kflash.flash_attention_backward_plain)
+    got = plain(q, k, v, out, do, **kw)
+    for g, wt, t in zip(got, want, (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        _close(g, wt, dtype)

@@ -49,6 +49,12 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.models.transformer", "repro_torch.models.model",
             "repro_torch.kernels.flash_attention",
             "repro_torch.serve.engine", "repro_torch.launch.serve"} <= set(mods)
+    assert {"repro_torch.dist", "repro_torch.dist.sharding",
+            "repro_torch.dist.cache_sharding", "repro_torch.dist.compat",
+            "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+            "repro_torch.tools.roofline", "repro_torch.tools.report",
+            "repro_torch.tools.op_cost",
+            "repro_torch.tools.collectives"} <= set(mods)
     assert {"repro_torch.plan.plan", "repro_torch.plan.planner",
             "repro_torch.plan.cache", "repro_torch.plan.trace",
             "repro_torch.filter.labels", "repro_torch.filter.predicate",
