@@ -2812,17 +2812,22 @@ def parity_dist(torch) -> None:
     attention layer at full width (96 heads of 192 over 8 KV heads) card
     against CPU; then, on a one-card mesh (``make_host_mesh``, NCCL and
     gloo in one world-1 group), a 2-layer full-width ``minicpm-2b`` training
-    step under ``use_mesh`` against the same step without it, and a 1-layer
-    full-width ``qwen2-moe-a2.7b`` forward through the MoE mesh branch, card
-    against CPU; then two dry-run cells, ``minicpm-2b x train_4k x 16x16``
-    and ``quiver-1m x 16x16`` (``launch/dryrun.py``), printed."""
+    step under ``use_mesh`` against the same step without it, the same for
+    a 2-layer jamba and one period of xlstm-1.3b (the recurrent cells'
+    regions), a 1-layer full-width ``qwen2-moe-a2.7b`` forward through the
+    MoE mesh branch, card against CPU, and the compressed all-reduce's mesh
+    form against its one-controller form; then four dry-run cells,
+    ``minicpm-2b x train_4k``, ``jamba-v0.1-52b x prefill_32k``,
+    ``xlstm-1.3b x train_4k`` (16x16) and ``quiver-1m x 16x16``
+    (``launch/dryrun.py``), printed."""
     from repro_torch.launch import mesh as mesh_mod
 
     t0 = time.perf_counter()
     parity_nemotron_layer(torch)
     log(f"  parity_nemotron_layer: {time.perf_counter() - t0:.1f} s")
     try:
-        for check in (parity_mesh_train, parity_mesh_moe):
+        for check in (parity_mesh_train, parity_mesh_recurrent,
+                      parity_mesh_moe, parity_mesh_compress):
             t0 = time.perf_counter()
             check(torch)
             log(f"  {check.__name__}: {time.perf_counter() - t0:.1f} s")
@@ -2913,22 +2918,34 @@ def parity_mesh_train(torch) -> None:
     launched alike."""
     import dataclasses
 
+    from repro_torch.configs.base import get_config
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = dataclasses.replace(get_config("minicpm-2b"), n_layers=2)
+    _mesh_step_pair(torch, cfg, AdamWConfig(state_dtype=torch.bfloat16),
+                    b=4, t=256, label="minicpm-2b x 2 layers")
+
+
+def _mesh_step_pair(torch, cfg, adamw, *, b: int, t: int,
+                    label: str) -> dict:
+    """One bf16 training step of ``cfg`` (B ``b``, T ``t``) on the card,
+    twice from the same draw: without a mesh, then under ``use_mesh`` on
+    the world-1 card mesh in the training layout.  Raises unless the loss,
+    grad norm, every parameter and both moments are equal bit for bit and
+    the flash kernels launched alike; returns those launches."""
     import numpy as np
 
-    from repro_torch.configs.base import get_config
     from repro_torch.dist.sharding import use_mesh
     from repro_torch.kernels import build as kbuild
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.model import build_model
-    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.optim.adamw import init_opt_state
     from repro_torch.train.train_step import TrainConfig, make_train_step
     from repro_torch.train.trainer import distribute_train_state
 
-    cfg = dataclasses.replace(get_config("minicpm-2b"), n_layers=2)
     bundle = build_model(cfg)
-    tc = TrainConfig(n_micro=1, warmup=2, adamw=AdamWConfig(
-        state_dtype=torch.bfloat16))
-    tok = np.random.default_rng(7).integers(0, cfg.vocab_size, (4, 257))
+    tc = TrainConfig(n_micro=1, warmup=2, adamw=adamw)
+    tok = np.random.default_rng(7).integers(0, cfg.vocab_size, (b, t + 1))
     batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
     mesh = make_host_mesh()
 
@@ -2961,19 +2978,78 @@ def parity_mesh_train(torch) -> None:
     p0, m0, met0, l0, s0 = run(False)
     p1, m1, met1, l1, s1 = run(True)
     if l0 != l1:
-        raise AssertionError(f"flash launches differ: {l0} against {l1}")
+        raise AssertionError(f"{label}: flash launches differ: {l0} "
+                             f"against {l1}")
     differ = [f"metric {k}" for k in met0 if not torch.equal(met0[k],
                                                              met1[k])]
     differ += [f"parameter {n}" for n in p0 if not torch.equal(p0[n], p1[n])]
     differ += [f"{k} {n}" for k in m0 for n in m0[k]
                if not torch.equal(m0[k][n], m1[k][n])]
-    log(f"  minicpm-2b x 2 layers, one step of 4 x 256 under use_mesh "
-        f"(card mesh of world size 1) against none: {len(p0)} parameters "
-        f"and both moments compared, {len(differ)} differ; loss "
-        f"{float(met0['loss']):.6f} / {float(met1['loss']):.6f}; step "
-        f"{s0:.2f} s / {s1:.2f} s; flash launches {l1}")
+    log(f"  {label}, one step of {b} x {t} under use_mesh (card mesh of "
+        f"world size 1) against none: {len(p0)} parameters and both "
+        f"moments compared, {len(differ)} differ; loss "
+        f"{float(met0['loss']):.6f} / {float(met1['loss']):.6f}, grad norm "
+        f"{float(met0['grad_norm']):.6f} / {float(met1['grad_norm']):.6f}; "
+        f"step {s0:.2f} s / {s1:.2f} s; flash launches {l1}")
     if differ:
-        raise AssertionError(f"the meshed step differs in {differ[:8]}")
+        raise AssertionError(f"{label}: the meshed step differs in "
+                             f"{differ[:8]}")
+    return l1
+
+
+def parity_mesh_recurrent(torch) -> None:
+    """The recurrent cells' ``local_map`` regions in a training step, as
+    :func:`parity_mesh_train` holds the attention core: a full-width
+    2-layer ``jamba-v0.1-52b`` (one mamba layer, then one attention layer,
+    a dense FFN in each, so float32 AdamW state fits) and one period of
+    ``xlstm-1.3b`` (7 mLSTM + 1 sLSTM layers) at full width, each one bf16
+    step of 2 x 128 under ``use_mesh`` against none, equal bit for bit;
+    jamba's flash forward and backward launched, alike in both."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.optim.adamw import AdamWConfig
+
+    jamba = dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=2,
+                                attn_every=2, attn_offset=1, n_experts=0,
+                                top_k=0)
+    launches = _mesh_step_pair(torch, jamba, AdamWConfig(), b=2, t=128,
+                               label="jamba-v0.1-52b x (mamba, attention)")
+    if not (launches.get("flash_attention", 0) > 0
+            and launches.get("flash_attention_bwd", 0) > 0):
+        raise AssertionError(f"jamba's attention layer launched no flash "
+                             f"forward or backward: {launches}")
+    xl = dataclasses.replace(get_config("xlstm-1.3b"), n_layers=8)
+    _mesh_step_pair(torch, xl, AdamWConfig(), b=2, t=128,
+                    label="xlstm-1.3b x one period (7 mLSTM + 1 sLSTM)")
+
+
+def parity_mesh_compress(torch) -> None:
+    """The compressed all-reduce's mesh form (``compressed_psum_mesh``:
+    quantize, all-gather the words and two scalars over the mesh's
+    ``data`` dim, decode and sum) on the world-1 card mesh against its
+    one-controller form (``compressed_psum``), over 2^24 float32 values on
+    the card: equal bit for bit."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import compress
+
+    mesh = make_host_mesh()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(1 << 24, generator=gen, device="cuda")
+    want = compress.compressed_psum([x])[0]
+    got = compress.compressed_psum_mesh(
+        DTensor.from_local(x, mesh, (Partial(),), run_check=False), mesh,
+        "data").to_local()
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    log(f"  compressed_psum over {x.numel()} values on the card mesh: mesh "
+        f"form {'equal' if same else 'NOT equal'} to the one-controller "
+        f"form bit for bit (max |sum| {float(want.abs().max()):.6f})")
+    if not same:
+        raise AssertionError("compressed_psum_mesh differs from "
+                             "compressed_psum")
 
 
 # the MoE mesh branch's float32 logits, card against CPU (jamba's float32
@@ -3156,17 +3232,23 @@ def parity_mesh_moe_bf16(torch, tokens) -> None:
 
 
 def parity_dryrun_cells(torch) -> None:
-    """Two dry-run cells (``launch/dryrun.py``), printed with their roofline
-    terms: ``minicpm-2b x train_4k`` on the fake 16x16 mesh (fake CUDA
-    tensors), and ``quiver-1m`` (one 4 096-row shard of the 1M x 768 index
-    built and searched on the card)."""
+    """Four dry-run cells (``launch/dryrun.py``), printed with their
+    roofline terms and seconds: ``minicpm-2b x train_4k``, ``jamba-v0.1-52b
+    x prefill_32k`` and ``xlstm-1.3b x train_4k`` at full size on the fake
+    16x16 mesh (fake CUDA tensors; the recurrent cells priced, not run over
+    T), and ``quiver-1m`` (one 4 096-row shard of the 1M x 768 index built
+    and searched on the card)."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import close_mesh
 
+    reports = []
     try:
-        reports = [dryrun.run_cell("minicpm-2b", "train_4k", False,
-                                   DRYRUN_DIR),
-                   dryrun.run_quiver_cell(False, DRYRUN_DIR)]
+        for arch, shape in (("minicpm-2b", "train_4k"),
+                            ("jamba-v0.1-52b", "prefill_32k"),
+                            ("xlstm-1.3b", "train_4k")):
+            reports.append(dryrun.run_cell(arch, shape, False, DRYRUN_DIR,
+                                           time_limit=300.0))
+        reports.append(dryrun.run_quiver_cell(False, DRYRUN_DIR))
     finally:
         close_mesh()
     for rep in reports:
@@ -3182,7 +3264,8 @@ def parity_dryrun_cells(torch) -> None:
             f"{t['collective']:.4e} s: {rep['dominant']}-bound at "
             f"{rep['bound_seconds']:.4e} s, useful flops "
             f"{rep['useful_flops_ratio']:.3f}, MFU at the bound "
-            f"{rep['mfu_at_bound']:.4f}")
+            f"{rep['mfu_at_bound']:.4f}; traced in "
+            f"{rep['compile_seconds']} s")
 
 
 def parity_train(torch) -> None:

@@ -5,8 +5,13 @@ are data-parallel over their batch dim; KV caches additionally TP-shard
 axis 2 (the heads of the canonical (B, S, H, hd) layout).  The rules go by
 axis index, as the reference's do, so on a stacked cache leaf (G, B, S, H,
 hd) axis 2 is the sequence: the reference lays its stacked caches out that
-way, and so does the port.  Every rule is divisibility-guarded: a dim that
-does not divide its axis group stays replicated.
+way, and so does the port.  A recurrent layer's state is a NamedTuple with
+a ``LAYOUT`` (``models/mamba.py``'s ``MambaState``, ``models/xlstm.py``'s
+``MLSTMState`` and ``SLSTMState``): its fields take those logical dims,
+the placements the cells' ``local_map`` regions read and write, where the
+reference's axis rule would split the mLSTM's ``C`` on its key dim and
+leave mamba's state whole on tp.  Every rule is divisibility-guarded: a
+dim that does not divide its axis group stays replicated.
 
 A cache tree is any nesting of tuples, lists and NamedTuples whose leaves
 are tensors or shapes; the result has the same structure with a spec (see
@@ -15,7 +20,8 @@ are tensors or shapes; the result has the same structure with a spec (see
 
 from __future__ import annotations
 
-from repro_torch.dist.sharding import _axis_size, _entry, logical_map
+from repro_torch.dist.sharding import _axis_size, _entry, _spec_for, \
+    logical_map
 
 
 def _shape(leaf) -> tuple:
@@ -68,7 +74,21 @@ def _cache_spec(mesh, lmap: dict, shape: tuple, global_batch: int) -> tuple:
 
 
 def cache_shardings(mesh, c_shapes, global_batch: int):
-    """Serving-cache layout: batch over dp, axis 2 over tp."""
+    """Serving-cache layout: batch over dp, axis 2 over tp; a state with a
+    ``LAYOUT`` by its logical dims."""
     lmap = logical_map(mesh)
-    return tree_map(
-        lambda s: _cache_spec(mesh, lmap, _shape(s), global_batch), c_shapes)
+
+    def walk(tree):
+        layout = getattr(type(tree), "LAYOUT", None)
+        if layout is not None:
+            return type(tree)(*(_spec_for(mesh, lmap, _shape(leaf), dims)
+                                for leaf, dims in zip(tree, layout)))
+        if _is_leaf(tree):
+            return _cache_spec(mesh, lmap, _shape(tree), global_batch)
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        if hasattr(tree, "_fields"):
+            return type(tree)(*(walk(v) for v in tree))
+        return type(tree)(walk(v) for v in tree)
+
+    return walk(c_shapes)

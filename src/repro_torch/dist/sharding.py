@@ -172,6 +172,19 @@ def shard(x, *dims):
     return x.redistribute(mesh, want)
 
 
+def split_heads(y, b: int, t: int, n: int, hd: int):
+    """A projection (B, T, n hd) split into (B, T, n, hd).  Under a mesh a
+    DTensor whose heads do not divide tp cannot be split with its last dim
+    on tp (DTensor cannot unflatten an uneven shard), so that dim is
+    replicated first, as the reference's ``shard`` of the split leaves it."""
+    ctx = active_ctx()
+    if ctx is not None and is_dtensor(y):
+        mesh, lmap = ctx
+        if n % _axis_size(mesh, lmap["tp"]):
+            y = shard(y, "dp", None, None)
+    return y.reshape(b, t, n, hd)
+
+
 # ---------------------------------------------------------------------------
 # parameter layouts
 # ---------------------------------------------------------------------------

@@ -22,16 +22,18 @@ rank of the mesh:
      (``train/train_step.py``), a prefill, or one decode step at the last
      position of the cache (every key visible), counting one device's flops
      and bytes (``tools/op_cost.py``) and its collectives
-     (``tools/collectives.py``); the flash kernels go through their custom
-     ops' fake implementations;
+     (``tools/collectives.py``); the flash kernels and the recurrent
+     cells (mamba's scan, the mLSTM and sLSTM cells) go through their
+     custom ops' fake implementations, and ``tools/op_cost.py`` prices the
+     cells' loops over T without running them;
   4. writes the roofline terms (``tools/roofline.py``), the argument bytes
      (one device's shards) and the peak (``MemTracker``, where it can follow
      the step) to ``experiments/dryrun_torch/<cell>.json``.
 
-Cells the reference skips (``cell_is_supported``) are skipped here.  A cell
-that stops (an op with no DTensor sharding rule: the hybrid, ssm, encdec
-and vlm families' recurrent and patch paths) is written with the error,
-naming the op.
+Cells the reference skips (``cell_is_supported``: ``long_500k`` of the
+full-attention configs) are skipped here; every other cell ends.  A cell
+that stops (an op with no DTensor sharding rule, or one past
+``--cell-seconds``) is written with the error, naming the frame it was in.
 
 ``--arch quiver-1m`` runs the paper's own workload instead: 1 048 576 x 768
 sharded over every rank of the mesh (4 096 rows a shard at 256), 256
@@ -180,10 +182,8 @@ class CellTimeout(Exception):
 
 @contextlib.contextmanager
 def _time_limit(seconds: float | None):
-    """Raise :class:`CellTimeout` in the main thread after ``seconds`` (a
-    recurrent mixer's loop over T runs T steps of DTensor ops, each planned
-    and dispatched on the host: at T = 4 096 it does not end in a cell's
-    time); no limit off the main thread or without ``seconds``."""
+    """Raise :class:`CellTimeout` in the main thread after ``seconds``; no
+    limit off the main thread or without ``seconds``."""
     if not seconds or threading.current_thread() is not threading.main_thread():
         yield
         return

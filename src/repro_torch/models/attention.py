@@ -33,7 +33,7 @@ import torch
 from torch import nn
 
 from repro_torch.dist.sharding import _axis_size, _spec_for, active_ctx, \
-    is_dtensor, placements, shard
+    is_dtensor, placements, shard, split_heads
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.models.layers import Linear, apply_rope, linear
 
@@ -94,20 +94,6 @@ def flash_attention(
     return kflash.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
                                   kv_valid_len=kv_valid_len,
                                   sliding_window=sliding_window)
-
-
-def _heads(y: torch.Tensor, b: int, t: int, n: int,
-           hd: int) -> torch.Tensor:
-    """A projection (B, T, n hd) split into (B, T, n, hd).  Under a mesh a
-    DTensor whose heads do not divide tp cannot be split with its last dim
-    on tp (DTensor cannot unflatten an uneven shard), so that dim is
-    replicated first, as the reference's ``shard`` of the split leaves it."""
-    ctx = active_ctx()
-    if ctx is not None and is_dtensor(y):
-        mesh, lmap = ctx
-        if n % _axis_size(mesh, lmap["tp"]):
-            y = shard(y, "dp", None, None)
-    return y.reshape(b, t, n, hd)
 
 
 def _attend(q, k, v, *, cache: KVCache | None = None, pos: int = 0,
@@ -222,9 +208,9 @@ def attention_forward(
         base = 0 if cache_pos is None else int(cache_pos)
         positions = base + torch.arange(t, device=x.device)[None, :]
 
-    q = _heads(linear(p.wq, x), b, t, n_heads, head_dim)
-    k = _heads(linear(p.wk, x), b, t, n_kv_heads, head_dim)
-    v = _heads(linear(p.wv, x), b, t, n_kv_heads, head_dim)
+    q = split_heads(linear(p.wq, x), b, t, n_heads, head_dim)
+    k = split_heads(linear(p.wk, x), b, t, n_kv_heads, head_dim)
+    v = split_heads(linear(p.wv, x), b, t, n_kv_heads, head_dim)
     q = shard(q, "dp", None, "tp", None)
     k = shard(k, "dp", None, "tp", None)
     v = shard(v, "dp", None, "tp", None)
@@ -253,8 +239,8 @@ def cross_attention_kv(p: Attention, enc_out: torch.Tensor, *,
     """The encoder side's K/V (B, S_enc, K, hd), computed once a sequence
     (whisper's decoder); no rotary."""
     b, s, _ = enc_out.shape
-    k = _heads(linear(p.wk, enc_out), b, s, n_kv_heads, head_dim)
-    v = _heads(linear(p.wv, enc_out), b, s, n_kv_heads, head_dim)
+    k = split_heads(linear(p.wk, enc_out), b, s, n_kv_heads, head_dim)
+    v = split_heads(linear(p.wv, enc_out), b, s, n_kv_heads, head_dim)
     return KVCache(k=shard(k, "dp", None, "tp", None),
                    v=shard(v, "dp", None, "tp", None))
 
@@ -272,7 +258,7 @@ def cross_attention_forward(
     the flash kernel: the tensor-core kernel for T > 1 in bf16, the
     split-KV decode for T = 1."""
     b, t, _ = x.shape
-    q = _heads(linear(p.wq, x), b, t, n_heads, head_dim)
+    q = split_heads(linear(p.wq, x), b, t, n_heads, head_dim)
     q = shard(q, "dp", None, "tp", None)
     out = _attend(q, enc_kv.k, enc_kv.v, causal=False, kv_chunk=kv_chunk)
     return linear(p.wo, out.reshape(b, t, n_heads * head_dim))

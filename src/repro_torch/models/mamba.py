@@ -9,24 +9,45 @@ layer at jamba's served prefill (B 8, T 320, d_inner 8 192).  Here
 d_inner, d_state)`` in float32 and emits ``y_t = h_t . c_t + u_t D`` at
 each step; the sums run in another order than the prefix's, so the two
 agree to float32 rounding (``tests/test_torch_mamba.py`` states the
-tolerance).  The scan is plain torch: the reference's is jnp, outside any
-Pallas kernel.  The causal depthwise conv (width 4) is shifted adds in
-float32, as the reference's.
+tolerance).  The scan is plain torch (the reference's is jnp, outside any
+Pallas kernel), run as the custom op ``repro_torch::ssm_scan``
+(``models/recurrence.py``): :func:`ssm_scan_plain` is its implementation.
+The causal depthwise conv (width 4) is shifted adds in float32, as the
+reference's.
 
-State for serving: ``(conv_state (B, d_conv - 1, d_inner), ssm_state (B,
-d_inner, d_state) float32)``; the conv state holds the layer's last
+Under a mesh the scan runs over local shards: it is independent for each
+batch row and each ``d_inner`` channel, so u, dt, ``a``, ``d_skip`` and the
+state are split over dp (the batch) and tp (``d_inner``), and ``b_mat`` and
+``c_mat``, which ``x_proj`` makes as a sum over the tp shards of
+``d_inner``, are whole on tp; the output comes back split as u is.
+
+State for serving: :class:`MambaState` ``(conv (B, d_conv - 1, d_inner),
+ssm (B, d_inner, d_state) float32)``; the conv state holds the layer's last
 ``d_conv - 1`` inputs, in their dtype.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 from torch import nn
 
 from repro_torch.dist.sharding import shard
+from repro_torch.models import recurrence
 from repro_torch.models.layers import Linear, linear, silu
+
+
+class MambaState(NamedTuple):
+    """A mamba layer's serving state; ``LAYOUT`` gives each field's logical
+    dims under a mesh (``dist/cache_sharding.py``): the conv state as the
+    layer's input (``d_inner`` on tp), the ssm state as the scan's."""
+
+    conv: torch.Tensor          # (B, d_conv - 1, d_inner)
+    ssm: torch.Tensor           # (B, d_inner, d_state) float32
+
+    LAYOUT = (("dp", None, "tp"), ("dp", "tp", None))
 
 
 class Mamba(nn.Module):
@@ -113,9 +134,10 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor,
     return y.to(x.dtype), new_prev
 
 
-def ssm_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-             b_mat: torch.Tensor, c_mat: torch.Tensor, d_skip: torch.Tensor,
-             h0: torch.Tensor | None = None) -> tuple:
+def ssm_scan_plain(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                   b_mat: torch.Tensor, c_mat: torch.Tensor,
+                   d_skip: torch.Tensor,
+                   h0: torch.Tensor | None = None) -> tuple:
     """The selective scan, one step of T at a time, in float32.
 
     u, dt: (B, T, d_inner); a: (d_inner, d_state); b_mat, c_mat: (B, T,
@@ -135,35 +157,64 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y + u * d_skip, h
 
 
+SSM_SCAN = recurrence.define(recurrence.Recurrence(
+    name="ssm_scan",
+    call=lambda xs, ints: ssm_scan_plain(*xs),
+    shapes=lambda xs, ints: [
+        (tuple(xs[0].shape), torch.float32),
+        ((xs[0].shape[0], xs[0].shape[2], xs[2].shape[1]), torch.float32)],
+    t_axes={0: 1, 1: 1, 3: 1, 4: 1},
+    trips=lambda t, ints: t,
+    length=lambda t, ints, n: n,
+), "Tensor u, Tensor dt, Tensor a, Tensor b_mat, Tensor c_mat, "
+   "Tensor d_skip, Tensor? h0")
+
+
+def ssm_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b_mat: torch.Tensor, c_mat: torch.Tensor, d_skip: torch.Tensor,
+             h0: torch.Tensor | None = None) -> tuple:
+    """:func:`ssm_scan_plain` as the op ``repro_torch::ssm_scan``; under a
+    mesh over local shards (the module docstring).  Returns (y (B, T,
+    d_inner), h_T)."""
+    return tuple(recurrence.apply(
+        SSM_SCAN, [u, dt, a, b_mat, c_mat, d_skip, h0], [],
+        dims=[("dp", None, "tp"), ("dp", None, "tp"), ("tp", None),
+              ("dp", None, None), ("dp", None, None), ("tp",),
+              ("dp", "tp", None)],
+        out_dims=[("dp", None, "tp"), ("dp", "tp", None)]))
+
+
 def mamba(p: Mamba, x: torch.Tensor, conv_state: torch.Tensor | None = None,
           ssm_state: torch.Tensor | None = None) -> tuple:
     """The layer over x (B, T, d_model), from the given states (zeros when
-    None).  Returns (out (B, T, d_model) in ``x``'s dtype, (new conv state,
-    new float32 ssm state))."""
+    None).  Returns (out (B, T, d_model) in ``x``'s dtype, the new
+    :class:`MambaState`)."""
     d_state = p.a_log.shape[-1]
     dt_rank = p.x_proj.w.shape[-1] - 2 * d_state
     xin, z = linear(p.in_proj, x).chunk(2, dim=-1)
     xin = shard(xin, "dp", None, "tp")
     xin, new_conv = causal_conv(xin, p.conv_w, conv_state)
     xin = silu(xin)
-    dt_in, b_mat, c_mat = linear(p.x_proj, xin).split(
-        [dt_rank, d_state, d_state], dim=-1)
+    # whole on tp: every d_inner channel reads dt_in, b_mat and c_mat (the
+    # sum over x_proj's tp shards; a no-op outside a mesh)
+    dt_in, b_mat, c_mat = shard(linear(p.x_proj, xin), "dp", None, None) \
+        .split([dt_rank, d_state, d_state], dim=-1)
     dt = torch.nn.functional.softplus(
         linear(p.dt_proj, dt_in).float() + p.dt_bias)
     a = -torch.exp(p.a_log)
     y, last = ssm_scan(xin.float(), dt, a, b_mat.float(), c_mat.float(),
                        p.d_skip, h0=ssm_state)
     y = shard(y.to(x.dtype) * silu(z), "dp", None, "tp")
-    return linear(p.out_proj, y), (new_conv, last)
+    return linear(p.out_proj, y), MambaState(new_conv, last)
 
 
 def init_mamba_state(b: int, d_model: int, *, d_state: int = 16,
                      d_conv: int = 4, expand: int = 2, device=None,
                      dtype=torch.bfloat16) -> tuple:
-    """Zeroed ``(conv_state (B, d_conv - 1, d_inner) in dtype, ssm_state
-    (B, d_inner, d_state) float32)``, as the reference's."""
+    """Zeroed :class:`MambaState` ``(conv (B, d_conv - 1, d_inner) in
+    dtype, ssm (B, d_inner, d_state) float32)``, as the reference's."""
     d_inner = expand * d_model
-    return (torch.zeros((b, d_conv - 1, d_inner), dtype=dtype,
-                        device=device),
-            torch.zeros((b, d_inner, d_state), dtype=torch.float32,
-                        device=device))
+    return MambaState(
+        torch.zeros((b, d_conv - 1, d_inner), dtype=dtype, device=device),
+        torch.zeros((b, d_inner, d_state), dtype=torch.float32,
+                    device=device))

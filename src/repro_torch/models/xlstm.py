@@ -18,20 +18,64 @@ Every state is float32, whatever the parameters' dtype: the mLSTM's ``C``
 are 0.  The chunk's state update ``sum_s w_s k_s v_s^T`` (the reference's
 three-operand einsum) is one product ``(w k)^T v``, which never forms the
 (B, H, L, hd, hd) tensor: 8.6 GB at B = 8 on xlstm-1.3b's hd of 1 024.
+
+The three loops run as custom ops (``models/recurrence.py``):
+``repro_torch::mlstm_chunkwise``, ``mlstm_sequential`` and ``slstm_scan``,
+whose implementations are :func:`mlstm_chunkwise_plain`,
+:func:`mlstm_sequential_plain` and :func:`slstm_scan_plain`.  Under a mesh
+each runs over local shards, the batch on dp:
+
+* the mLSTM cell is separable over v's head dim (``dv``): q, k, the gates
+  and the state's ``n`` and ``m`` are whole on tp, v, ``C``'s value dim and
+  h split over it.  Each tp rank computes the whole ``n`` and ``m``; a
+  gradient taken through the returned state would be summed over tp once
+  a rank, so none is (training starts every sequence from zeros and drops
+  the final state);
+* the sLSTM's ``r_kernel`` mixes every hd of a head at each step, so the
+  cell is whole on every tp rank: one gather in, no collective a step, and
+  the work tp times over (``tools/op_cost.py`` counts it on each device).
+
+Each cell's serving state is a NamedTuple (:class:`MLSTMState`,
+:class:`SLSTMState`) whose ``LAYOUT`` gives those placements to
+``dist/cache_sharding.py``.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.dist.sharding import shard
+from repro_torch.dist.sharding import shard, split_heads
+from repro_torch.models import recurrence
 from repro_torch.models.layers import Linear, linear, silu
 
 NEG = -1e30
+
+
+class MLSTMState(NamedTuple):
+    """An mLSTM layer's state, float32; ``LAYOUT``: each field's logical
+    dims under a mesh (the cell's placements, the module docstring)."""
+
+    c: torch.Tensor             # (B, H, dk, dv)
+    n: torch.Tensor             # (B, H, dk)
+    m: torch.Tensor             # (B, H)
+
+    LAYOUT = (("dp", None, None, "tp"), ("dp", None, None), ("dp", None))
+
+
+class SLSTMState(NamedTuple):
+    """An sLSTM layer's state, each (B, H, hd) float32, whole on tp."""
+
+    c: torch.Tensor
+    n: torch.Tensor
+    m: torch.Tensor
+    h: torch.Tensor
+
+    LAYOUT = (("dp", None, None),) * 4
 
 
 def _mat(d_in: int, d_out: int, device, dtype) -> Linear:
@@ -145,11 +189,11 @@ def init_mlstm_state(b: int, d_model: int, *, n_heads: int,
     """The mLSTM's state before any step: ``(C, n, m)`` of hd =
     ``int(expand * d_model) / n_heads`` (:func:`_zero_state`)."""
     hd = int(expand * d_model) // n_heads
-    return _zero_state(b, n_heads, hd, hd, device)
+    return MLSTMState(*_zero_state(b, n_heads, hd, hd, device))
 
 
-def mlstm_chunkwise(q, k, v, i_gate, f_gate, *, chunk: int = 64,
-                    state: tuple | None = None) -> tuple:
+def mlstm_chunkwise_plain(q, k, v, i_gate, f_gate, *, chunk: int = 64,
+                          state: tuple | None = None) -> tuple:
     """The stabilised chunkwise-parallel mLSTM.
 
     q, k: (B, H, T, dk); v: (B, H, T, dv); i_gate, f_gate: (B, H, T)
@@ -205,10 +249,10 @@ def mlstm_chunkwise(q, k, v, i_gate, f_gate, *, chunk: int = 64,
     return h, (c, n, m)
 
 
-def mlstm_sequential(q, k, v, i_gate, f_gate, *,
-                     state: tuple | None = None) -> tuple:
+def mlstm_sequential_plain(q, k, v, i_gate, f_gate, *,
+                           state: tuple | None = None) -> tuple:
     """The step-by-step recurrence (decode and tests), float32; shapes as
-    :func:`mlstm_chunkwise`'s."""
+    :func:`mlstm_chunkwise_plain`'s."""
     b, nh, t, dk = q.shape
     scale = dk ** -0.5
     c, n, m = _zero_state(b, nh, dk, v.shape[-1], q.device) \
@@ -232,6 +276,78 @@ def mlstm_sequential(q, k, v, i_gate, f_gate, *,
     return torch.stack(outs, dim=2), (c, n, m)
 
 
+def _state(xs: list) -> tuple | None:
+    return None if xs[0] is None else tuple(xs)
+
+
+def _mlstm_shapes(xs, ints):
+    b, nh, t, dk = xs[0].shape
+    dv = xs[2].shape[-1]
+    return [((b, nh, t, dv), torch.float32), ((b, nh, dk, dv), torch.float32),
+            ((b, nh, dk), torch.float32), ((b, nh), torch.float32)]
+
+
+_MLSTM_ARGS = ("Tensor q, Tensor k, Tensor v, Tensor i_gate, Tensor f_gate, "
+               "Tensor? c0, Tensor? n0, Tensor? m0")
+# q, k, v (B, H, T, ·) and the gates (B, H, T): T on dim 2
+_MLSTM_T = {0: 2, 1: 2, 2: 2, 3: 2, 4: 2}
+
+
+def _flat(out) -> tuple:
+    h, state = out
+    return (h, *state)
+
+
+MLSTM_CHUNKWISE = recurrence.define(recurrence.Recurrence(
+    name="mlstm_chunkwise",
+    call=lambda xs, ints: _flat(mlstm_chunkwise_plain(
+        *xs[:5], chunk=ints[0], state=_state(xs[5:]))),
+    shapes=_mlstm_shapes,
+    t_axes=_MLSTM_T,
+    # T padded up to whole chunks: -(-t // chunk) trips
+    trips=lambda t, ints: -(-t // ints[0]),
+    length=lambda t, ints, n: t - (-(-t // ints[0]) - n) * ints[0],
+), _MLSTM_ARGS)
+
+MLSTM_SEQUENTIAL = recurrence.define(recurrence.Recurrence(
+    name="mlstm_sequential",
+    call=lambda xs, ints: _flat(mlstm_sequential_plain(
+        *xs[:5], state=_state(xs[5:]))),
+    shapes=_mlstm_shapes,
+    t_axes=_MLSTM_T,
+    trips=lambda t, ints: t,
+    length=lambda t, ints, n: n,
+), _MLSTM_ARGS)
+
+# q and k whole on tp, v and h split on their last dim (the module docstring)
+_MLSTM_DIMS = [("dp", None, None, None), ("dp", None, None, None),
+               ("dp", None, None, "tp"), ("dp", None, None),
+               ("dp", None, None), *MLSTMState.LAYOUT]
+_MLSTM_OUT = [("dp", None, None, "tp"), *MLSTMState.LAYOUT]
+
+
+def _mlstm(rec, q, k, v, i_gate, f_gate, ints, state) -> tuple:
+    state = (None,) * 3 if state is None else tuple(state)
+    h, c, n, m = recurrence.apply(rec, [q, k, v, i_gate, f_gate, *state],
+                                  ints, _MLSTM_DIMS, _MLSTM_OUT)
+    return h, MLSTMState(c, n, m)
+
+
+def mlstm_chunkwise(q, k, v, i_gate, f_gate, *, chunk: int = 64,
+                    state: tuple | None = None) -> tuple:
+    """:func:`mlstm_chunkwise_plain` as the op
+    ``repro_torch::mlstm_chunkwise``; under a mesh over local shards.
+    Returns (h (B, H, T, dv) float32, :class:`MLSTMState`)."""
+    return _mlstm(MLSTM_CHUNKWISE, q, k, v, i_gate, f_gate, [chunk], state)
+
+
+def mlstm_sequential(q, k, v, i_gate, f_gate, *,
+                     state: tuple | None = None) -> tuple:
+    """:func:`mlstm_sequential_plain` as the op
+    ``repro_torch::mlstm_sequential``; under a mesh over local shards."""
+    return _mlstm(MLSTM_SEQUENTIAL, q, k, v, i_gate, f_gate, [], state)
+
+
 def mlstm_block(p: MLSTM, x: torch.Tensor, *, n_heads: int, chunk: int = 64,
                 state: tuple | None = None) -> tuple:
     """The mLSTM block over x (B, T, d) from ``state`` (zeros and the
@@ -245,7 +361,7 @@ def mlstm_block(p: MLSTM, x: torch.Tensor, *, n_heads: int, chunk: int = 64,
     inner = linear(p.up, x)
     gate = linear(p.gate_proj, x)
     d_inner = inner.shape[-1]
-    inner_h = inner.reshape(b, t, n_heads, d_inner // n_heads)
+    inner_h = split_heads(inner, b, t, n_heads, d_inner // n_heads)
     q, k, v = (torch.einsum("bthd,hde->bhte", inner_h, w)
                for w in (p.wq, p.wk, p.wv))
     v = shard(v, "dp", None, None, "tp")
@@ -258,32 +374,33 @@ def mlstm_block(p: MLSTM, x: torch.Tensor, *, n_heads: int, chunk: int = 64,
         h, new_state = mlstm_chunkwise(q, k, v, i_gate, f_gate,
                                        chunk=min(chunk, max(t, 1)),
                                        state=state)
-    h = shard(h, "dp", None, None, "tp")
+    # h whole on tp from here to the down projection: DTensor cannot
+    # flatten heads whose dim is split, nor split ``norm_scale`` into heads
+    # that do not divide tp (no-ops outside a mesh)
+    h = shard(h, "dp", None, None, None)
     h = _headwise_rmsnorm(h.transpose(1, 2))                    # (B,T,H,hd)
-    h = shard(h.reshape(b, t, d_inner) * p.norm_scale, "dp", None, "tp")
+    h = h.reshape(b, t, d_inner) * shard(p.norm_scale, None)
+    h = shard(h, "dp", None, "tp")
     return linear(p.down, h.to(x.dtype) * silu(gate)), new_state
 
 
 def init_slstm_state(b: int, d_model: int, *, n_heads: int,
-                     device=None) -> tuple:
+                     device=None) -> SLSTMState:
     """``(c, n, m, h)``, each (B, H, hd) float32: 0, 1e-6, -1e30, 0."""
     zeros = torch.zeros((b, n_heads, d_model // n_heads), device=device)
-    return zeros, zeros + 1e-6, zeros + NEG, zeros.clone()
+    return SLSTMState(zeros, zeros + 1e-6, zeros + NEG, zeros.clone())
 
 
-def slstm_block(p: SLSTM, x: torch.Tensor, *, n_heads: int,
-                state: tuple | None = None) -> tuple:
-    """The sLSTM block over x (B, T, d): the recurrence one step at a time
-    in float32 (``w_in`` applied to every step first, ``r_kernel`` in
-    float32), ``norm_scale``, back to ``x``'s dtype, then the GeGLU
-    ``w_ff``.  Returns (out (B, T, d), the new ``(c, n, m, h)``)."""
-    b, t, d = x.shape
-    hd = d // n_heads
-    wx = linear(p.w_in, x).float().reshape(b, t, 4, n_heads, hd)
-    wx = shard(wx, "dp", None, None, None, "tp")
-    r = p.r_kernel.float()                                       # (4,H,hd,hd)
+def slstm_scan_plain(wx: torch.Tensor, r: torch.Tensor,
+                     state: tuple | None = None) -> tuple:
+    """The sLSTM recurrence one step at a time in float32: wx (B, T, 4, H,
+    hd), the input projection of every step; r (4, H, hd, hd), the
+    recurrent kernel; ``state`` ``(c, n, m, h)`` (:func:`init_slstm_state`
+    when None).  Returns (h of every step (B, T, H, hd), (c, n, m, h))."""
+    b, t, _, n_heads, hd = wx.shape
     if state is None:
-        state = init_slstm_state(b, d, n_heads=n_heads, device=x.device)
+        state = init_slstm_state(b, n_heads * hd, n_heads=n_heads,
+                                 device=wx.device)
     c, n, m, h = state
     hs = []
     for s in range(t):
@@ -302,8 +419,50 @@ def slstm_block(p: SLSTM, x: torch.Tensor, *, n_heads: int,
         h = ot * c / torch.clamp(n, min=1e-6)
         m = m_new
         hs.append(h)
-    out = (torch.stack(hs, dim=1).reshape(b, t, d) * p.norm_scale) \
-        .to(x.dtype)
-    # post-up-projection GeGLU FFN
-    g1, g2 = linear(p.w_ff.w1, out).chunk(2, dim=-1)
-    return linear(p.w_ff.w2, silu(g1) * g2), (c, n, m, h)
+    return torch.stack(hs, dim=1), (c, n, m, h)
+
+
+SLSTM_SCAN = recurrence.define(recurrence.Recurrence(
+    name="slstm_scan",
+    call=lambda xs, ints: _flat(slstm_scan_plain(xs[0], xs[1],
+                                                 _state(xs[2:]))),
+    shapes=lambda xs, ints: [
+        ((*xs[0].shape[:2], *xs[0].shape[3:]), torch.float32)] + [
+        ((xs[0].shape[0], *xs[0].shape[3:]), torch.float32)] * 4,
+    t_axes={0: 1},
+    trips=lambda t, ints: t,
+    length=lambda t, ints, n: n,
+), "Tensor wx, Tensor r, Tensor? c0, Tensor? n0, Tensor? m0, Tensor? h0")
+
+
+def slstm_scan(wx: torch.Tensor, r: torch.Tensor,
+               state: tuple | None = None) -> tuple:
+    """:func:`slstm_scan_plain` as the op ``repro_torch::slstm_scan``;
+    under a mesh whole on every tp rank, the batch on dp (the module
+    docstring).  Returns (h of every step, :class:`SLSTMState`)."""
+    state = (None,) * 4 if state is None else tuple(state)
+    hs, *new = recurrence.apply(
+        SLSTM_SCAN, [wx, r, *state], [],
+        [("dp", None, None, None, None), (None,) * 4, *SLSTMState.LAYOUT],
+        [("dp", None, None, None), *SLSTMState.LAYOUT])
+    return hs, SLSTMState(*new)
+
+
+def slstm_block(p: SLSTM, x: torch.Tensor, *, n_heads: int,
+                state: tuple | None = None) -> tuple:
+    """The sLSTM block over x (B, T, d): the recurrence
+    (:func:`slstm_scan`) in float32 (``w_in`` applied to every step first,
+    ``r_kernel`` in float32), ``norm_scale``, back to ``x``'s dtype, then
+    the GeGLU ``w_ff``.  Returns (out (B, T, d), the new
+    :class:`SLSTMState`)."""
+    b, t, d = x.shape
+    hd = d // n_heads
+    # whole on tp (the cell is): the one gather in (a no-op outside a mesh)
+    wx = shard(linear(p.w_in, x).float(), "dp", None, None) \
+        .reshape(b, t, 4, n_heads, hd)
+    hs, new_state = slstm_scan(wx, p.r_kernel.float(), state)
+    out = (hs.reshape(b, t, d) * shard(p.norm_scale, None)).to(x.dtype)
+    # post-up-projection GeGLU FFN, its activations whole on tp
+    g1, g2 = shard(linear(p.w_ff.w1, out), "dp", None, None).chunk(2, dim=-1)
+    return linear(p.w_ff.w2, shard(silu(g1) * g2, "dp", None, None)), \
+        new_state

@@ -22,11 +22,18 @@ one tau, so the port's per-layer parameters are quantized in **groups**:
 the names of one reference leaf, flattened layer after layer as the
 stacked leaf flattens (``models/transformer.py::param_groups``).
 
-``compressed_psum`` is the collective for one controller: the S members'
-tensors each lie on their own device; each is quantized there, its words
-and two scalars are copied to every member's device, and each member
-decodes all S and sums them.  The reference's version runs inside
-``shard_map`` with ``all_gather``.
+The compressed all-reduce comes in two forms.  :func:`compressed_psum_local`
+is the reference's collective over a mesh dimension: each rank quantizes
+its own tensor, all-gathers the words and the two scalars with the
+functional collectives (``dist/compat.py``), then decodes all of them and
+sums, as ``repro/optim/compress.py::compressed_psum(x, axis_name)`` does
+inside ``shard_map``; :func:`compressed_psum_mesh` runs it in a
+``local_map`` region over a DTensor.  Every rank receives each member's
+numel / 4 + 8 bytes (2 bits an element, two float32 scalars),
+:func:`compression_ratio`'s count.  :func:`compressed_psum` is the same for
+one controller, its plain version: the S members' tensors each lie on their own device; each
+is quantized there, its words and two scalars are copied to every member's
+device, and each member decodes all S and sums them.
 """
 
 from __future__ import annotations
@@ -118,6 +125,43 @@ def compressed_psum(xs: list) -> list:
                    for w, a, b in parts]
         out.append(torch.stack(decoded).sum(dim=0))
     return out
+
+
+def compressed_psum_local(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The reference's ``compressed_psum(x, axis_name)``, over local
+    tensors (in a ``local_map`` region): this rank quantizes ``x``,
+    all-gathers every member's words and two scalars over the mesh
+    dimension ``axis``, decodes each and sums them.  Returns the sum,
+    the same on every member."""
+    from repro_torch.dist.compat import all_gather_autograd
+
+    group = mesh.get_group(axis)
+    n = mesh.size(mesh.mesh_dim_names.index(axis))
+    words, cw, cs = sm2_quantize(x)
+    aw = all_gather_autograd(words, 0, group).view(n, -1)
+    acw = all_gather_autograd(cw[None], 0, group)
+    acs = all_gather_autograd(cs[None], 0, group)
+    decoded = [sm2_dequantize(aw[i], acw[i], acs[i], x.numel(), x.shape)
+               for i in range(n)]
+    return torch.stack(decoded).sum(dim=0)
+
+
+def compressed_psum_mesh(x, mesh, axis: str = "data"):
+    """:func:`compressed_psum_local` over a DTensor ``x`` whose value is the sum
+    of its members' local tensors over ``axis`` (``Partial`` there, its
+    other placements kept): the result is ``Replicate`` over ``axis``."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    from repro_torch.dist.compat import local_map
+
+    dim = mesh.mesh_dim_names.index(axis)
+    in_pl = tuple(Partial() if i == dim else p
+                  for i, p in enumerate(x.placements))
+    out_pl = tuple(Replicate() if i == dim else p
+                   for i, p in enumerate(x.placements))
+    return local_map(lambda xl: compressed_psum_local(xl, mesh, axis),
+                     mesh=mesh, in_placements=(in_pl,),
+                     out_placements=(out_pl,))(x)
 
 
 def compression_ratio(params: dict, groups=None) -> float:

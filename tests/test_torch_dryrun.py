@@ -9,14 +9,18 @@ against ``repro.tools``, on the CPU.
   ``2 b m n k`` a product, and every product is the same one: the plain
   attention's einsums are the reference's (every (row, key) pair of the
   full key range), a remat block's forward runs again in its backward in
-  both, and each product's backward is two products in both.
+  both, and each product's backward is two products in both.  jamba's
+  mamba scan, a custom op priced by ``op_cost``, counts as its loop.
+  xlstm's count is below the reference's by a closed form (:func:`_gap`):
+  the products that the port's cells write as elementwise work or skip.
 * ``tools/collectives.py`` on a known ``full_tensor()``.
 * ``tools/report.py``'s tables equal the reference's for the same JSON.
-* Smoke dense and MoE cells of ``launch/dryrun.py`` on fake 16x16 and
-  2x16x16 meshes (a fake process group of 256 or 512 ranks, started for a
-  cell and destroyed with this module): each finishes with every roofline
-  key, the flash kernels counted through their custom ops (pairs they
-  visit, and the dense pairs beside them), and collectives on the mesh.
+* Smoke dense, MoE, hybrid and ssm cells of ``launch/dryrun.py`` on fake
+  16x16 and 2x16x16 meshes (a fake process group of 256 or 512 ranks,
+  started for a cell and destroyed with this module): each finishes within
+  its own time limit with every roofline key, the flash kernels counted
+  through their custom ops (pairs they visit, and the dense pairs beside
+  them), and collectives on the mesh.
 """
 
 import json
@@ -70,7 +74,8 @@ def test_model_flops_match_reference(arch, shape_name):
         == jax_model_flops_for(jax_get_config(arch), JSHAPES[shape_name])
 
 
-@pytest.fixture(scope="module", params=["minicpm-2b", "qwen2-moe-a2.7b"])
+@pytest.fixture(scope="module", params=["minicpm-2b", "qwen2-moe-a2.7b",
+                                        "jamba-v0.1-52b", "xlstm-1.3b"])
 def smoke_pair(request):
     """(arch, the reference's bundle and smoke parameters, the port's
     bundle and model holding the same parameters), float32."""
@@ -96,6 +101,44 @@ def _close(got, want):
     assert abs(got - want) <= DOT_RTOL * want, (got, want)
 
 
+def _gap(cfg, kind: str, b: int, t: int) -> int:
+    """The reference's ``dot_general`` less the port's for a step of
+    ``kind`` over (b, t) tokens: 0 but for xlstm.  Per mLSTM layer (H
+    heads of hd = dk = dv, T padded to whole chunks of L = min(64, T)):
+
+    * forward (prefill), 6 B H T dk: the reference's chunk forms three
+      products that the port writes as elementwise work, the denominator
+      ``einsum('bhtd,bhtd->bht')``, the state's ``einsum('bhs,bhsd->bhd')``
+      and the first product of the three-operand ``einsum('bhs,bhsd,bhsv->
+      bhdv')`` (src_w by k; the port scales k elementwise, then one
+      product with v);
+    * decode, 2 B H dk: the sequential form's denominator einsum;
+    * a training step, the forward's 6 B H T dk, their transposes 12 B H T
+      dk, and 6 B H L dk dv: the reference's scan transposes every chunk's
+      body whole, where autograd skips the gradient of the zero initial
+      state (``q C`` of the first chunk, 2 B H L dk dv) and the last
+      chunk's state update, which nothing reads (its product with v, two
+      transposes, 4 B H L dk dv);
+    * and per sLSTM layer of a training step, 8 B H hd^2: the gradient of
+      the zero initial h through the first step's recurrent einsum, which
+      autograd skips."""
+    if cfg.family != "ssm":
+        return 0
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    n_m, n_s = kinds.count("mlstm"), kinds.count("slstm")
+    h = cfg.n_heads
+    dk = int(cfg.xlstm_expand * cfg.d_model) // h
+    chunk = min(64, t)
+    tt = -(-t // chunk) * chunk
+    if kind == "decode":
+        return n_m * 2 * b * h * dk
+    if kind == "prefill":
+        return n_m * 6 * b * h * tt * dk
+    hd = cfg.d_model // h
+    return n_m * (18 * b * h * tt * dk + 6 * b * h * chunk * dk * dk) \
+        + n_s * 8 * b * h * hd * hd
+
+
 def test_dot_flops_match_reference_train(smoke_pair):
     """One training step (n_micro 1, remat as configured)."""
     arch, jb, params, bundle, model = smoke_pair
@@ -111,7 +154,8 @@ def test_dot_flops_match_reference_train(smoke_pair):
     step = make_train_step(bundle, tc)
     opt = init_opt_state(dict(model.named_parameters()), tc.adamw)
     got = op_cost.trace_cost(step, model, opt, batch)
-    _close(got["by_prim"]["dot_general"], want)
+    _close(got["by_prim"]["dot_general"] + _gap(model.cfg, "train", b, t),
+           want)
 
 
 def test_dot_flops_match_reference_prefill_and_decode(smoke_pair):
@@ -126,13 +170,15 @@ def test_dot_flops_match_reference_prefill_and_decode(smoke_pair):
     with torch.no_grad():
         got = op_cost.trace_cost(bundle.prefill, model, {"tokens": tok},
                                  caches)
-    _close(got["by_prim"]["dot_general"], want)
+    _close(got["by_prim"]["dot_general"] + _gap(model.cfg, "prefill", b, t),
+           want)
     step = _tokens(model.cfg.vocab_size, b, 1, seed=2)
     want = jaxpr_cost.trace_cost(jb.decode, params, jnp.asarray(step),
                                  jcaches, t)["by_prim"]["dot_general"]
     with torch.no_grad():
         got = op_cost.trace_cost(bundle.decode, model, step, caches, t)
-    _close(got["by_prim"]["dot_general"], want)
+    _close(got["by_prim"]["dot_general"] + _gap(model.cfg, "decode", b, 1),
+           want)
 
 
 def test_op_cost_counts_the_flash_custom_ops():
@@ -219,19 +265,29 @@ def test_report_tables_match_reference(tmp_path):
         assert report.fmt_s(x) == jreport.fmt_s(x)
 
 
-# (arch, shape, multi_pod): a dense and a MoE smoke config on both meshes
+# (arch, shape, multi_pod): dense, MoE, hybrid and ssm smoke configs on
+# both meshes
 SMOKE_CELLS = [
     ("minicpm-2b", "train_4k", False),
     ("minicpm-2b", "decode_32k", True),
     ("qwen2-moe-a2.7b", "train_4k", True),
     ("qwen2-moe-a2.7b", "prefill_32k", False),
+    ("jamba-v0.1-52b", "train_4k", False),
+    ("jamba-v0.1-52b", "prefill_32k", True),
+    ("xlstm-1.3b", "train_4k", True),
+    ("xlstm-1.3b", "prefill_32k", False),
+    ("xlstm-1.3b", "decode_32k", False),
 ]
+# a cell's own limit: the recurrent cells' loops over T (4 096 and 32 768
+# steps) are priced, not run, so each ends in seconds on one core
+CELL_SECONDS = 120
 
 
 @pytest.mark.parametrize("arch,shape_name,multi_pod", SMOKE_CELLS)
 def test_smoke_cells_on_fake_meshes(arch, shape_name, multi_pod, tmp_path):
     cfg = get_config(arch).smoke()
-    rep = dryrun.run_cell(arch, shape_name, multi_pod, tmp_path, cfg=cfg)
+    rep = dryrun.run_cell(arch, shape_name, multi_pod, tmp_path, cfg=cfg,
+                          time_limit=CELL_SECONDS)
     assert "error" not in rep, rep.get("error")
     n = 512 if multi_pod else 256
     assert rep["n_chips"] == n
@@ -244,8 +300,12 @@ def test_smoke_cells_on_fake_meshes(arch, shape_name, multi_pod, tmp_path):
     assert rep["collectives"]["total_count"] > 0
     assert rep["memory_analysis"]["argument_size_in_bytes"] > 0
     by = rep["op_costs"]["by_prim"]
-    assert by["flash_attention"] > 0 and by["dot_general"] > 0
-    assert by["flash_attention"] <= by["flash_attention_dense"]
+    assert by["dot_general"] > 0 and by["elementwise"] > 0
+    if cfg.family == "ssm":          # no attention layer
+        assert "flash_attention" not in by
+    else:
+        assert by["flash_attention"] > 0
+        assert by["flash_attention"] <= by["flash_attention_dense"]
     assert rep["model_flops"] == roofline.model_flops_for(cfg,
                                                           SHAPES[shape_name])
     saved = json.loads((tmp_path / f"{rep['cell']}.json").read_text())

@@ -77,6 +77,10 @@ def test_every_module_imports_without_jax_or_repro():
     assert {"repro_torch.models.mamba", "repro_torch.models.xlstm",
             "repro_torch.models.encdec", "repro_torch.configs.xlstm_1_3b",
             "repro_torch.configs.whisper_medium"} <= set(mods)
+    assert {"repro_torch.models.recurrence", "repro_torch.tools.op_cost",
+            "repro_torch.dist.cache_sharding", "repro_torch.dist.sharding",
+            "repro_torch.models.attention", "repro_torch.launch.dryrun",
+            "repro_torch.optim.compress"} <= set(mods)
     _run_fresh(
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
